@@ -1,34 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the port's main path once on one NVIDIA GPU and check it.
+"""Drive the port's main paths once on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels of the mono BSR path from the sources in
-``fastsparse_torch/ops/kernels/csrc/`` and then:
+It builds the six CUDA kernels from the sources in
+``fastsparse_torch/ops/kernels/csrc/`` (one nvcc per source, in parallel)
+and then:
 
-1. kernel phase: calls each kernel's wrapper on the card at the shapes the
-   headline product gives it (banded 50,000 x 50,000, bandwidth 512,
-   density 0.39, 0/1 values, N=128; SpMV; N=32) and holds it against its
-   plain PyTorch version on the same tensors: colmax and quant3 exactly,
-   the mono kernels at max|d|/max|ref| <= 1e-6. Times both with CUDA
-   events (min of batches).
-2. main-path phase: with every launch count set to 0, runs ``operator(m,
+1. mono kernel phase: calls each mono-path kernel's wrapper on the card at
+   the shapes the headline product gives it (banded 50,000 x 50,000,
+   bandwidth 512, density 0.39, 0/1 values, N=128; SpMV; N=32) and holds it
+   against its plain PyTorch version on the same tensors: colmax and quant3
+   exactly, the mono kernels at max|d|/max|ref| <= 1e-6.
+2. mono main-path phase: with every launch count set to 0, ``operator(m,
    format="bsr", transpose=True, device="cuda")`` products through the
    public API: matmat at N=128 and matvec on the headline matrix,
    normal_matmat(X, reg=0.1) on the 12,288 x 12,288 banded matrix (density
    0.35) at N=128, and cg_normal(op, B, reg=50, maxiter=20) at N=32. Each
-   product must be within max|d|/max|ref| < 1e-6 of scipy in float64; the
-   CG residual, recomputed with scipy in float64, must fall below the
-   initial one and agree with the reported one to 1e-3. Every kernel must
-   have launched in this phase.
+   product within max|d|/max|ref| < 1e-6 of scipy in float64; the CG
+   residual, recomputed in float64, must fall below the initial one and
+   agree with the reported one to 1e-3. Every mono kernel must launch.
+3. ELL kernel phase: each mode of the two gather kernels against its
+   plain version, bit-exact, at the main path's shapes: ell_bucket valued
+   whole-row on config A's largest bucket at N=128 and at N=1, packed unit
+   whole-row on a config B bucket, valued and unit chunked (packed pairs,
+   and plain columns against an X past 65,536 rows) on an unsplit build of
+   config A; ell_sweep on one of config B's sweep items at N=128.
+4. ELL main-path phase: with the counts set to 0, config A
+   (``powerlaw(20_000, 20_000, 1_000_000, seed=0)``, f32, BASELINE config 2)
+   through ``operator(m, device="cuda")`` (auto -> ELL, transpose=True):
+   matvec, rmatvec and matmat N=128, each within 1e-6 of scipy f64; config
+   B (``powerlaw(65_536, 65_536, 4_000_000, seed=0, binary=True)``) through
+   ``operator(m, format="ell", transpose=False, device="cuda")``: matmat
+   N=128 within 1e-5. Both gather kernels must launch. Then per-product
+   times, launches per product, the byte bound, and the device's busy and
+   idle share from torch.profiler.
 
-It prints the card's name and power limit, a JSON line of per-kernel
-results and, last, ``{"ok": true, "device": {...}}``. Any failed check
-raises and the script exits non-zero; without a CUDA device, or without
-the ``fastsparse_torch`` package beside it, it exits non-zero and prints
-no result. It imports nothing of JAX.
+Every kernel is timed with CUDA events (min of batches) beside its plain
+version, the least time the card could take for the same work (bytes over
+3.35 TB/s or operations over the type's peak, whichever is larger) and,
+where one PyTorch call computes the same function, that call's time. It
+prints the card's name and power limit, a JSON line of per-kernel results
+and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
+the script exits non-zero; without a CUDA device, or without the
+``fastsparse_torch`` package beside it, it exits non-zero and prints no
+result. It imports nothing of JAX.
 """
 import json
 import subprocess
@@ -36,14 +54,28 @@ import sys
 import time
 from pathlib import Path
 
-KERNEL_SOURCE = "fastsparse_torch/ops/kernels/csrc/bsr_spmm.cu"
+CSRC = "fastsparse_torch/ops/kernels/csrc/"
+SOURCES = {
+    "colmax": CSRC + "bsr_spmm.cu",
+    "quant3_planes": CSRC + "bsr_spmm.cu",
+    "mono_panel": CSRC + "bsr_spmm.cu",
+    "mono_group": CSRC + "bsr_spmm.cu",
+    "ell_bucket": CSRC + "ell_spmm.cu",
+    "ell_sweep": CSRC + "ell_spmm.cu",
+}
 REPLACES = {
     "colmax": "fastsparse/ops/pallas/bsr_spmm.py:619",
     "quant3_planes": "fastsparse/ops/pallas/bsr_spmm.py:665",
     "mono_panel": "fastsparse/ops/pallas/bsr_spmm.py:833",
     "mono_group": "fastsparse/ops/pallas/bsr_spmm.py:1026",
+    "ell_bucket": "fastsparse/ops/pallas/ell_spmm.py:600",
+    "ell_sweep": "fastsparse/ops/pallas/ell_spmm.py:362",
 }
 REL_TOL = 1e-6
+# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 
 
 def check(cond, msg):
@@ -68,8 +100,52 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_phase(op, X, K, time_cuda):
-    """Each kernel against its plain version on the same card tensors."""
+def bound(nbytes, ops, ops_per_s):
+    """Least time the card could take: bytes over the memory rate or
+    operations over the type's peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def compare(name, kern, plain, exact, args, kwargs, time_cuda, quick=False):
+    """A kernel against its plain version on the same card tensors, both
+    timed with CUDA events; returns (result dict, kernel output)."""
+    import torch
+
+    yk = kern(*args, **kwargs)
+    torch.cuda.synchronize()
+    yp = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    check(yk.shape == yp.shape and yk.dtype == yp.dtype,
+          f"{name}: shape/dtype {tuple(yk.shape)} {yk.dtype} vs plain "
+          f"{tuple(yp.shape)} {yp.dtype}")
+    d = (yk.double() - yp.double()).abs().max().item()
+    ref_max = yp.double().abs().max().item()
+    rel = d / (ref_max + 1e-30)
+    if exact:
+        check(torch.equal(yk, yp), f"{name}: not bit-exact (max|d|={d})")
+    else:
+        check(rel <= REL_TOL, f"{name}: rel {rel} > {REL_TOL}")
+    tk = time_cuda(lambda: kern(*args, **kwargs))
+    # the plain versions loop in Python over entries: fewer repetitions
+    slow = dict(reps=2, batches=3, warmup=1) if quick else {}
+    tp = time_cuda(lambda: plain(*args, **kwargs), **slow)
+    print(f"kernel {name}: max_abs_err={d!r} rel={rel!r} "
+          f"ms={tk['min_ms']!r} plain_ms={tp['min_ms']!r}", flush=True)
+    return {"max_abs_err": d, "rel": rel, "ms": tk["min_ms"],
+            "plain_ms": tp["min_ms"]}, yk
+
+
+def library_ms(fn, time_cuda):
+    """Time of one PyTorch call computing the same function (a yardstick
+    only: the port never calls it)."""
+    return time_cuda(fn)["min_ms"]
+
+
+def mono_kernel_phase(op, mb, X, K, time_cuda):
+    """Each mono kernel against its plain version on the same card tensors."""
     import torch
 
     from fastsparse_torch.ops import bsr_ops
@@ -81,47 +157,46 @@ def kernel_phase(op, X, K, time_cuda):
     K_pad = b.n_windows * b.win_slabs * TK
     Xp = torch.zeros((K_pad, 128), dtype=torch.float32, device="cuda")
     Xp[: X.shape[0]] = X
-
-    def compare(name, kern, plain, exact, args, kwargs):
-        yk = kern(*args, **kwargs)
-        torch.cuda.synchronize()
-        yp = plain(*args, **kwargs)
-        torch.cuda.synchronize()
-        check(yk.shape == yp.shape and yk.dtype == yp.dtype,
-              f"{name}: shape/dtype {tuple(yk.shape)} {yk.dtype} vs plain "
-              f"{tuple(yp.shape)} {yp.dtype}")
-        d = (yk.double() - yp.double()).abs().max().item()
-        ref_max = yp.double().abs().max().item()
-        rel = d / (ref_max + 1e-30)
-        if exact:
-            check(torch.equal(yk, yp), f"{name}: not bit-exact (max|d|={d})")
-        else:
-            check(rel <= REL_TOL, f"{name}: rel {rel} > {REL_TOL}")
-        tk = time_cuda(lambda: kern(*args, **kwargs))
-        tp = time_cuda(lambda: plain(*args, **kwargs))
-        print(f"kernel {name}: max_abs_err={d!r} rel={rel!r} "
-              f"ms={tk['min_ms']!r} plain_ms={tp['min_ms']!r}", flush=True)
-        return {"max_abs_err": d, "rel": rel, "ms": tk["min_ms"],
-                "plain_ms": tp["min_ms"]}, yk
+    m = mb.tocsr()
+    A_csr = torch.sparse_csr_tensor(
+        torch.as_tensor(m.indptr, dtype=torch.int64),
+        torch.as_tensor(m.indices, dtype=torch.int64),
+        torch.as_tensor(m.data, dtype=torch.float32), size=m.shape,
+    ).cuda()
 
     # colmax + quant3 on the headline X (K_pad x 128)
-    res["colmax"], m = compare("colmax", K.colmax, K.colmax_plain, True,
-                               (Xp,), {})
-    s = torch.where(m > 0, m, 1.0) * (1.0 / (127.0 * 65536.0))
+    res["colmax"], mx = compare("colmax", K.colmax, K.colmax_plain, True,
+                                (Xp,), {}, time_cuda)
+    res["colmax"].update(bound(Xp.numel() * 4 + 128 * 4, Xp.numel(),
+                               F32_OPS_PER_S))
+    res["colmax"]["library_ms"] = library_ms(
+        lambda: torch.linalg.vector_norm(Xp, ord=float("inf"), dim=0),
+        time_cuda)
+    s = torch.where(mx > 0, mx, 1.0) * (1.0 / (127.0 * 65536.0))
     sinv = 1.0 / s
     res["quant3_planes"], planes = compare(
         "quant3_planes", K.quant3_planes, K.quant3_planes_plain, True,
-        (Xp, sinv), {"n_block": 128},
+        (Xp, sinv), {"n_block": 128}, time_cuda,
     )
+    res["quant3_planes"].update(bound(Xp.numel() * 7 + 128 * 4, Xp.numel(),
+                                      F32_OPS_PER_S))
+    res["quant3_planes"]["library_ms"] = None  # no one PyTorch call does it
+    out_rows = max(b.out_strips, A.n_strips) * A.tile_m
     panel_kw = dict(tile_m=A.tile_m, tile_k=TK, width=b.width,
-                    win_slabs=b.win_slabs,
-                    out_rows=max(b.out_strips, A.n_strips) * A.tile_m)
+                    win_slabs=b.win_slabs, out_rows=out_rows)
     args = (b.window, b.strip_ptr, b.start_rel, b.panels)
     res["mono_panel"], _ = compare(
         "mono_panel[i8w,N=128]", K.mono_panel_spmm, K.mono_panel_spmm_plain,
         False, args + (planes,),
-        dict(panel_kw, n_block=128, fold="i8w", scale=s),
+        dict(panel_kw, n_block=128, fold="i8w", scale=s), time_cuda,
     )
+    ni, TM, PK = b.panels.shape
+    res["mono_panel"].update(bound(
+        b.panels.numel() + planes.numel() + 128 * 4 + out_rows * 128 * 4
+        + 3 * 4 * ni, 2 * ni * TM * PK * 3 * 128, INT8_OPS_PER_S))
+    # the f32 product the kernel serves, through cuSPARSE
+    res["mono_panel"]["library_ms"] = library_ms(
+        lambda: torch.sparse.mm(A_csr, X), time_cuda)
     # narrow per-item mode at N=32 (the CG operand width)
     nq = 32
     nb = bsr_ops._round_up(3 * nq, 32)
@@ -129,7 +204,7 @@ def kernel_phase(op, X, K, time_cuda):
     narrow, _ = compare(
         "mono_panel[narrow,N=32]", K.mono_panel_spmm,
         K.mono_panel_spmm_plain, False, args + (qn,),
-        dict(panel_kw, n_block=nb, fold=False),
+        dict(panel_kw, n_block=nb, fold=False), time_cuda,
     )
     res["mono_panel"].update({f"narrow_{k}": v for k, v in narrow.items()})
     # halo engine at SpMV width (nq=8)
@@ -140,9 +215,274 @@ def kernel_phase(op, X, K, time_cuda):
         "mono_group[halo,N=1]", K.mono_group_spmm, K.mono_group_spmm_plain,
         False, (h.windows, h.start_rel, h.panels, qh),
         dict(tile_m=A.tile_m, tile_k=TK, width=h.width, stride=h.stride,
-             group=h.group),
+             group=h.group), time_cuda,
     )
+    ns, TMh, PKh = h.panels.shape
+    res["mono_group"].update(bound(
+        h.panels.numel() + qh.numel() + ns * TMh * 32 * 4,
+        2 * ns * TMh * PKh * 32, INT8_OPS_PER_S))
+    x1 = X[:, :1].contiguous()
+    res["mono_group"]["library_ms"] = library_ms(
+        lambda: torch.sparse.mm(A_csr, x1), time_cuda)
     return res
+
+
+def x_panel(X, rows_pad):
+    """X padded to ``rows_pad`` rows with zeros (the sentinel row)."""
+    import torch
+
+    Xp = torch.zeros((rows_pad, X.shape[1]), dtype=torch.float32,
+                     device=X.device)
+    Xp[: X.shape[0]] = X
+    return Xp
+
+
+def gather_csr(cols, vals, nx_rows):
+    """A CUDA sparse CSR of the rows a gather computes: ``(n, nx_rows)``,
+    row r holding ``vals[r, k]`` at ``cols[r, k]`` (the cuSPARSE yardstick
+    of the same function)."""
+    import torch
+
+    n, K = cols.shape
+    crow = torch.arange(0, n * K + 1, K, dtype=torch.int64, device=cols.device)
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1).long(),
+                                   vals.reshape(-1), size=(n, nx_rows))
+
+
+def ell_gather_bound(cols, vals_bytes_per_slot, idx_bytes_per_slot, x, unit):
+    """Bytes: the slots' indices (and values) once, each X row the bucket
+    references once, each output row once; operations: a multiply-add (or
+    add) per slot and lane."""
+    import torch
+
+    n, K = cols.shape
+    L = x.shape[1]
+    rows_used = int(torch.unique(cols[cols < x.shape[0]]).numel())
+    nbytes = (n * K * (idx_bytes_per_slot + vals_bytes_per_slot)
+              + rows_used * L * 4 + n * L * 4)
+    return bound(nbytes, n * K * L * (1 if unit else 2), F32_OPS_PER_S)
+
+
+def ell_kernel_phase(EK, opA, A_unsplit, A_unsplit_bin, opB, time_cuda):
+    """Every mode of the two gather kernels against its plain version at
+    the main path's shapes (bit-exact)."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.ops import ell_ops
+
+    g = np.random.default_rng(7)
+    ncolA = opA.shape[1]
+    XA = torch.from_numpy(
+        g.standard_normal((ncolA, 128)).astype(np.float32)).cuda()
+    XpA = x_panel(XA, ell_ops._round_up(ncolA + 1, 8))
+    xpA1 = XpA[:, :1].contiguous()
+    modes = {}
+
+    def run(mode, cols, vals, x, unit, packed, quick=False):
+        r, _ = compare(f"ell_bucket[{mode}]", EK.ell_bucket_spmm,
+                       EK.ell_bucket_spmm_plain, True, (cols, vals, x),
+                       dict(unit=unit, packed=packed), time_cuda, quick)
+        use_packed = EK._body_mode(cols.shape[1], x.shape[0], unit)[2]
+        r.update(ell_gather_bound(cols, 0 if unit else 4,
+                                  2 if use_packed else 4, x, unit))
+        lib_vals = torch.ones_like(vals) if unit else vals
+        Acsr = gather_csr(cols, lib_vals, x.shape[0])
+        r["library_ms"] = library_ms(lambda: torch.sparse.mm(Acsr, x),
+                                     time_cuda)
+        r["shape"] = list(cols.shape)
+        modes[mode] = r
+
+    big = max(opA.fwd.buckets, key=lambda b: b.cols.numel())
+    print(f"config A largest bucket {tuple(big.cols.shape)}", flush=True)
+    run("valued_full,N=128", big.cols, big.vals, XpA, False, None)
+    run("valued_full,N=1", big.cols, big.vals, xpA1, False, None)
+    segB = opB.fwd.segments[0]
+    rows_padB = ell_ops._round_up(segB.shape[1] + 1, 8)
+    XB = torch.from_numpy(
+        g.standard_normal((segB.shape[1], 128)).astype(np.float32)).cuda()
+    XpB = x_panel(XB, rows_padB)
+    bB = max((b for b in segB.buckets if b.width <= 64),
+             key=lambda b: b.cols.numel())
+    run("packed_full,N=128", bB.cols, bB.vals, XpB, True, bB.packed)
+    wide = max((b for b in A_unsplit.buckets if b.width > 64),
+               key=lambda b: b.cols.numel())
+    run("valued_chunked,N=128", wide.cols, wide.vals, XpA, False, None,
+        quick=True)
+    wideb = max((b for b in A_unsplit_bin.buckets if b.width > 64),
+                key=lambda b: b.cols.numel())
+    run("packed_chunked,N=128", wideb.cols, wideb.vals, XpA, True,
+        wideb.packed, quick=True)
+    # plain columns: an X panel past 65,536 rows cannot use 16-bit pairs
+    run("unit_chunked,N=128", wideb.cols, wideb.vals,
+        x_panel(XA, 65_544), True, None, quick=True)
+
+    # sweep: config B segment 0's first sweep item, built as _seg_parts does
+    item = next(b for b, mode, *_ in ell_ops._seg_layout(segB)
+                if mode == "sweep")
+    flats, meta, cols_l = [], [], []
+    for bb, t0, t1, np_ in item:
+        _, cc, _, pp = ell_ops._slice_chunk(bb, segB, t0, t1, np_)
+        flats.append(pp.reshape(-1))
+        meta.append((np_, bb.cols.shape[1] // 2))
+        cols_l.append(cc)
+    flat = torch.cat(flats)
+    sweep, _ = compare("ell_sweep[N=128]", EK.ell_sweep_spmm,
+                       EK.ell_sweep_spmm_plain, True, (flat, XpB),
+                       dict(parts=tuple(meta)), time_cuda)
+    n_slots = sum(c.numel() for c in cols_l)
+    used = int(torch.unique(torch.cat([c.reshape(-1) for c in cols_l])).numel())
+    n_rows = sum(c.shape[0] for c in cols_l)
+    sweep.update(bound(n_slots * 2 + used * 128 * 4 + n_rows * 128 * 4,
+                       n_slots * 128, F32_OPS_PER_S))
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device="cuda")
+    lens = torch.cat([torch.full((c.shape[0],), c.shape[1], device="cuda")
+                      for c in cols_l])
+    crow[1:] = torch.cumsum(lens, 0)
+    Scsr = torch.sparse_csr_tensor(
+        crow, torch.cat([c.reshape(-1) for c in cols_l]).long(),
+        torch.ones(n_slots, device="cuda"), size=(n_rows, rows_padB))
+    sweep["library_ms"] = library_ms(lambda: torch.sparse.mm(Scsr, XpB),
+                                     time_cuda)
+    sweep["parts"] = [list(p) for p in meta]
+    bucket = dict(modes["valued_full,N=128"])
+    bucket["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
+    bucket["modes"] = modes
+    return {"ell_bucket": bucket, "ell_sweep": sweep}
+
+
+def ell_layout_stats(A):
+    """(padded slots, index+value bytes, part rows, launches) of one
+    product over an ELL tiling, from the layout the dispatch walks."""
+    from fastsparse_torch.ops import ell_ops
+
+    segs = A.segments if hasattr(A, "segments") else [A]
+    slots = nbytes = rows = launches = 0
+    for seg in segs:
+        for b, mode, s0, s1, n_pad in ell_ops._seg_layout(seg):
+            subs = b if mode == "sweep" else ((b, s0, s1, n_pad),)
+            launches += 1
+            for bb, t0, t1, np_ in subs:
+                K = bb.cols.shape[1]
+                slots += np_ * K
+                rows += np_
+                per = 2 if bb.packed is not None and seg.unit_vals else (
+                    4 if seg.unit_vals else 8)
+                nbytes += np_ * K * per
+    return slots, nbytes, rows, launches
+
+
+def plan_ops(plan):
+    """An assembly plan's size: multiplicity classes, the widest, and the
+    row gathers and adds `apply_plan` issues (one torch op each)."""
+    return (f"{len(plan.widths)} classes, widest {max(plan.widths)}, "
+            f"{sum(plan.widths)} gathers + {sum(plan.widths) - len(plan.widths)}"
+            f" adds")
+
+
+def device_busy_ms(fn, arg, n=5):
+    """Device time per call (sum of kernel times) under torch.profiler, and
+    the top kernels by device time; None when the profiler sees no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(arg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(arg)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue  # host ops: their device time is their kernels'
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((t / 1e3 / n, e.key))
+    if not rows:
+        return None, []
+    rows.sort(reverse=True)
+    return sum(t for t, _ in rows), rows[:6]
+
+
+def ell_main_phase(ft, K, EK, opA, mA, opB, mB, time_cuda):
+    """Config A and config B products through the public API, counted."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(11)
+    XAn = g.standard_normal((mA.shape[1], 128)).astype(np.float32)
+    xAn = XAn[:, 0].copy()
+    yAn = g.standard_normal(mA.shape[0]).astype(np.float32)
+    XBn = g.standard_normal((mB.shape[1], 128)).astype(np.float32)
+    XA, xA = torch.from_numpy(XAn).cuda(), torch.from_numpy(xAn).cuda()
+    yA, XB = torch.from_numpy(yAn).cuda(), torch.from_numpy(XBn).cuda()
+    torch.cuda.synchronize()
+
+    K.reset_launches()
+    EK.reset_launches()
+    ya = opA.matvec(xA)
+    za = opA.rmatvec(yA)
+    Ya = opA.matmat(XA)
+    Yb = opB.matmat(XB)
+    torch.cuda.synchronize()
+    counts = dict(K.launches, **EK.launches)
+    print(f"ELL main-path launches: {counts}", flush=True)
+    for name, out, shape in (("A.matvec", ya, (mA.shape[0],)),
+                             ("A.rmatvec", za, (mA.shape[1],)),
+                             ("A.matmat", Ya, (mA.shape[0], 128)),
+                             ("B.matmat", Yb, (mB.shape[0], 128))):
+        check(tuple(out.shape) == shape and out.dtype == torch.float32
+              and out.is_cuda, f"{name}: {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite values")
+    mA64, mB64 = mA.astype(np.float64), mB.astype(np.float64)
+    rels = {
+        "A.matvec": rel_err(ya.cpu().numpy(), mA64 @ xAn.astype(np.float64)),
+        "A.rmatvec": rel_err(za.cpu().numpy(), mA64.T @ yAn.astype(np.float64)),
+        "A.matmat": rel_err(Ya.cpu().numpy(), mA64 @ XAn.astype(np.float64)),
+        "B.matmat": rel_err(Yb.cpu().numpy(), mB64 @ XBn.astype(np.float64)),
+    }
+    print(f"ELL rel vs scipy f64: {rels}", flush=True)
+    for name, r in rels.items():
+        check(r < (1e-5 if name.startswith("B") else REL_TOL),
+              f"{name} rel {r}")
+    for name in ("ell_bucket", "ell_sweep"):
+        check(counts[name] > 0, f"kernel {name} never launched on the ELL path")
+
+    products = {
+        "A.matvec": (opA.matvec, xA, opA.fwd, 1, mA.shape),
+        "A.rmatvec": (opA.rmatvec, yA, opA.bwd, 1, mA.shape[::-1]),
+        "A.matmat": (opA.matmat, XA, opA.fwd, 128, mA.shape),
+        "B.matmat": (opB.matmat, XB, opB.fwd, 128, mB.shape),
+    }
+    for name, (fn, arg, tiling, N, shape) in products.items():
+        EK.reset_launches()
+        fn(arg)
+        torch.cuda.synchronize()
+        per = dict(EK.launches)
+        t = time_cuda(fn, arg)
+        slots, idx_bytes, part_rows, _ = ell_layout_stats(tiling)
+        L = 1 if N == 1 else N
+        b = bound(idx_bytes + shape[1] * N * 4 + part_rows * L * 4
+                  + shape[0] * N * 4, slots * N * 2, F32_OPS_PER_S)
+        try:
+            busy, top = device_busy_ms(fn, arg)
+        except Exception as exc:  # the sandbox's profiler is untried
+            print(f"profiler: not measured ({exc!r})", flush=True)
+            busy, top = None, []
+        idle = None if busy is None else max(0.0, 1.0 - busy / t["median_ms"])
+        print(f"ms/product {name} N={N}: min={t['min_ms']!r} "
+              f"median={t['median_ms']!r} launches/product={per} "
+              f"padded_slots={slots} part_rows={part_rows} "
+              f"bound_ms={b['bound_ms']!r} ({b['bound_by']}) "
+              f"device_busy_ms={busy!r} idle_share={idle!r}", flush=True)
+        for tt, key in top:
+            print(f"  device {tt!r} ms  {key[:90]}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -160,9 +500,10 @@ def main() -> int:
     import numpy as np
 
     import fastsparse_torch as ft
-    from fastsparse_torch.bench.matrices import banded
+    from fastsparse_torch.bench.matrices import banded, powerlaw
     from fastsparse_torch.bench.timing import time_cuda
     from fastsparse_torch.ops.kernels import bsr_spmm as K
+    from fastsparse_torch.ops.kernels import ell_spmm as EK
     from fastsparse_torch.ops.kernels._build import build_seconds, load_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,13 +527,18 @@ def main() -> int:
           f"items={fb.ns} narrow={op.fwd.narrow is not None}", flush=True)
     check(op.fwd.is_mono and op.bwd.is_mono, "headline tilings not mono")
     check(op.fwd.narrow is not None, "headline has no halo layout")
+    from fastsparse_torch.linops import _auto_format
+
+    check(_auto_format(ft.binary_coo_from_scipy(mb, device="cuda"),
+                       ft.DEFAULT, None) == "bsr",
+          "format='auto' leaves the tile path on the headline")
     rng = np.random.default_rng(0)
     Xn = rng.standard_normal((mb.shape[1], 128)).astype(np.float32)
     X = torch.from_numpy(Xn).cuda()
 
-    kres = kernel_phase(op, X, K, time_cuda)
+    kres = mono_kernel_phase(op, mb, X, K, time_cuda)
 
-    # ---- main path through the public API
+    # ---- mono main path through the public API
     m2 = banded(12_288, 512, seed=4, density=0.35)
     m2.data[:] = 1.0
     op2 = ft.operator(m2, format="bsr", transpose=True, device="cuda")
@@ -210,13 +556,14 @@ def main() -> int:
     torch.cuda.synchronize()
 
     K.reset_launches()
+    EK.reset_launches()
     Y = op.matmat(X)
     y = op.matvec(x)
     Y2 = op2.normal_matmat(X2, reg=0.1)
     sol = ft.cg_normal(op, B, reg=50.0, maxiter=20)
     torch.cuda.synchronize()
     counts = dict(K.launches)
-    print(f"main-path launches: {counts}", flush=True)
+    print(f"mono main-path launches: {counts}", flush=True)
 
     for name, out, shape in (("matmat", Y, (mb.shape[0], 128)),
                              ("matvec", y, (mb.shape[0],)),
@@ -261,18 +608,59 @@ def main() -> int:
           f"median={t_mv['median_ms']!r}", flush=True)
     print(f"ms/product normal_matmat N=128 (entry 12288): "
           f"min={t_nm['min_ms']!r} median={t_nm['median_ms']!r}", flush=True)
+    del op2, X2, Y2, B, sol
+
+    # ---- the ELL gather engine: config A (BASELINE config 2), config B
+    t0 = time.perf_counter()
+    mA = powerlaw(20_000, 20_000, 1_000_000, seed=0, dtype=np.float32)
+    opA = ft.operator(mA, device="cuda")
+    torch.cuda.synchronize()
+    build_A = time.perf_counter() - t0
+    check(type(opA.fwd).__name__ == "EllMatrix" and opA.fwd.split_rows == 64,
+          f"config A: format='auto' built {type(opA.fwd).__name__}")
+    print(f"config A nnz={mA.nnz} operator build {build_A!r} s: "
+          f"{len(opA.fwd.buckets)} buckets, widths "
+          f"{[b.width for b in opA.fwd.buckets]}, padded slots "
+          f"{opA.fwd.padded_nnz}, plan: {plan_ops(opA.fwd.plan)}",
+          flush=True)
+    t0 = time.perf_counter()
+    mB = powerlaw(65_536, 65_536, 4_000_000, seed=0, binary=True)
+    opB = ft.operator(mB, format="ell", transpose=False, device="cuda")
+    torch.cuda.synchronize()
+    build_B = time.perf_counter() - t0
+    check(type(opB.fwd).__name__ == "SegmentedEll"
+          and len(opB.fwd.segments) == 3, "config B: not 3 ELL segments")
+    print(f"config B nnz={mB.nnz} operator build {build_B!r} s: segments of "
+          f"{[s.shape[1] for s in opB.fwd.segments]} columns, "
+          f"{[s.nnz for s in opB.fwd.segments]} nnz, padded slots "
+          f"{opB.fwd.padded_nnz}, plan: {plan_ops(opB.fwd.plan)}",
+          flush=True)
+    cooA = ft.coo_from_scipy(mA, device="cuda")
+    A_unsplit = ft.build_ell(cooA, split_rows=0, device="cuda")
+    A_unsplit_bin = ft.build_ell(ft.binary_coo_from_scipy(mA, device="cuda"),
+                                 split_rows=0, device="cuda")
+    print(f"config A unsplit widths {[b.width for b in A_unsplit.buckets]}",
+          flush=True)
+
+    kres.update(ell_kernel_phase(EK, opA, A_unsplit, A_unsplit_bin, opB,
+                                 time_cuda))
+    del A_unsplit, A_unsplit_bin, cooA
+    ell_counts = ell_main_phase(ft, K, EK, opA, mA, opB, mB, time_cuda)
+    counts.update({k: ell_counts[k] for k in ("ell_bucket", "ell_sweep")})
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(k == "fastsparse" or k.startswith("fastsparse.")
                   for k in sys.modules), "the JAX package was imported")
     kernels = []
-    for name in ("colmax", "quant3_planes", "mono_panel", "mono_group"):
+    for name in SOURCES:
         r = kres[name]
-        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "launches": counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"]}
-        entry.update({k: v for k, v in r.items() if k.startswith("narrow_")})
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        entry.update({k: v for k, v in r.items()
+                      if k.startswith("narrow_") or k in ("modes", "parts")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

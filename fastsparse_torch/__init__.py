@@ -5,12 +5,18 @@ formats, layouts and products in PyTorch, with every kernel of the ported
 path written by hand in CUDA C++ for NVIDIA Hopper (sm_90a). It imports
 torch and never jax. Ported so far: the mono int8-panel BSR main path
 (`operator(m, format="bsr")`, its products, the normal-equation chain and
-the CG solvers).
+the CG solvers) and the f32 ELL gather engine (`operator(m, format="ell")`
+and ``format="auto"`` where it lands on ELL). Entry points build on the
+card (``device="cuda"``) unless the caller asks for another device.
 """
 from .config import Config, DEFAULT, LANES
 from .formats.coo import COO, BinaryCOO, coo_from_scipy, binary_coo_from_scipy
-from .formats.convert import to_coo
+from .formats.csr import CSR, BinaryCSR, csr_from_scipy, binary_csr_from_scipy
+from .formats.convert import to_coo, to_csr, to_csr_host
 from .formats.bsr import BsrMatrix, MonoGroupBucket, MonoPanelBucket, build_bsr
+from .formats.ell import (
+    EllBucket, EllMatrix, SegmentedEll, build_ell, build_ell_segmented,
+)
 from .linops import SparseOperator, operator
 from .ops.spmm import spmm
 from .ops.spmv import spmv
@@ -21,7 +27,11 @@ from . import interop
 __all__ = [
     "Config", "DEFAULT", "LANES",
     "COO", "BinaryCOO", "coo_from_scipy", "binary_coo_from_scipy", "to_coo",
+    "CSR", "BinaryCSR", "csr_from_scipy", "binary_csr_from_scipy", "to_csr",
+    "to_csr_host",
     "BsrMatrix", "MonoGroupBucket", "MonoPanelBucket", "build_bsr",
+    "EllBucket", "EllMatrix", "SegmentedEll", "build_ell",
+    "build_ell_segmented",
     "SparseOperator", "operator", "spmm", "spmv",
     "CGResult", "cg", "cg_normal", "normal_jacobi",
     "bench", "interop",

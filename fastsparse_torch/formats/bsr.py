@@ -486,7 +486,7 @@ def _build_mono_halo(
 
 def build_bsr(
     mat, config: Config = DEFAULT, dtype=None, mono_only: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> BsrMatrix:
     """Compile a COO matrix into the mono layout on ``device``.
 

@@ -1,13 +1,20 @@
 """Format conversions (counterpart of ``fastsparse/formats/convert.py``).
 
-Only `to_coo` is ported so far; CSR and the sorted conversions come with
-the slices that use them.
+`to_csr` sorts on the matrix's device (a stable key sort: padding to the
+tail, then row, then column, as the reference's ``sort_coo(coo, "row")``)
+and builds ``row_ptr`` as a masked bincount and cumsum. `to_csr_host`
+gives the same CSR from a host lexsort; the builders use it, since format
+compilation is an offline step.
 """
 from __future__ import annotations
 
-from .coo import COO, BinaryCOO
+import numpy as np
+import torch
 
-__all__ = ["to_coo"]
+from .coo import COO, BinaryCOO
+from .csr import CSR, BinaryCSR
+
+__all__ = ["to_coo", "to_csr", "to_csr_host"]
 
 
 def to_coo(mat):
@@ -17,5 +24,58 @@ def to_coo(mat):
     if hasattr(mat, "to_coo"):
         return mat.to_coo()
     raise NotImplementedError(
-        f"to_coo: {type(mat).__name__} is not ported yet (CSR is slice 4)"
+        f"to_coo: {type(mat).__name__} has no COO form in the port"
+    )
+
+
+def _csr_like(coo, row_ptr, rows, cols, vals):
+    if isinstance(coo, BinaryCOO):
+        return BinaryCSR(row_ptr=row_ptr, cols=cols, rows=rows,
+                         shape=coo.shape, n_valid=coo.n_valid)
+    return CSR(row_ptr=row_ptr, cols=cols, vals=vals, rows=rows,
+               shape=coo.shape, n_valid=coo.n_valid)
+
+
+def to_csr(coo):
+    """COO -> CSR (valued or binary) on the COO's device."""
+    nrow = coo.shape[0]
+    valid = coo.valid_mask()
+    order = torch.arange(coo.nnz_cap, device=coo.rows.device)
+    # least significant key first; every sort is stable
+    for key in (coo.cols, coo.rows, (~valid).to(torch.int32)):
+        order = order[torch.sort(key[order], stable=True).indices]
+    rows, cols = coo.rows[order], coo.cols[order]
+    counts = torch.zeros(nrow, dtype=torch.int64, device=rows.device)
+    counts.index_add_(0, rows.long(), valid[order].long())
+    row_ptr = torch.zeros(nrow + 1, dtype=torch.int32, device=rows.device)
+    row_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    vals = None if isinstance(coo, BinaryCOO) else coo.vals[order]
+    return _csr_like(coo, row_ptr, rows, cols, vals)
+
+
+def to_csr_host(coo):
+    """COO -> CSR through a host lexsort; tensors land on the COO's
+    device, padding entries (zeros) at the tail."""
+    dev = coo.rows.device
+    n = coo.n_valid
+    rows = coo.rows[:n].cpu().numpy()
+    cols = coo.cols[:n].cpu().numpy()
+    order = np.lexsort((cols, rows))
+    row_ptr = np.zeros(coo.shape[0] + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=coo.shape[0]), out=row_ptr[1:])
+    pad = coo.nnz_cap - n
+
+    def t(a):
+        a = torch.as_tensor(a, device=dev)
+        if pad:
+            a = torch.cat([a, torch.zeros(pad, dtype=a.dtype, device=dev)])
+        return a
+
+    vals = None
+    if not isinstance(coo, BinaryCOO):
+        vals = t(coo.vals[:n].cpu().numpy()[order])
+    return _csr_like(
+        coo, torch.as_tensor(row_ptr, device=dev),
+        t(rows[order].astype(np.int32)), t(cols[order].astype(np.int32)),
+        vals,
     )

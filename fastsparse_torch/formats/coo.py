@@ -45,7 +45,7 @@ class COO:
 
     @classmethod
     def from_arrays(cls, rows, cols, vals, shape, n_valid: Optional[int] = None,
-                    row_sorted: bool = False, device="cpu"):
+                    row_sorted: bool = False, device="cuda"):
         rows = _index_tensor(rows, device)
         cols = _index_tensor(cols, device)
         vals = torch.as_tensor(np.asarray(vals), device=device)
@@ -97,7 +97,7 @@ class BinaryCOO:
 
     @classmethod
     def from_arrays(cls, rows, cols, shape, n_valid: Optional[int] = None,
-                    row_sorted: bool = False, device="cpu"):
+                    row_sorted: bool = False, device="cuda"):
         rows = _index_tensor(rows, device)
         cols = _index_tensor(cols, device)
         if n_valid is None:
@@ -132,7 +132,7 @@ def _row_sorted(row) -> bool:
     return bool(np.all(np.diff(row) >= 0)) if row.size else True
 
 
-def coo_from_scipy(mat, dtype=None, device="cpu") -> COO:
+def coo_from_scipy(mat, dtype=None, device="cuda") -> COO:
     """Build a :class:`COO` from any scipy.sparse matrix."""
     m = mat.tocoo()
     vals = m.data if dtype is None else m.data.astype(dtype)
@@ -140,7 +140,7 @@ def coo_from_scipy(mat, dtype=None, device="cpu") -> COO:
                            row_sorted=_row_sorted(m.row), device=device)
 
 
-def binary_coo_from_scipy(mat, device="cpu") -> BinaryCOO:
+def binary_coo_from_scipy(mat, device="cuda") -> BinaryCOO:
     m = mat.tocoo()
     return BinaryCOO.from_arrays(m.row, m.col, m.shape,
                                  row_sorted=_row_sorted(m.row), device=device)

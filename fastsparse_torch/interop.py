@@ -1,8 +1,10 @@
 """Carry a compiled operator's layout across packages as numpy arrays.
 
-`reference_arrays` flattens a mono-layout operator into a dict of numpy
-arrays and static ints: the forward and transpose bucket arrays, the
-narrow halo layout, shapes and tile sizes. It reads attributes only, so it
+`reference_arrays` flattens an operator into a dict of numpy arrays and
+static ints: for a mono BSR tiling the bucket arrays, the narrow halo
+layout, shapes and tile sizes; for an ELL tiling (EllMatrix or
+SegmentedEll) every bucket's ``row_ids``, ``cols``, ``vals``, ``packed``
+and ``n_real`` and the assembly plan. It reads attributes only, so it
 takes an operator of either package (the JAX reference's or this port's)
 without importing the other. `operator_from_reference_arrays` rebuilds the
 port's `SparseOperator` from such a dict on a given device; the tests use
@@ -14,7 +16,9 @@ import numpy as np
 import torch
 
 from .formats.bsr import BsrMatrix, MonoGroupBucket, MonoPanelBucket
+from .formats.ell import EllBucket, EllMatrix, SegmentedEll
 from .linops import SparseOperator
+from .ops.assemble import AssemblyPlan
 
 __all__ = ["reference_arrays", "operator_from_reference_arrays"]
 
@@ -24,6 +28,8 @@ _PANEL_INTS = ("width", "win_slabs", "n_windows", "out_strips")
 _GROUP_ARRAYS = ("windows", "start_rel", "panels")
 _GROUP_INTS = ("width", "win_slabs", "n_windows", "group", "out_strips",
                "win_stride")
+_ELL_INTS = ("nnz", "padded_nnz", "split_rows")
+_BUCKET_ARRAYS = ("row_ids", "cols", "vals")
 
 
 def _np(a):
@@ -32,7 +38,51 @@ def _np(a):
     return np.asarray(a)
 
 
+def _plan_arrays(plan, prefix, d):
+    d[prefix + "has_plan"] = plan is not None
+    if plan is None:
+        return
+    d[prefix + "plan.widths"] = tuple(int(w) for w in plan.widths)
+    d[prefix + "plan.n_slots"] = int(plan.n_slots)
+    d[prefix + "plan.layout_key"] = tuple(plan.layout_key)
+    d[prefix + "plan.rowpos"] = _np(plan.rowpos)
+    for k, c in enumerate(plan.classes):
+        d[prefix + f"plan.class{k}"] = _np(c)
+
+
+def _ell_arrays(A, prefix, d):
+    d[prefix + "kind"] = "ell"
+    d[prefix + "shape"] = tuple(int(v) for v in A.shape)
+    d[prefix + "unit_vals"] = bool(A.unit_vals)
+    for k in _ELL_INTS:
+        d[prefix + k] = int(getattr(A, k))
+    d[prefix + "n_buckets"] = len(A.buckets)
+    for i, b in enumerate(A.buckets):
+        p = prefix + f"b{i}."
+        for k in _BUCKET_ARRAYS:
+            d[p + k] = _np(getattr(b, k))
+        d[p + "width"] = int(b.width)
+        d[p + "n_real"] = int(b.n_real)
+        d[p + "has_packed"] = b.packed is not None
+        if b.packed is not None:
+            d[p + "packed"] = _np(b.packed).reshape(d[p + "cols"].shape[0], -1)
+    _plan_arrays(A.plan, prefix, d)
+
+
 def _matrix_arrays(A, prefix, d):
+    if hasattr(A, "col_offsets"):  # SegmentedEll
+        d[prefix + "kind"] = "ell-seg"
+        d[prefix + "shape"] = tuple(int(v) for v in A.shape)
+        d[prefix + "nnz"] = int(A.nnz)
+        d[prefix + "seg_cols"] = int(A.seg_cols)
+        d[prefix + "col_offsets"] = tuple(int(v) for v in A.col_offsets)
+        for i, seg in enumerate(A.segments):
+            _ell_arrays(seg, prefix + f"seg{i}.", d)
+        _plan_arrays(A.plan, prefix, d)
+        return
+    if hasattr(A, "unit_vals"):  # EllMatrix
+        _ell_arrays(A, prefix, d)
+        return
     d[prefix + "shape"] = tuple(int(v) for v in A.shape)
     d[prefix + "binary"] = bool(A.binary)
     for k in _MATRIX_INTS:
@@ -58,7 +108,7 @@ def _matrix_arrays(A, prefix, d):
 
 
 def reference_arrays(op) -> dict:
-    """Flatten a mono-layout operator (either package) into a dict of
+    """Flatten a mono-BSR or ELL operator (either package) into a dict of
     numpy arrays and static ints, keyed ``fwd.*`` and ``bwd.*``."""
     d = {"shape": tuple(int(v) for v in op.shape),
          "has_bwd": op.bwd is not None}
@@ -68,7 +118,59 @@ def reference_arrays(op) -> dict:
     return d
 
 
-def _matrix_from(d, prefix, device) -> BsrMatrix:
+def _plan_from(d, prefix, device):
+    if not d[prefix + "has_plan"]:
+        return None
+    widths = d[prefix + "plan.widths"]
+    return AssemblyPlan(
+        classes=tuple(
+            torch.as_tensor(np.array(d[prefix + f"plan.class{k}"]),
+                            device=device)
+            for k in range(len(widths))
+        ),
+        rowpos=torch.as_tensor(np.array(d[prefix + "plan.rowpos"]),
+                               device=device),
+        widths=tuple(widths),
+        n_slots=d[prefix + "plan.n_slots"],
+        layout_key=tuple(d[prefix + "plan.layout_key"]),
+    )
+
+
+def _ell_from(d, prefix, device) -> EllMatrix:
+    buckets = []
+    for i in range(d[prefix + "n_buckets"]):
+        p = prefix + f"b{i}."
+        t = {k: torch.as_tensor(np.array(d[p + k]), device=device)
+             for k in _BUCKET_ARRAYS}
+        packed = None
+        if d[p + "has_packed"]:
+            packed = torch.as_tensor(np.array(d[p + "packed"]), device=device)
+        buckets.append(EllBucket(width=d[p + "width"], n_real=d[p + "n_real"],
+                                 packed=packed, **t))
+    return EllMatrix(
+        buckets=tuple(buckets), shape=tuple(d[prefix + "shape"]),
+        unit_vals=d[prefix + "unit_vals"], plan=_plan_from(d, prefix, device),
+        **{k: d[prefix + k] for k in _ELL_INTS},
+    )
+
+
+def _matrix_from(d, prefix, device):
+    kind = d[prefix + "kind"]
+    if kind == "ell":
+        return _ell_from(d, prefix, device)
+    if kind == "ell-seg":
+        offsets = d[prefix + "col_offsets"]
+        return SegmentedEll(
+            segments=tuple(_ell_from(d, prefix + f"seg{i}.", device)
+                           for i in range(len(offsets))),
+            col_offsets=tuple(offsets), seg_cols=d[prefix + "seg_cols"],
+            shape=tuple(d[prefix + "shape"]), nnz=d[prefix + "nnz"],
+            plan=_plan_from(d, prefix, device),
+        )
+    return _bsr_from(d, prefix, device)
+
+
+def _bsr_from(d, prefix, device) -> BsrMatrix:
     def t(k, dtype=None):
         return torch.as_tensor(np.array(d[prefix + k]), dtype=dtype,
                                device=device)
@@ -97,7 +199,7 @@ def _matrix_from(d, prefix, device) -> BsrMatrix:
     )
 
 
-def operator_from_reference_arrays(d: dict, device="cpu") -> SparseOperator:
+def operator_from_reference_arrays(d: dict, device="cuda") -> SparseOperator:
     """The port's `SparseOperator` holding exactly the layout in ``d``
     (as made by `reference_arrays`), on ``device``."""
     fwd = _matrix_from(d, "fwd.", device)

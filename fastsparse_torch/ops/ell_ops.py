@@ -1,0 +1,211 @@
+"""ELL gather-engine dispatch (counterpart of ``fastsparse/ops/ell_ops.py``,
+the f32 path).
+
+Bridges `formats.ell` to the gather kernels (`ops.kernels.ell_spmm`): pads
+each column segment's X panel (a zero sentinel row past its columns),
+walks the part-slot layout `_seg_layout` (bucket chunks and merged packed
+sweeps), launches one kernel per part, and assembles Y through the
+build-time gather plan (`ops.assemble`) or, without one, a row
+``index_add_``.
+
+The budgets and flags below are the reference's layout parameters, kept
+as module attributes of the same names so tests can monkeypatch them in
+both packages: they fix which slots share a launch, and so the plan, not
+anything of this card (one bucket row's sum never crosses a chunk). The
+SMEM-blocked kernel behind ``USE_SMEM_PATH`` is not ported, and the
+fp64-class (dd) products wait for slice 4.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..formats.ell import EllMatrix, SegmentedEll
+from . import assemble as _assemble
+from .kernels.ell_spmm import (
+    ELL_GROUP,
+    SMEM_BLOCK_K_UNIT,
+    SMEM_BLOCK_K_VALUED,
+    ell_bucket_spmm,
+    ell_sweep_spmm,
+    packed_pair_ok,
+)
+
+__all__ = ["ell_spmm", "gather_engine_supported", "gather_engine_fits"]
+
+LANES = 128
+# flat entries per launch in the reference (its SMEM scalar-prefetch budget)
+_SMEM_IDX_BUDGET_UNIT = 128 * 1024
+_SMEM_IDX_BUDGET_VALUED = 64 * 1024
+# one launch per bucket through the SMEM-blocked kernel (not ported)
+USE_SMEM_PATH = False
+# merge packed width-class chunks into multi-part sweep launches
+USE_SWEEP = True
+# the reference's X-panel residency budget (`gather_engine_fits`)
+X_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def gather_engine_supported(dtype) -> bool:
+    return dtype == torch.float32
+
+
+def gather_engine_fits(ncol: int, n_rhs: int, itemsize: int = 4) -> bool:
+    """The reference's test that one 128-lane X panel stays resident; the
+    dispatch keeps it so both packages take the same engine."""
+    nb = min(_round_up(max(n_rhs, 1), LANES), 512)
+    nb = min(nb, LANES)
+    return _round_up(max(ncol, 8), 8) * nb * itemsize <= X_VMEM_BUDGET
+
+
+def _chunk_ranges(nb: int, K: int, budget: int):
+    """Slot ranges (s0, s1, n_pad) covering a bucket under the budget; the
+    tail chunk keeps its own 8-row-rounded height."""
+    nb_max = max(ELL_GROUP, (budget // max(K, 1)) // 8 * 8)
+    if nb <= nb_max:
+        yield 0, nb, nb
+        return
+    for s0 in range(0, nb, nb_max):
+        s1 = min(s0 + nb_max, nb)
+        yield s0, s1, min(-(-(s1 - s0) // 8) * 8, nb_max)
+
+
+def _seg_layout(seg, budget=None):
+    """THE part-slot layout of one segment, consumed by the compute path
+    (`_seg_parts`), the plan builder (`ops.assemble._slot_stream`) and the
+    tests. Yields per appended part ``(bucket, mode, s0, s1, n_pad)``:
+    "chunk" (slots [s0, s1) padded to n_pad rows), "smem" (a whole bucket)
+    or, for packed sub-parts merged into one launch,
+    ``(subparts, "sweep", 0, 0, 0)`` with ``subparts`` a tuple of
+    ``(bucket, s0, s1, n_pad)``. A ``budget`` override always chunks."""
+    unit = seg.unit_vals
+    b_eff = (
+        budget
+        if budget is not None
+        else (_SMEM_IDX_BUDGET_UNIT if unit else _SMEM_IDX_BUDGET_VALUED)
+    )
+    k_cap = SMEM_BLOCK_K_UNIT if unit else SMEM_BLOCK_K_VALUED
+    # packed-pair buckets take half the index words per slot: their
+    # budget doubles (the kernel applies the same test)
+    rows_pad = _round_up(max(seg.shape[1] + 1, 8), 8)
+    pend, pend_entries = [], 0  # sweep accumulator (packed sub-parts)
+    cap_entries = 2 * b_eff if USE_SWEEP else 0
+
+    def flush():
+        nonlocal pend, pend_entries
+        if len(pend) == 1:
+            b_, s0_, s1_, n_ = pend[0]
+            yield b_, "chunk", s0_, s1_, n_
+        elif pend:
+            yield tuple(pend), "sweep", 0, 0, 0
+        pend, pend_entries = [], 0
+
+    for b in seg.buckets:
+        nb, K = b.cols.shape
+        pair_ok = budget is None and unit and packed_pair_ok(K, rows_pad)
+        packable = pair_ok and b.packed is not None
+        b_bucket = 2 * b_eff if pair_ok else b_eff
+        if budget is None and USE_SMEM_PATH and nb * K > b_bucket and K <= k_cap:
+            yield from flush()
+            yield b, "smem", 0, nb, nb
+            continue
+        for s0, s1, n_pad in _chunk_ranges(nb, K, b_bucket):
+            if not packable:
+                yield from flush()
+                yield b, "chunk", s0, s1, n_pad
+                continue
+            if pend_entries + n_pad * K > cap_entries:
+                yield from flush()
+            pend.append((b, s0, s1, n_pad))
+            pend_entries += n_pad * K
+    yield from flush()
+
+
+def _slice_chunk(b, ell, s0, s1, n_pad):
+    """Bucket slots [s0, s1) padded to n_pad rows (padding rows: zero
+    values, sentinel columns). Returns ``(row_ids, cols, vals, packed)``."""
+    nb, K = b.cols.shape
+    pk = b.packed
+    if (s0, s1, n_pad) == (0, nb, nb):
+        return b.row_ids, b.cols, b.vals, pk
+    rid, cc, vv = b.row_ids[s0:s1], b.cols[s0:s1], b.vals[s0:s1]
+    pp = None if pk is None else pk[s0:s1]
+    if s1 - s0 < n_pad:
+        pad = n_pad - (s1 - s0)
+        pad_col = ell.shape[1] if ell.unit_vals else 0
+        rid = torch.cat([rid, rid.new_zeros(pad)])
+        cc = torch.cat([cc, cc.new_full((pad, K), pad_col)])
+        vv = torch.cat([vv, vv.new_zeros((pad, K))])
+        if pp is not None:
+            # packed sentinel pair: both halves the sentinel column
+            pad_p = pad_col | (pad_col << 16)
+            pad_p = pad_p - 2**32 if pad_p >= 2**31 else pad_p
+            pp = torch.cat([pp, pp.new_full((pad, K // 2), pad_p)])
+    return rid, cc, vv, pp
+
+
+def _seg_parts(ell: EllMatrix, Xseg, rids, parts):
+    """Append one segment's per-part products to (rids, parts), one kernel
+    launch per layout item, in layout order."""
+    unit = ell.unit_vals
+    for b, mode, s0, s1, n_pad in _seg_layout(ell):
+        if mode == "sweep":
+            flats, rid_l, meta = [], [], []
+            for bb, t0, t1, np_ in b:
+                rid, _cc, _vv, pp = _slice_chunk(bb, ell, t0, t1, np_)
+                flats.append(pp.reshape(-1))
+                rid_l.append(rid)
+                meta.append((np_, bb.cols.shape[1] // 2))
+            parts.append(ell_sweep_spmm(torch.cat(flats), Xseg,
+                                        parts=tuple(meta)))
+            rids.append(torch.cat(rid_l))
+            continue
+        if mode == "smem":
+            raise NotImplementedError(
+                "USE_SMEM_PATH: the SMEM-blocked gather kernel "
+                "(ell_bucket_spmm_smem) is not ported yet"
+            )
+        row_ids, cols, vals, packed = _slice_chunk(b, ell, s0, s1, n_pad)
+        parts.append(ell_bucket_spmm(cols, vals, Xseg, unit=unit,
+                                     packed=packed))
+        rids.append(row_ids)  # padding rows add zeros
+
+
+def _lanes(N: int) -> int:
+    """X and part lanes: N rounded up to 4 (16-byte rows) from N = 4 on."""
+    return N if N < 4 else _round_up(N, 4)
+
+
+def ell_spmm(A, X):
+    """``Y = A @ X`` through the gather kernels. A: EllMatrix or
+    SegmentedEll (f32). X: f32 ``(ncol, N)`` on A's device."""
+    nrow, ncol = A.shape
+    N = X.shape[1]
+    segs = (
+        list(zip(A.col_offsets, A.segments))
+        if isinstance(A, SegmentedEll)
+        else [(0, A)]
+    )
+    L = _lanes(N)
+    rids, parts = [], []
+    for off, seg in segs:
+        seg_ncol = seg.shape[1]
+        # +1: the unit-mode sentinel column (ncol) must hit a zero X row
+        rows_pad = _round_up(max(seg_ncol + 1, 8), 8)
+        Xseg = torch.zeros((rows_pad, L), dtype=torch.float32, device=X.device)
+        Xseg[:seg_ncol, :N] = X[off : off + seg_ncol]
+        _seg_parts(seg, Xseg, rids, parts)
+    plan = A.plan
+    if (
+        parts
+        and plan is not None
+        and plan.layout_key == _assemble.layout_key()
+        and plan.n_slots == sum(int(p.shape[0]) for p in parts)
+    ):
+        return _assemble.apply_plan(plan, torch.cat(parts))[:, :N]
+    Y = torch.zeros((nrow, L), dtype=torch.float32, device=X.device)
+    if parts:
+        Y.index_add_(0, torch.cat(rids).long(), torch.cat(parts))
+    return Y[:, :N]

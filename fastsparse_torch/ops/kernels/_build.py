@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use by ``nvcc`` straight
-into a shared library with a plain C interface, and loaded with `ctypes`
-(no PyTorch headers, so a build takes seconds, not minutes, and needs no
-``ninja``). The library lands in ``fastsparse_torch/_build/`` under a name
+The sources under ``csrc/`` are compiled at first use by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with `ctypes` (no PyTorch
+headers, so a build takes seconds, not minutes, and needs no ``ninja``). The library lands in ``fastsparse_torch/_build/`` under a name
 keyed on a hash of the sources and flags, so an edited source is rebuilt
 and a stale library is never loaded. A failed build raises.
 """
@@ -25,19 +25,21 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the launchers in csrc/bsr_spmm.cu (every pointer and the
-# stream as c_void_p: a bare Python int would be cut to 32 bits)
+# C signatures of the launchers in csrc/*.cu (every pointer and the stream
+# as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
     "fs_colmax": (_P, _I, _I, _P, _P),
     "fs_quant3": (_P, _P, _I, _I, _I, _P, _P),
     "fs_mono_panel": (_P, _P, _P, _P, _P, _P, _P)
     + (_I,) * 9 + (_P,),
     "fs_mono_group": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
+    "fs_ell_bucket": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
+    "fs_ell_sweep": (_P,) * 6 + (_I, _I, _P),
 }
 
 _build_seconds = 0.0
@@ -53,6 +55,14 @@ def _nvcc() -> str:
         if c and Path(c).is_file():
             return c
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
 
 
 def _sources():
@@ -77,13 +87,22 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = tmp.with_name(f"{tmp.stem}.{src.stem}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        results = [(p, *p.communicate()) for p in procs]
+        for p, so, se in results:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{so}\n{se}")
+        _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, out)
         _build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))

@@ -70,15 +70,15 @@ def _check(name, t, dtype, ndim, device=None):
         raise ValueError(f"{name}: CUDA kernels take contiguous tensors")
 
 
-def _launch(name, fn, *args):
+def _launch(name, fn, *args, counts=launches):
     """Call one C launcher on the current stream; raise on a refused
     launch (a refused launch never runs, and a synchronize would not
-    report it)."""
+    report it). Counts the launch in ``counts[name]``."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    launches[name] += 1
+    counts[name] += 1
 
 
 def _library_for(t):

@@ -1,0 +1,309 @@
+// Hand-written Hopper (sm_90a) kernels for the f32 ELL gather engine.
+//
+// Two kernels, each the CUDA counterpart of one Pallas TPU kernel in
+// fastsparse/ops/pallas/ell_spmm.py:
+//
+//   fs_ell_bucket  <- ell_bucket_spmm   one ELL bucket:
+//                                       Y[r] = sum_k v[r,k] * X[col[r,k]]
+//                                       (all five bodies: _body, _body_unit,
+//                                       _body_full, _body_full_packed,
+//                                       _body_unit_packed)
+//   fs_ell_sweep   <- ell_sweep_spmm    packed unit gather over several
+//                                       width classes in one launch, rows
+//                                       in sub-part order
+//
+// Every launcher takes raw device pointers, sizes and a cudaStream_t, runs
+// on that stream, allocates nothing and returns cudaGetLastError() so the
+// Python wrapper can raise on a refused launch.
+//
+// Bound on this card: device-memory (and L2) bytes. Each slot reads its
+// index (4 B, or 2 B packed), its value (4 B, valued mode) and one X row
+// of N floats; each output row is written once. There are no reductions
+// across threads and no tensor-core work. The X rows a bucket gathers are
+// scattered, so they come from L2 (50 MB) once a panel is warm: at N=128
+// one slot moves a 512 B X row through L2, and the kernel's time is the
+// L2 gather traffic rather than the device-memory bytes of the bound.
+//
+// Design: threads run along the N lanes of X, a row's lanes split over
+// TPR = min(32, next_pow2(N/V)) threads that each own V consecutive lanes
+// (V = 4, one 16-byte load, when N is a multiple of 4 and the buffers are
+// 16-byte aligned; else V = 1). At N = 128 one warp owns one bucket row and
+// each gathered X row is one fully coalesced 512 B load; at N = 1 (SpMV)
+// a thread owns a row. Each thread reads its row's indices (and values)
+// itself, in place of the TPU's scalar prefetch, and X through L2: the
+// TPU kernel's "X resident in VMEM" does not translate (a 21,889-row
+// panel at 128 lanes is 11.2 MB against 227 KB of shared memory).
+//
+// Lane padding: the wrapper pads X to N rounded up to 4 lanes (N itself
+// below 4), not to the TPU's 128-lane blocks, which would move 128x the X
+// bytes at N = 1. The slot layout, the plan and the real columns are the
+// reference's.
+//
+// Arithmetic, the reference's in the reference's order: four accumulators
+// per row, entry u of a chunk going to accumulator u % 4 (in packed mode
+// pair u's c0 is entry 2u, its c1 entry 2u+1), combined as
+// ((acc0 + acc1) + acc2) + acc3. A whole-row body (K <= 64, and every
+// sweep part) stores that sum; a chunked body adds each KB-entry chunk's
+// sum into a zeroed output in chunk order. Products x*v are rounded before
+// the add (explicit _rn intrinsics, and the library is built with
+// --fmad=false). The accumulators start at +0, which gives the reference's
+// values up to the sign of a zero result.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int ELL_THREADS = 256;
+constexpr int SWEEP_MAX_PARTS = 128;
+
+// the sweep's static part table, passed by value as a grid constant
+struct SweepParts {
+  int n;
+  int row0[SWEEP_MAX_PARTS + 1];  // first output row of each part; [n] = total
+  int k2[SWEEP_MAX_PARTS];        // packed pairs per row
+  int wbase[SWEEP_MAX_PARTS];     // first packed word of the part
+};
+
+template <int V>
+__device__ __forceinline__ void load_x(const float* __restrict__ x, size_t off,
+                                       float (&r)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(x + off));
+    r[0] = t.x;
+    r[1] = t.y;
+    r[2] = t.z;
+    r[3] = t.w;
+  } else {
+    r[0] = __ldg(x + off);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_out(float* __restrict__ out, size_t off,
+                                          const float (&o)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(out + off) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+    out[off] = o[0];
+  }
+}
+
+template <int V, bool UNIT>
+__device__ __forceinline__ void add_entry(float (&acc)[V],
+                                          const float* __restrict__ x, int c,
+                                          float v, int ldx, int col0) {
+  float r[V];
+  load_x<V>(x, (size_t)c * ldx + col0, r);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    acc[i] = UNIT ? __fadd_rn(acc[i], r[i]) : __fadd_rn(acc[i], __fmul_rn(r[i], v));
+  }
+}
+
+// column of entry e of a row: plain int32, or half of a packed pair
+// (c0 = p & 0xFFFF, c1 = p >> 16 logical)
+template <bool PACKED>
+__device__ __forceinline__ int col_at(const int32_t* __restrict__ idx, int e) {
+  if constexpr (PACKED) {
+    const uint32_t p = (uint32_t)__ldg(idx + (e >> 1));
+    return (e & 1) ? (int)(p >> 16) : (int)(p & 0xFFFFu);
+  } else {
+    return __ldg(idx + e);
+  }
+}
+
+template <bool UNIT>
+__device__ __forceinline__ float val_at(const float* __restrict__ vals, int e) {
+  if constexpr (UNIT) {
+    return 1.0f;
+  } else {
+    return __ldg(vals + e);
+  }
+}
+
+// One bucket row's K entries for lanes [col0, col0 + V): chunks of KB
+// entries, four accumulators per chunk. full: store the single chunk's
+// sum; else add each chunk's sum into a zeroed output in order.
+template <int V, bool UNIT, bool PACKED>
+__device__ __forceinline__ void row_sum(const int32_t* __restrict__ idx,
+                                        const float* __restrict__ vals,
+                                        const float* __restrict__ x, int ldx,
+                                        int col0, int K, int KB, bool full,
+                                        float (&o)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = 0.0f;
+  for (int t0 = 0; t0 < K; t0 += KB) {
+    float a0[V], a1[V], a2[V], a3[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) a0[i] = a1[i] = a2[i] = a3[i] = 0.0f;
+    int u = 0;
+    for (; u + 4 <= KB; u += 4) {
+      const int e = t0 + u;
+      const int c0 = col_at<PACKED>(idx, e);
+      const int c1 = col_at<PACKED>(idx, e + 1);
+      const int c2 = col_at<PACKED>(idx, e + 2);
+      const int c3 = col_at<PACKED>(idx, e + 3);
+      const float v0 = val_at<UNIT>(vals, e);
+      const float v1 = val_at<UNIT>(vals, e + 1);
+      const float v2 = val_at<UNIT>(vals, e + 2);
+      const float v3 = val_at<UNIT>(vals, e + 3);
+      add_entry<V, UNIT>(a0, x, c0, v0, ldx, col0);
+      add_entry<V, UNIT>(a1, x, c1, v1, ldx, col0);
+      add_entry<V, UNIT>(a2, x, c2, v2, ldx, col0);
+      add_entry<V, UNIT>(a3, x, c3, v3, ldx, col0);
+    }
+    // a chunk length that is not a multiple of 4 keeps its tail
+    if (u < KB) {
+      add_entry<V, UNIT>(a0, x, col_at<PACKED>(idx, t0 + u),
+                         val_at<UNIT>(vals, t0 + u), ldx, col0);
+    }
+    if (u + 1 < KB) {
+      add_entry<V, UNIT>(a1, x, col_at<PACKED>(idx, t0 + u + 1),
+                         val_at<UNIT>(vals, t0 + u + 1), ldx, col0);
+    }
+    if (u + 2 < KB) {
+      add_entry<V, UNIT>(a2, x, col_at<PACKED>(idx, t0 + u + 2),
+                         val_at<UNIT>(vals, t0 + u + 2), ldx, col0);
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float s = __fadd_rn(__fadd_rn(__fadd_rn(a0[i], a1[i]), a2[i]), a3[i]);
+      o[i] = full ? s : __fadd_rn(o[i], s);
+    }
+  }
+}
+
+template <int V, bool UNIT, bool PACKED>
+__global__ void __launch_bounds__(ELL_THREADS)
+ell_bucket_kernel(const int32_t* __restrict__ idx,
+                  const float* __restrict__ vals,
+                  const float* __restrict__ x, float* __restrict__ out, int nb,
+                  int K, int KB, int full, int ldx, int tpr_log2) {
+  const int tpr = 1 << tpr_log2;
+  const int r = blockIdx.x * (ELL_THREADS >> tpr_log2) + (threadIdx.x >> tpr_log2);
+  const int col0 = (blockIdx.y * tpr + (threadIdx.x & (tpr - 1))) * V;
+  if (r >= nb || col0 >= ldx) return;
+  const int kw = PACKED ? K / 2 : K;  // index words per row
+  float o[V];
+  row_sum<V, UNIT, PACKED>(idx + (size_t)r * kw,
+                           UNIT ? nullptr : vals + (size_t)r * K, x, ldx, col0,
+                           K, KB, full != 0, o);
+  store_out<V>(out, (size_t)r * ldx + col0, o);
+}
+
+template <int V>
+__global__ void __launch_bounds__(ELL_THREADS)
+ell_sweep_kernel(const int32_t* __restrict__ words, const float* __restrict__ x,
+                 float* __restrict__ out, const __grid_constant__ SweepParts parts,
+                 int ldx, int tpr_log2) {
+  const int tpr = 1 << tpr_log2;
+  const int r = blockIdx.x * (ELL_THREADS >> tpr_log2) + (threadIdx.x >> tpr_log2);
+  const int col0 = (blockIdx.y * tpr + (threadIdx.x & (tpr - 1))) * V;
+  if (r >= parts.row0[parts.n] || col0 >= ldx) return;
+  int p = 0;
+  while (r >= parts.row0[p + 1]) ++p;
+  const int K2 = parts.k2[p];
+  float o[V];
+  row_sum<V, true, true>(words + parts.wbase[p] + (size_t)(r - parts.row0[p]) * K2,
+                         nullptr, x, ldx, col0, 2 * K2, 2 * K2, true, o);
+  store_out<V>(out, (size_t)r * ldx + col0, o);
+}
+
+// lane split: V lanes per thread, TPR = 2^tpr_log2 threads per row
+struct LaneSplit {
+  int vec4;
+  int tpr_log2;
+  int n_col_blocks;
+};
+
+LaneSplit lane_split(const void* x, const void* out, int ldx) {
+  LaneSplit s;
+  s.vec4 = (ldx % 4 == 0) && ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  const int nvec = s.vec4 ? ldx / 4 : ldx;
+  s.tpr_log2 = 0;
+  while ((1 << s.tpr_log2) < nvec && s.tpr_log2 < 5) ++s.tpr_log2;
+  s.n_col_blocks = (nvec + (1 << s.tpr_log2) - 1) >> s.tpr_log2;
+  return s;
+}
+
+template <int V>
+int launch_bucket(const int32_t* idx, const float* vals, const float* x,
+                  float* out, int nb, int K, int KB, int full, int unit,
+                  int packed, int ldx, const LaneSplit& s, cudaStream_t st) {
+  const int rows_per_block = ELL_THREADS >> s.tpr_log2;
+  dim3 grid((nb + rows_per_block - 1) / rows_per_block, s.n_col_blocks);
+  if (unit && packed) {
+    ell_bucket_kernel<V, true, true><<<grid, ELL_THREADS, 0, st>>>(
+        idx, vals, x, out, nb, K, KB, full, ldx, s.tpr_log2);
+  } else if (unit) {
+    ell_bucket_kernel<V, true, false><<<grid, ELL_THREADS, 0, st>>>(
+        idx, vals, x, out, nb, K, KB, full, ldx, s.tpr_log2);
+  } else if (!packed) {
+    ell_bucket_kernel<V, false, false><<<grid, ELL_THREADS, 0, st>>>(
+        idx, vals, x, out, nb, K, KB, full, ldx, s.tpr_log2);
+  } else {
+    return (int)cudaErrorInvalidValue;  // packed pairs are unit-only
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// idx: cols int32 (nb, K), or packed pairs (nb, K/2) when packed = 1;
+// vals: f32 (nb, K), unused (may be null) when unit = 1; x: f32 (x_rows,
+// ldx); out: f32 (nb, ldx). KB divides K; full = 1 needs KB == K.
+int fs_ell_bucket(const int32_t* idx, const float* vals, const float* x,
+                  float* out, int nb, int K, int KB, int full, int unit,
+                  int packed, int ldx, void* stream) {
+  if (nb > 0 && ldx > 0 && K > 0) {
+    if (KB <= 0 || K % KB || (full && KB != K) || (packed && K % 2)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const LaneSplit s = lane_split(x, out, ldx);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int rc = s.vec4
+        ? launch_bucket<4>(idx, vals, x, out, nb, K, KB, full, unit, packed, ldx, s, st)
+        : launch_bucket<1>(idx, vals, x, out, nb, K, KB, full, unit, packed, ldx, s, st);
+    if (rc) return rc;
+  }
+  return (int)cudaGetLastError();
+}
+
+// words: the parts' packed pairs concatenated row-major; row0 (n_parts+1),
+// k2 and wbase (n_parts) are HOST arrays, copied into the launch's grid
+// constant; out: f32 (row0[n_parts], ldx), rows in part order.
+int fs_ell_sweep(const int32_t* words, const float* x, float* out,
+                 const int32_t* row0, const int32_t* k2, const int32_t* wbase,
+                 int n_parts, int ldx, void* stream) {
+  if (n_parts <= 0 || n_parts > SWEEP_MAX_PARTS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SweepParts parts;
+  parts.n = n_parts;
+  for (int p = 0; p < n_parts; ++p) {
+    parts.row0[p] = row0[p];
+    parts.k2[p] = k2[p];
+    parts.wbase[p] = wbase[p];
+  }
+  parts.row0[n_parts] = row0[n_parts];
+  const int total = row0[n_parts];
+  if (total > 0 && ldx > 0) {
+    const LaneSplit s = lane_split(x, out, ldx);
+    const int rows_per_block = ELL_THREADS >> s.tpr_log2;
+    dim3 grid((total + rows_per_block - 1) / rows_per_block, s.n_col_blocks);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (s.vec4) {
+      ell_sweep_kernel<4><<<grid, ELL_THREADS, 0, st>>>(words, x, out, parts, ldx,
+                                                        s.tpr_log2);
+    } else {
+      ell_sweep_kernel<1><<<grid, ELL_THREADS, 0, st>>>(words, x, out, parts, ldx,
+                                                        s.tpr_log2);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,241 @@
+"""The two ELL gather kernels: CUDA wrappers and their plain PyTorch twins.
+
+Counterpart of ``fastsparse/ops/pallas/ell_spmm.py`` (f32 path). On a CUDA
+tensor each public function launches the hand-written sm_90a kernel from
+``csrc/ell_spmm.cu`` (built at first use, `_build.load_library`) and adds
+one to its entry in `launches`; a build or launch failure raises. On a CPU
+tensor it runs the ``*_plain`` version: the same gathers and the same
+accumulation order in eager torch ops, which is also the on-card oracle.
+
+The body a bucket takes is the reference's choice (`_body_mode`): whole-row
+unroll for ``K <= _FULL_K_MAX`` (over packed column pairs for unit buckets
+that pass `packed_pair_ok`), else chunks of ``_pick_kb(K)`` entries (of
+``2·KB2`` entries over packed pairs). The constants are the reference's
+layout parameters, kept for parity; they are not limits of this card.
+
+Interface differences from the reference kernels: no ``n_block``. The CUDA
+kernel covers all of X's lanes in one launch, so ``x`` may have any lane
+count and the output has the same; the reference's 128-lane blocks are a
+TPU tiling.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .bsr_spmm import _check, _launch, _library_for, _ptr
+
+__all__ = [
+    "launches",
+    "reset_launches",
+    "ELL_GROUP",
+    "SMEM_BLOCK_K_UNIT",
+    "SMEM_BLOCK_K_VALUED",
+    "packed_pair_ok",
+    "ell_bucket_spmm",
+    "ell_bucket_spmm_plain",
+    "ell_sweep_spmm",
+    "ell_sweep_spmm_plain",
+]
+
+ELL_GROUP = 8  # bucket rows per TPU grid step; bucket heights are multiples
+_N_ACC = 4  # accumulators per row; entry u of a chunk goes to u % 4
+_KB_MAX = 16  # entries per chunk of the chunked bodies
+_FULL_K_MAX = 64  # widths up to this run the whole-row body
+_PACKED_KB_MAX = 32  # packed pairs per chunk of the chunked packed body
+# widths the reference's SMEM-blocked kernel takes (layout parameter of
+# `ops.ell_ops._seg_layout`; that kernel is not ported)
+SMEM_BLOCK_K_UNIT = 8192
+SMEM_BLOCK_K_VALUED = 4096
+_SWEEP_MAX_PARTS = 128  # SWEEP_MAX_PARTS in csrc/ell_spmm.cu
+
+# kernel launches per wrapper (CUDA path only; the plain versions never count)
+launches = {"ell_bucket": 0, "ell_sweep": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def packed_pair_ok(K: int, nx_rows: int) -> bool:
+    """True when a unit bucket of width K against an X panel of ``nx_rows``
+    rows (sentinel included) may use packed 16-bit column pairs."""
+    return K % 2 == 0 and nx_rows <= 65536
+
+
+def _pick_kb(K: int) -> int:
+    """Entries per chunk: the largest divisor of K that is <= _KB_MAX (KB
+    must divide K, or a row's tail entries would be dropped)."""
+    for kb in range(min(_KB_MAX, K), 0, -1):
+        if K % kb == 0:
+            return kb
+    return 1
+
+
+def _pack_pairs(cols):
+    """int32[nb, K even] -> packed int32[nb·K/2] (c0 | c1<<16)."""
+    c0 = cols[:, 0::2].long()
+    c1 = cols[:, 1::2].long()
+    p = c0 | (c1 << 16)
+    return torch.where(p >= 2**31, p - 2**32, p).to(torch.int32).reshape(-1)
+
+
+def _unpack_pairs(words):
+    """packed int32[n, K2] -> int32[n, 2·K2] columns (c0, c1 interleaved)."""
+    c0 = words & 0xFFFF
+    c1 = (words >> 16) & 0xFFFF  # logical shift of the 32-bit word
+    return torch.stack([c0, c1], dim=2).reshape(words.shape[0], -1)
+
+
+def _body_mode(K: int, nx_rows: int, unit: bool):
+    """(KB, full, packed): entries per chunk, whole-row body or not, and
+    whether the body reads packed pairs, as the reference picks them."""
+    if K <= _FULL_K_MAX:
+        return K, True, unit and packed_pair_ok(K, nx_rows)
+    if unit and packed_pair_ok(K, nx_rows):
+        K2 = K // 2
+        kb2 = next(kb for kb in range(min(_PACKED_KB_MAX, K2), 0, -1)
+                   if K2 % kb == 0)
+        return 2 * kb2, False, True
+    return _pick_kb(K), False, False
+
+
+def _gather_rows(cols, vals, x, KB: int, full: bool):
+    """``Σ_k vals[r, k]·x[cols[r, k]]`` per row (unit when ``vals`` is
+    None) in the kernels' order: chunks of KB entries, entry u of a chunk
+    into accumulator u % 4, ``((a0 + a1) + a2) + a3``, the chunk sums
+    added into a zeroed output (stored directly when ``full``)."""
+    nb, K = cols.shape
+    idx = cols.long()
+    out = torch.zeros((nb, x.shape[1]), dtype=torch.float32, device=x.device)
+    for t0 in range(0, K, KB):
+        acc = [torch.zeros_like(out) for _ in range(_N_ACC)]
+        for u in range(KB):
+            d = x[idx[:, t0 + u]]
+            if vals is not None:
+                d = d * vals[:, t0 + u, None]
+            acc[u % _N_ACC] = acc[u % _N_ACC] + d
+        s = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+        out = s if full else out + s
+    return out
+
+
+def _bucket_words(cols, packed):
+    nb, K = cols.shape
+    words = packed if packed is not None else _pack_pairs(cols)
+    return words.reshape(nb, K // 2)
+
+
+def ell_bucket_spmm_plain(cols, vals, x, *, unit: bool = False, packed=None):
+    nb, K = cols.shape
+    KB, full, use_packed = _body_mode(K, x.shape[0], unit)
+    if use_packed:
+        cols = _unpack_pairs(_bucket_words(cols, packed))
+    return _gather_rows(cols, None if unit else vals, x, KB, full)
+
+
+def ell_bucket_spmm(cols, vals, x, *, unit: bool = False, packed=None):
+    """One ELL bucket's ``Y_b = A_b @ X``: f32 ``(nb, x.shape[1])``.
+
+    Replaces ``ell_spmm.py:ell_bucket_spmm`` (all five bodies). ``cols``
+    int32 ``(nb, K)``; ``vals`` f32 ``(nb, K)`` (ignored when ``unit``);
+    ``x`` f32 ``(nx_rows, N)``. In unit mode padding columns must point at
+    a zero row of ``x`` (the builder's sentinel). ``packed``: the bucket's
+    build-time pairs int32 ``(nb, K/2)``; without it the packed bodies pack
+    ``cols`` per call."""
+    dev = x.device
+    _check("ell_bucket.cols", cols, torch.int32, 2, dev)
+    _check("ell_bucket.x", x, torch.float32, 2)
+    nb, K = cols.shape
+    if nb % ELL_GROUP:
+        raise ValueError(f"ell_bucket: nb={nb} not a multiple of {ELL_GROUP}")
+    if not unit:
+        _check("ell_bucket.vals", vals, torch.float32, 2, dev)
+        if tuple(vals.shape) != (nb, K):
+            raise ValueError("ell_bucket: vals and cols disagree")
+    KB, full, use_packed = _body_mode(K, x.shape[0], unit)
+    if use_packed and packed is not None:
+        _check("ell_bucket.packed", packed, torch.int32, packed.ndim, dev)
+        if packed.numel() != nb * K // 2:
+            raise ValueError("ell_bucket: packed pairs disagree with cols")
+    lib = _library_for(x)
+    if lib is None:
+        return ell_bucket_spmm_plain(cols, vals, x, unit=unit, packed=packed)
+    idx = _bucket_words(cols, packed).contiguous() if use_packed else cols
+    out = torch.empty((nb, x.shape[1]), dtype=torch.float32, device=dev)
+    _launch(
+        "ell_bucket", lib.fs_ell_bucket, _ptr(idx),
+        None if unit else _ptr(vals), _ptr(x), _ptr(out), nb, K, KB,
+        int(full), int(unit), int(use_packed), x.shape[1], counts=launches,
+    )
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _sweep_table(parts):
+    """Host part table of a sweep: row0 (n+1), K2 and first word per part,
+    int32 (the kernel's grid constant)."""
+    row0, k2, wbase = [0], [], []
+    w = 0
+    for n_rows, K2 in parts:
+        if n_rows % ELL_GROUP:
+            raise ValueError(f"ell_sweep: part of {n_rows} rows is not a "
+                             f"multiple of {ELL_GROUP}")
+        row0.append(row0[-1] + n_rows)
+        k2.append(K2)
+        wbase.append(w)
+        w += n_rows * K2
+    if w >= 2**31 or row0[-1] >= 2**31:
+        raise ValueError("ell_sweep: part table past int32")
+    return (np.asarray(row0, np.int32), np.asarray(k2, np.int32),
+            np.asarray(wbase, np.int32), w)
+
+
+def ell_sweep_spmm_plain(flat_words, x, *, parts):
+    row0, k2, wbase, _ = _sweep_table(tuple(parts))
+    outs = []
+    for p, (n_rows, K2) in enumerate(parts):
+        w0 = int(wbase[p])
+        words = flat_words[w0 : w0 + n_rows * K2].reshape(n_rows, K2)
+        outs.append(_gather_rows(_unpack_pairs(words), None, x, 2 * K2, True))
+    if not outs:
+        return torch.zeros((0, x.shape[1]), dtype=torch.float32, device=x.device)
+    return torch.cat(outs)
+
+
+def ell_sweep_spmm(flat_words, x, *, parts):
+    """Unit-mode multi-bucket sweep: f32 ``(Σ n_rows, x.shape[1])``.
+
+    Replaces ``ell_spmm.py:ell_sweep_spmm``. ``parts`` is a tuple of
+    ``(n_rows, K2)`` per sub-part (each ``n_rows`` a multiple of
+    ELL_GROUP); ``flat_words`` int32 concatenates each sub-part's packed
+    pairs row-major. Every part runs the whole-row packed body; output rows
+    come in sub-part order, the order `ops.assemble` consumes."""
+    parts = tuple((int(n), int(k)) for n, k in parts)
+    _check("ell_sweep.words", flat_words, torch.int32, 1, x.device)
+    _check("ell_sweep.x", x, torch.float32, 2)
+    row0, k2, wbase, n_words = _sweep_table(parts)
+    if flat_words.numel() != n_words:
+        raise ValueError(f"ell_sweep: {flat_words.numel()} words, the parts "
+                         f"need {n_words}")
+    if x.shape[0] > 65536:
+        raise ValueError("ell_sweep: packed pairs address at most 65536 X rows")
+    lib = _library_for(x)
+    if lib is None:
+        return ell_sweep_spmm_plain(flat_words, x, parts=parts)
+    if not 0 < len(parts) <= _SWEEP_MAX_PARTS:
+        raise NotImplementedError(
+            f"ell_sweep CUDA kernel takes 1..{_SWEEP_MAX_PARTS} parts, "
+            f"got {len(parts)}"
+        )
+    out = torch.empty((int(row0[-1]), x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    _launch(
+        "ell_sweep", lib.fs_ell_sweep, _ptr(flat_words), _ptr(x), _ptr(out),
+        row0.ctypes.data, k2.ctypes.data, wbase.ctypes.data, len(parts),
+        x.shape[1], counts=launches,
+    )
+    return out

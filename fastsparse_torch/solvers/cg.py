@@ -65,7 +65,7 @@ def cg(matvec: Callable, b, x0=None, *, tol: float = 1e-6,
     return _cg_impl(matvec, b, x0, tol, maxiter)
 
 
-def normal_jacobi(mat, reg: float = 0.0, device="cpu"):
+def normal_jacobi(mat, reg: float = 0.0, device="cuda"):
     """Inverse Jacobi diagonal of ``AᵀA + reg·I``: ``1 / (Σ_i A_ij² + reg)``,
     from a scipy matrix or a port COO; pass it as ``cg_normal(...,
     precond=...)``."""

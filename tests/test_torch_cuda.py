@@ -5,8 +5,9 @@ only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors (colmax and quant3 bit-exact, the mono kernels at max|d|/max|ref|
-<= 1e-6), and operator products against scipy in float64.
+tensors (colmax, quant3 and every ELL gather body bit-exact, the mono
+kernels at max|d|/max|ref| <= 1e-6), and operator products against scipy
+in float64.
 """
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import fastsparse_torch as ft
 from fastsparse_torch.formats import bsr as tbsr
 from fastsparse_torch.ops import bsr_ops
 from fastsparse_torch.ops.kernels import bsr_spmm as tk
+from fastsparse_torch.ops.kernels import ell_spmm as ek
 
 pytestmark = pytest.mark.cuda
 
@@ -138,3 +140,92 @@ def test_operator_tile_m8_on_card(card, monkeypatch, N):
     Z = op.normal_matmat(torch.from_numpy(X).cuda(), reg=0.5).cpu().numpy()
     ref = md.T @ (md @ X) + 0.5 * X
     assert np.abs(Z - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+# (K, unit, packed): every body of the bucket kernel. K <= 64 is the
+# whole-row body; past it the chunked bodies, with chunk lengths 13 (valued
+# 130), 15 (unit 135) and 50 (packed 200: 25 pairs), none a multiple of 4.
+ELL_MODES = {
+    "valued_full": (48, False, False),
+    "unit_full": (7, True, False),
+    "packed_full": (64, True, True),
+    "valued_chunked": (130, False, False),
+    "unit_chunked": (135, True, False),
+    "packed_chunked": (200, True, True),
+}
+
+
+def _ell_inputs(K, lanes, seed, nb=40, ncol=3000):
+    g = np.random.default_rng(seed)
+    rows_pad = -(-(ncol + 1) // 8) * 8
+    cols = g.integers(0, ncol, (nb, K)).astype(np.int32)
+    cols[-3:, K // 2 :] = ncol  # sentinel padding slots (a zero X row)
+    vals = g.standard_normal((nb, K)).astype(np.float32)
+    x = g.standard_normal((rows_pad, lanes)).astype(np.float32)
+    x[ncol:] = 0.0
+    return (torch.from_numpy(cols).cuda(), torch.from_numpy(vals).cuda(),
+            torch.from_numpy(x).cuda())
+
+
+@pytest.mark.parametrize("lanes", [1, 6, 128, 260])
+@pytest.mark.parametrize("mode", sorted(ELL_MODES))
+def test_ell_bucket_kernel_matches_plain(card, mode, lanes):
+    K, unit, packed = ELL_MODES[mode]
+    cols, vals, x = _ell_inputs(K, lanes, seed=K + lanes)
+    pk = ek._pack_pairs(cols).reshape(cols.shape[0], K // 2) if packed else None
+    assert ek._body_mode(K, x.shape[0], unit)[2] == packed
+    ek.reset_launches()
+    yk = ek.ell_bucket_spmm(cols, vals, x, unit=unit, packed=pk)
+    torch.cuda.synchronize()
+    assert ek.launches["ell_bucket"] == 1
+    yp = ek.ell_bucket_spmm_plain(cols, vals, x, unit=unit, packed=pk)
+    assert yk.shape == (cols.shape[0], lanes) and torch.equal(yk, yp)
+
+
+@pytest.mark.parametrize("lanes", [1, 128])
+def test_ell_sweep_kernel_matches_plain(card, lanes):
+    parts = ((16, 2), (8, 5), (24, 32), (8, 1))
+    g = np.random.default_rng(lanes)
+    ncol = 20_000
+    words = []
+    for n_rows, K2 in parts:
+        c = g.integers(0, ncol + 1, (n_rows, 2 * K2)).astype(np.int32)
+        words.append(ek._pack_pairs(torch.from_numpy(c)))
+    flat = torch.cat(words).cuda()
+    x = torch.from_numpy(
+        g.standard_normal((ncol + 8, lanes)).astype(np.float32)).cuda()
+    x[ncol:] = 0.0
+    ek.reset_launches()
+    yk = ek.ell_sweep_spmm(flat, x, parts=parts)
+    torch.cuda.synchronize()
+    assert ek.launches["ell_sweep"] == 1
+    assert torch.equal(yk, ek.ell_sweep_spmm_plain(flat, x, parts=parts))
+
+
+@pytest.mark.parametrize("fmt", ["auto", "ell"])
+def test_ell_operator_on_card_vs_scipy(card, fmt):
+    """auto lands on ELL for a valued power-law; format="ell" on a binary
+    matrix past SEG_COLS builds three column segments (sweeps and chunks).
+    Products through the card's kernels against scipy in float64."""
+    if fmt == "auto":
+        m = ft.bench.matrices.powerlaw(3000, 3000, 60_000, seed=1)
+    else:
+        m = ft.bench.matrices.powerlaw(2000, 60_000, 80_000, seed=2,
+                                       binary=True)
+    op = ft.operator(m, format=fmt, device=card)
+    assert type(op.fwd).__name__ == ("EllMatrix" if fmt == "auto"
+                                     else "SegmentedEll")
+    md = m.astype(np.float64)
+    ek.reset_launches()
+    for N in (1, 16, 128):
+        X = np.random.default_rng(N).standard_normal(
+            (m.shape[1], N)).astype(np.float32)
+        Y = op.matmat(torch.from_numpy(X).cuda()).cpu().numpy()
+        ref = md @ X.astype(np.float64)
+        assert np.abs(Y - ref).max() <= 1e-6 * np.abs(ref).max()
+    y = np.random.default_rng(0).standard_normal(m.shape[0]).astype(np.float32)
+    z = op.rmatvec(torch.from_numpy(y).cuda()).cpu().numpy()
+    ref = md.T @ y.astype(np.float64)
+    assert np.abs(z - ref).max() <= 1e-6 * np.abs(ref).max()
+    # the valued layout runs bucket chunks, the binary one packed sweeps
+    assert ek.launches["ell_bucket" if fmt == "auto" else "ell_sweep"] > 0

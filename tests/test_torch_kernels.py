@@ -120,7 +120,7 @@ def shared():
         m = _banded(1, 2000, 4000, 300)
         op_j = fs.operator(m, format="bsr", transpose=False)
         op_t = interop.operator_from_reference_arrays(
-            interop.reference_arrays(op_j)
+            interop.reference_arrays(op_j), device="cpu"
         )
     assert op_j.fwd.is_mono and op_j.fwd.narrow is not None
     assert op_j.fwd.narrow.n_windows > 1

@@ -99,7 +99,7 @@ def test_layout_matches_reference(case, small_windows, monkeypatch):
     op_j = fs.operator(m, format="bsr", transpose=transpose,
                        config=JConfig(**cfg))
     op_t = ft.operator(m, format="bsr", transpose=transpose,
-                       config=ft.Config(**cfg))
+                       config=ft.Config(**cfg), device="cpu")
     d_ref = interop.reference_arrays(op_j)
     _assert_same_layout(d_ref, interop.reference_arrays(op_t))
     assert d_ref["fwd.kind"] == "mono"
@@ -119,7 +119,7 @@ def test_layout_interop_roundtrip(small_windows):
     """Arrays carried over from the reference rebuild the same layout."""
     m = _banded(4, 1500, 3500, 260)
     d = interop.reference_arrays(fs.operator(m, format="bsr"))
-    op = interop.operator_from_reference_arrays(d)
+    op = interop.operator_from_reference_arrays(d, device="cpu")
     _assert_same_layout(d, interop.reference_arrays(op))
     b = op.fwd.buckets[0]
     sid = b.strip_ids.numpy()
@@ -138,13 +138,13 @@ def test_layout_not_mono_raises():
     assert not op_j.fwd.is_mono
     with pytest.raises(NotImplementedError):
         ft.operator(m, format="bsr", transpose=False,
-                    config=ft.Config(bsr_mono="off"))
+                    config=ft.Config(bsr_mono="off"), device="cpu")
 
 
 def test_layout_empty_matrix():
     m = sp.csr_matrix((64, 300), dtype=np.float32)
     op_j = fs.operator(m, format="bsr", transpose=True)
-    op_t = ft.operator(m, format="bsr", transpose=True)
+    op_t = ft.operator(m, format="bsr", transpose=True, device="cpu")
     d_ref = interop.reference_arrays(op_j)
     assert d_ref["fwd.kind"] == "empty"
     _assert_same_layout(d_ref, interop.reference_arrays(op_t))
@@ -158,13 +158,14 @@ def test_unported_options_raise():
     m = _banded(6, 600, 900, 100)
     X = torch.ones((900, 4))
     with pytest.raises(NotImplementedError):
-        ft.operator(m, format="ell")
+        ft.operator(m, format="hybrid", device="cpu")
     with pytest.raises(NotImplementedError):
-        ft.operator(m, format="bsr",
+        ft.operator(m, format="bsr", device="cpu",
                     config=ft.Config(bsr_mono_grouped=True))
     with pytest.raises(NotImplementedError):
-        ft.operator(m, format="bsr", config=ft.Config(binary_tiles="bitmask"))
-    op = ft.operator(m, format="bsr")
+        ft.operator(m, format="bsr", device="cpu",
+                    config=ft.Config(binary_tiles="bitmask"))
+    op = ft.operator(m, format="bsr", device="cpu")
     with pytest.raises(NotImplementedError):
         op.matmat(X.double())
     with pytest.raises(NotImplementedError):
@@ -172,7 +173,7 @@ def test_unported_options_raise():
     # valued matrices build f32 panels, whose products are not ported
     mv = m.copy()
     mv.data = np.random.default_rng(0).standard_normal(mv.nnz)
-    opv = ft.operator(mv, format="bsr")
+    opv = ft.operator(mv, format="bsr", device="cpu")
     assert opv.fwd.is_mono and opv.fwd.dtype == torch.float64
     with pytest.raises(NotImplementedError):
         opv.matmat(X)
@@ -216,9 +217,9 @@ def test_best_tile_m_matches_reference():
 
 def test_coo_roundtrip():
     m = _banded(10, 300, 500, 40).tocoo()
-    c = ft.binary_coo_from_scipy(m)
+    c = ft.binary_coo_from_scipy(m, device="cpu")
     assert c.row_sorted and c.nnz == m.nnz
     assert np.array_equal(c.to_scipy().toarray(), m.toarray())
     assert np.array_equal(c.todense().numpy(), m.toarray())
-    v = ft.coo_from_scipy(m.astype(np.float64) * 2.0)
+    v = ft.coo_from_scipy(m.astype(np.float64) * 2.0, device="cpu")
     assert torch.equal(v.todense(), torch.as_tensor(m.toarray() * 2.0))

@@ -57,9 +57,9 @@ def ops():
             mp.setattr(mod, "HALO_STRIDE", 16)
         m = _banded(5, 1800, 4000, 280)
         op_j = fs.operator(m, format="bsr", transpose=True)
-        op_t = ft.operator(m, format="bsr", transpose=True)
+        op_t = ft.operator(m, format="bsr", transpose=True, device="cpu")
         op_i = interop.operator_from_reference_arrays(
-            interop.reference_arrays(op_j)
+            interop.reference_arrays(op_j), device="cpu"
         )
     for op in (op_j, op_t):
         assert op.fwd.is_mono and op.bwd.is_mono and op.fwd.narrow is not None
@@ -135,7 +135,7 @@ def test_cg_normal(ops, nrhs):
         np.float32
     )
     reg = 2000.0
-    pre = ft.normal_jacobi(m, reg=reg)
+    pre = ft.normal_jacobi(m, reg=reg, device="cpu")
     assert np.array_equal(pre.numpy(), np.asarray(fs.normal_jacobi(m, reg=reg)))
     for precond in (None, pre):
         got = ft.cg_normal(op_t, torch.from_numpy(b), reg=reg, maxiter=6,
@@ -166,7 +166,7 @@ def test_port_imports_without_jax():
         m = sp.random(300, 500, density=0.05, format="csr",
                       random_state=np.random.default_rng(0))
         m.data[:] = 1.0
-        op = ft.operator(m, format="bsr", transpose=True)
+        op = ft.operator(m, format="bsr", transpose=True, device="cpu")
         X = np.random.default_rng(1).standard_normal((500, 3))
         Y = op.matmat(torch.tensor(X, dtype=torch.float32)).numpy()
         ref = m @ X
