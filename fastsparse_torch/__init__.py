@@ -5,9 +5,11 @@ formats, layouts and products in PyTorch, with every kernel of the ported
 path written by hand in CUDA C++ for NVIDIA Hopper (sm_90a). It imports
 torch and never jax. Ported so far: the mono int8-panel BSR main path
 (`operator(m, format="bsr")`, its products, the normal-equation chain and
-the CG solvers) and the f32 ELL gather engine (`operator(m, format="ell")`
-and ``format="auto"`` where it lands on ELL). Entry points build on the
-card (``device="cuda"``) unless the caller asks for another device.
+the CG solvers), the f32 ELL gather engine (`operator(m, format="ell")`),
+the hybrid format without dense tiles (a dense-column block beside the
+gather engine), ``format="auto"`` where it lands on any of these, and the
+``reorder=`` orderings. Entry points build on the card (``device="cuda"``)
+unless the caller asks for another device.
 """
 from .config import Config, DEFAULT, LANES
 from .formats.coo import COO, BinaryCOO, coo_from_scipy, binary_coo_from_scipy
@@ -16,6 +18,9 @@ from .formats.convert import to_coo, to_csr, to_csr_host
 from .formats.bsr import BsrMatrix, MonoGroupBucket, MonoPanelBucket, build_bsr
 from .formats.ell import (
     EllBucket, EllMatrix, SegmentedEll, build_ell, build_ell_segmented,
+)
+from .formats.hybrid import (
+    DenseCols, HybridMatrix, build_hybrid, dense_tile_fraction,
 )
 from .linops import SparseOperator, operator
 from .ops.spmm import spmm
@@ -32,6 +37,7 @@ __all__ = [
     "BsrMatrix", "MonoGroupBucket", "MonoPanelBucket", "build_bsr",
     "EllBucket", "EllMatrix", "SegmentedEll", "build_ell",
     "build_ell_segmented",
+    "DenseCols", "HybridMatrix", "build_hybrid", "dense_tile_fraction",
     "SparseOperator", "operator", "spmm", "spmv",
     "CGResult", "cg", "cg_normal", "normal_jacobi",
     "bench", "interop",

@@ -1,1 +1,2 @@
-"""Sparse formats of the port: COO containers and the mono BSR layout."""
+"""Sparse formats of the port: COO/CSR containers and the mono BSR, ELL and
+hybrid layouts."""

@@ -4,7 +4,10 @@
 static ints: for a mono BSR tiling the bucket arrays, the narrow halo
 layout, shapes and tile sizes; for an ELL tiling (EllMatrix or
 SegmentedEll) every bucket's ``row_ids``, ``cols``, ``vals``, ``packed``
-and ``n_real`` and the assembly plan. It reads attributes only, so it
+and ``n_real`` and the assembly plan; for a HybridMatrix without dense
+tiles its ELL part, its `DenseCols` block (``col_ids``, ``block``,
+``shape``, ``nnz``, ``n_cols``), ``threshold`` and ``dense_nnz``; and the
+operator's four permutations. It reads attributes only, so it
 takes an operator of either package (the JAX reference's or this port's)
 without importing the other. `operator_from_reference_arrays` rebuilds the
 port's `SparseOperator` from such a dict on a given device; the tests use
@@ -17,6 +20,7 @@ import torch
 
 from .formats.bsr import BsrMatrix, MonoGroupBucket, MonoPanelBucket
 from .formats.ell import EllBucket, EllMatrix, SegmentedEll
+from .formats.hybrid import DenseCols, HybridMatrix
 from .linops import SparseOperator
 from .ops.assemble import AssemblyPlan
 
@@ -69,7 +73,36 @@ def _ell_arrays(A, prefix, d):
     _plan_arrays(A.plan, prefix, d)
 
 
+_PERMS = ("row_perm", "col_perm", "row_inv", "col_inv")
+_HYBRID_INTS = ("nnz", "dense_nnz", "threshold")
+
+
+def _hybrid_arrays(A, prefix, d):
+    if A.dense is not None:
+        raise NotImplementedError(
+            "hybrid layouts with dense tiles carry over with slice 3"
+        )
+    d[prefix + "kind"] = "hybrid"
+    d[prefix + "shape"] = tuple(int(v) for v in A.shape)
+    for k in _HYBRID_INTS:
+        d[prefix + k] = int(getattr(A, k))
+    d[prefix + "has_sparse"] = A.sparse is not None
+    if A.sparse is not None:
+        _matrix_arrays(A.sparse, prefix + "sparse.", d)
+    dc = A.dense_cols
+    d[prefix + "has_dense_cols"] = dc is not None
+    if dc is not None:
+        d[prefix + "dc.col_ids"] = _np(dc.col_ids)
+        d[prefix + "dc.block"] = _np(dc.block)
+        d[prefix + "dc.shape"] = tuple(int(v) for v in dc.shape)
+        d[prefix + "dc.nnz"] = int(dc.nnz)
+        d[prefix + "dc.n_cols"] = int(dc.n_cols)
+
+
 def _matrix_arrays(A, prefix, d):
+    if hasattr(A, "dense_cols"):  # HybridMatrix
+        _hybrid_arrays(A, prefix, d)
+        return
     if hasattr(A, "col_offsets"):  # SegmentedEll
         d[prefix + "kind"] = "ell-seg"
         d[prefix + "shape"] = tuple(int(v) for v in A.shape)
@@ -108,10 +141,14 @@ def _matrix_arrays(A, prefix, d):
 
 
 def reference_arrays(op) -> dict:
-    """Flatten a mono-BSR or ELL operator (either package) into a dict of
-    numpy arrays and static ints, keyed ``fwd.*`` and ``bwd.*``."""
+    """Flatten a mono-BSR, ELL or hybrid operator (either package) into a
+    dict of numpy arrays and static ints, keyed ``fwd.*`` and ``bwd.*``,
+    with the permutations (None or int32 arrays) under their names."""
     d = {"shape": tuple(int(v) for v in op.shape),
          "has_bwd": op.bwd is not None}
+    for k in _PERMS:
+        p = getattr(op, k, None)
+        d[k] = None if p is None else _np(p).astype(np.int32)
     _matrix_arrays(op.fwd, "fwd.", d)
     if op.bwd is not None:
         _matrix_arrays(op.bwd, "bwd.", d)
@@ -154,8 +191,28 @@ def _ell_from(d, prefix, device) -> EllMatrix:
     )
 
 
+def _hybrid_from(d, prefix, device) -> HybridMatrix:
+    sparse = dc = None
+    if d[prefix + "has_sparse"]:
+        sparse = _matrix_from(d, prefix + "sparse.", device)
+    if d[prefix + "has_dense_cols"]:
+        dc = DenseCols(
+            col_ids=torch.as_tensor(np.array(d[prefix + "dc.col_ids"]),
+                                    device=device),
+            block=torch.as_tensor(np.array(d[prefix + "dc.block"]),
+                                  device=device),
+            shape=tuple(d[prefix + "dc.shape"]), nnz=d[prefix + "dc.nnz"],
+            n_cols=d[prefix + "dc.n_cols"],
+        )
+    return HybridMatrix(dense=None, sparse=sparse, dense_cols=dc,
+                        shape=tuple(d[prefix + "shape"]),
+                        **{k: d[prefix + k] for k in _HYBRID_INTS})
+
+
 def _matrix_from(d, prefix, device):
     kind = d[prefix + "kind"]
+    if kind == "hybrid":
+        return _hybrid_from(d, prefix, device)
     if kind == "ell":
         return _ell_from(d, prefix, device)
     if kind == "ell-seg":
@@ -204,4 +261,7 @@ def operator_from_reference_arrays(d: dict, device="cuda") -> SparseOperator:
     (as made by `reference_arrays`), on ``device``."""
     fwd = _matrix_from(d, "fwd.", device)
     bwd = _matrix_from(d, "bwd.", device) if d["has_bwd"] else None
-    return SparseOperator(fwd=fwd, bwd=bwd, shape=tuple(d["shape"]))
+    perms = {k: None if d.get(k) is None
+             else torch.as_tensor(np.array(d[k]), device=device)
+             for k in _PERMS}
+    return SparseOperator(fwd=fwd, bwd=bwd, shape=tuple(d["shape"]), **perms)

@@ -4,9 +4,11 @@
 `operator()` compiles a matrix and, with ``transpose=True``, its transpose
 into layouts on one device, so every product, the transpose and the
 normal equations included, is a forward pass through a kernel. Ported
-formats: ``"bsr"`` compiled to the mono layout, ``"ell"`` (the f32 gather
-engine, column-segmented past ``SEG_COLS``) and ``"auto"``, which picks
-between them as the reference does.
+formats: ``"bsr"`` compiled to the mono layout, ``"ell"`` and ``"ell-seg"``
+(the f32 gather engine, column-segmented past ``SEG_COLS``), ``"hybrid"``
+without dense tiles (a dense-column block beside the gather engine) and
+``"auto"``, which picks among them as the reference does; and the
+reference's ``reorder=`` orderings with their permutation boundary.
 """
 from __future__ import annotations
 
@@ -35,10 +37,12 @@ from .formats.bsr import build_bsr
 from .formats.convert import to_coo
 from .formats.coo import BinaryCOO, binary_coo_from_scipy, coo_from_scipy
 from .formats.ell import EllMatrix, SegmentedEll, build_ell, build_ell_segmented
+from .formats.hybrid import HybridMatrix, build_hybrid
 from .ops import spmm as _spmm_mod
 from .ops import spmv as _spmv_mod
 from .ops.assemble import attach_plan
 from .ops.bsr_ops import mono_chain
+from .reorder.cluster import invert_perm
 
 __all__ = ["SparseOperator", "operator"]
 
@@ -47,21 +51,48 @@ __all__ = ["SparseOperator", "operator"]
 class SparseOperator:
     """A sparse matrix with a forward tiling ``fwd`` (``A·_``) and,
     optionally, a tiling ``bwd`` of ``Aᵀ`` (``Aᵀ·_`` as a forward
-    product)."""
+    product).
+
+    Built with ``reorder=``, the tilings hold the permuted matrix
+    ``P_r A P_cᵀ``, and operands are permuted at the boundary by row
+    gathers: ``row_perm``/``col_perm`` (old index of the k-th permuted
+    row/column) and their inverses, int32 tensors on the operator's device,
+    or None."""
 
     fwd: Any
     bwd: Optional[Any]
     shape: tuple
+    row_perm: Optional[torch.Tensor] = None
+    col_perm: Optional[torch.Tensor] = None
+    row_inv: Optional[torch.Tensor] = None
+    col_inv: Optional[torch.Tensor] = None
 
     @property
     def T(self) -> "SparseOperator":
         if self.bwd is None:
             raise ValueError("operator built without transpose=True")
-        return SparseOperator(fwd=self.bwd, bwd=self.fwd,
-                              shape=(self.shape[1], self.shape[0]))
+        return SparseOperator(
+            fwd=self.bwd, bwd=self.fwd, shape=(self.shape[1], self.shape[0]),
+            row_perm=self.col_perm, col_perm=self.row_perm,
+            row_inv=self.col_inv, col_inv=self.row_inv,
+        )
+
+    # -- permutation boundary ------------------------------------------------
+    def _in_cols(self, x):
+        return x if self.col_perm is None else x[self.col_perm]
+
+    def _in_rows(self, x):
+        return x if self.row_perm is None else x[self.row_perm]
+
+    def _out_rows(self, y):
+        return y if self.row_inv is None else y[self.row_inv]
+
+    def _out_cols(self, y):
+        return y if self.col_inv is None else y[self.col_inv]
 
     def _bwd(self):
-        if self.bwd is None and isinstance(self.fwd, (EllMatrix, SegmentedEll)):
+        if self.bwd is None and isinstance(self.fwd, (EllMatrix, SegmentedEll,
+                                                      HybridMatrix)):
             raise NotImplementedError(
                 "ELL transpose products without the dual tiling (the "
                 "reference's scatter engine) are slice 4; build with "
@@ -76,23 +107,24 @@ class SparseOperator:
 
     def matvec(self, x):
         """``A @ x``."""
-        return _spmv_mod.spmv(self.fwd, x)
+        return self._out_rows(_spmv_mod.spmv(self.fwd, self._in_cols(x)))
 
     def rmatvec(self, x):
         """``Aᵀ @ x`` through the dual tiling."""
-        return _spmv_mod.spmv(self._bwd(), x)
+        return self._out_cols(_spmv_mod.spmv(self._bwd(), self._in_rows(x)))
 
     def matmat(self, X):
         """``A @ X``."""
-        return _spmm_mod.spmm(self.fwd, X)
+        return self._out_rows(_spmm_mod.spmm(self.fwd, self._in_cols(X)))
 
     def rmatmat(self, X):
         """``Aᵀ @ X`` through the dual tiling."""
-        return _spmm_mod.spmm(self._bwd(), X)
+        return self._out_cols(_spmm_mod.spmm(self._bwd(), self._in_rows(X)))
 
     def _mono_chainable(self) -> bool:
         """Both tilings mono: normal and gram products then run as two
-        back-to-back launches (`ops.bsr_ops.mono_chain`)."""
+        back-to-back launches (`ops.bsr_ops.mono_chain`; the inner
+        ``row_inv∘row_perm`` gather pair cancels exactly)."""
         return (
             self.bwd is not None
             and getattr(self.fwd, "is_mono", False)
@@ -102,19 +134,22 @@ class SparseOperator:
     def normal_matvec(self, x, reg=0.0):
         """``(AᵀA + reg·I) @ x``, the Macau/SMURFF CG inner product."""
         if self._mono_chainable():
-            return mono_chain(self.fwd, self.bwd, x[:, None])[:, 0] + reg * x
+            y = mono_chain(self.fwd, self.bwd, self._in_cols(x)[:, None])
+            return self._out_cols(y[:, 0]) + reg * x
         return self.rmatvec(self.matvec(x)) + reg * x
 
     def normal_matmat(self, X, reg=0.0):
         """``(AᵀA + reg·I) @ X``."""
         if self._mono_chainable():
-            return mono_chain(self.fwd, self.bwd, X) + reg * X
+            Y = mono_chain(self.fwd, self.bwd, self._in_cols(X))
+            return self._out_cols(Y) + reg * X
         return self.rmatmat(self.matmat(X)) + reg * X
 
     def gram_matvec(self, x, reg=0.0):
         """``(AAᵀ + reg·I) @ x``."""
         if self._mono_chainable():
-            return mono_chain(self.bwd, self.fwd, x[:, None])[:, 0] + reg * x
+            y = mono_chain(self.bwd, self.fwd, self._in_rows(x)[:, None])
+            return self._out_rows(y[:, 0]) + reg * x
         return self.matvec(self.rmatvec(x)) + reg * x
 
     def __matmul__(self, other):
@@ -204,23 +239,120 @@ def _compile_bsr(coo, config: Config, dtype, device):
     return built
 
 
-def _compile_ell(coo, config: Config, dtype, device):
-    """The reference's ``_compile_one(..., "ell")``: rows split at
-    ``config.ell_split_rows`` (f32 only), column segments past
-    ``SEG_COLS``."""
+def _compile_ell(coo, config: Config, dtype, device, segmented=False):
+    """The reference's ``_compile_one(..., "ell" | "ell-seg")``: rows split
+    at ``config.ell_split_rows`` (f32 only), column segments past
+    ``SEG_COLS`` (always, for ``segmented``)."""
     if _value_dtype(coo, dtype) != torch.float32:
         raise NotImplementedError(
             "ELL with values other than f32 runs off the gather engine in "
             "the reference (fp64-class and XLA engines): slice 4 (fp64)"
         )
     split = config.resolve().ell_split_rows
-    if coo.shape[1] > SEG_COLS:
+    if segmented or coo.shape[1] > SEG_COLS:
         return build_ell_segmented(
             coo, config=config, seg_cols=_balanced_seg_cols(coo.shape[1]),
             dtype=dtype, split_rows=split, device=device,
         )
     return build_ell(coo, config=config, dtype=dtype, split_rows=split,
                      device=device)
+
+
+def _compile_gather(coo, fmt, config: Config, dtype, device):
+    """One tiling of the gather-engine family ("ell", "ell-seg",
+    "hybrid")."""
+    if fmt == "hybrid":
+        return build_hybrid(coo, config=config, seg_cols=SEG_COLS,
+                            dtype=dtype, device=device)
+    return _compile_ell(coo, config, dtype, device,
+                        segmented=fmt == "ell-seg")
+
+
+def _reorder(coo, reorder):
+    """(permuted coo, row_perm, col_perm) for ``reorder=``, perms None for
+    no reordering."""
+    if reorder in (None, "none"):
+        return coo, None, None
+    if reorder not in ("degree", "minhash", "tilepack", "hilbert", "auto"):
+        raise ValueError(f"unknown reorder {reorder!r}")
+    from .reorder import cluster
+
+    row_perm, col_perm = {
+        "degree": cluster.degree_perms,
+        "minhash": cluster.minhash_perms,
+        "tilepack": cluster.tilepack_perms,
+        "hilbert": cluster.hilbert_perms,
+        "auto": cluster.best_perms,
+    }[reorder](coo)
+    if row_perm is None:
+        return coo, None, None
+    return cluster.permute_coo(coo, row_perm, col_perm), row_perm, col_perm
+
+
+def _hybrid_tile_share(coo, config: Config) -> float:
+    """Share of the nonzeros the hybrid's tile part would carry, on what
+    the dense-column extraction leaves."""
+    rcfg = config.resolve()
+    n = coo.n_valid
+    r_np = coo.rows[:n].cpu().numpy()
+    c_np = coo.cols[:n].cpu().numpy()
+    if isinstance(coo, BinaryCOO):
+        coldeg = np.bincount(c_np, minlength=coo.shape[1])
+        sel = dense_col_select(coldeg, coo.shape[0])
+        if sel.size:
+            keep = ~np.isin(c_np, sel)
+            r_np, c_np = r_np[keep], c_np[keep]
+    cnt = _tile_counts(r_np, c_np, coo.shape, rcfg.tile_m, rcfg.tile_k)
+    if not cnt.size:
+        return 0.0
+    th, _ = auto_threshold_from_counts(cnt)
+    return float(cnt[cnt >= th].sum() / max(cnt.sum(), 1))
+
+
+def _elide_perms(coo, fmt, config, row_perm, col_perm):
+    """The reference's permutation-boundary elision for a gather-engine
+    tiling without the dual one: bucket membership, the dense-column block
+    and the hybrid split do not depend on row ids, so when the tile part
+    would carry under 25 % of the nonzeros the rows go back to their
+    original order (no output gather), and the column perm is kept only if
+    its column-segment locality pays for the input gather (the reference's
+    measured constants), with each segment's slice sorted. Returns (coo,
+    row_perm, col_perm)."""
+    tile_share = _hybrid_tile_share(coo, config) if fmt == "hybrid" else 0.0
+    if tile_share >= 0.25:
+        return coo, row_perm, col_perm
+    if row_perm is not None:
+        coo = dataclasses.replace(coo, rows=row_perm[coo.rows.long()],
+                                  row_sorted=False)
+        row_perm = None
+    if col_perm is not None:
+        ncol = coo.shape[1]
+        w = _balanced_seg_cols(ncol)
+        cp_old = col_perm.cpu().numpy()
+        n = coo.n_valid
+        c_cur = coo.cols[:n].cpu().numpy()
+        r_cur = coo.rows[:n].cpu().numpy().astype(np.int64)
+        orig = cp_old[c_cur]
+        nseg = max(-(-ncol // w), 1)
+        pairs_perm = np.unique(r_cur * nseg + c_cur // w).size
+        pairs_orig = np.unique(r_cur * nseg + orig // w).size
+        saved_s = (pairs_orig - pairs_perm) * 30e-9
+        inperm_s = ncol * 10e-9
+        if ncol <= w or saved_s < inperm_s:
+            # segments keep the original contiguous column ranges
+            coo = dataclasses.replace(coo, cols=col_perm[coo.cols.long()])
+            col_perm = None
+        else:
+            # keep it, each segment's slice ascending (membership unchanged)
+            cp_new = cp_old.copy()
+            for off in range(0, ncol, w):
+                cp_new[off : off + w].sort()
+            inv_new = np.empty_like(cp_new)
+            inv_new[cp_new] = np.arange(ncol, dtype=cp_new.dtype)
+            remap = torch.as_tensor(inv_new[cp_old], device=coo.cols.device)
+            coo = dataclasses.replace(coo, cols=remap[coo.cols.long()])
+            col_perm = torch.as_tensor(cp_new, device=coo.cols.device)
+    return coo, row_perm, col_perm
 
 
 def operator(
@@ -238,21 +370,32 @@ def operator(
     for another).
 
     ``format="auto"`` takes the reference's decision: ``"bsr"`` (the mono
-    layout) when tiles are full, ``"ell"`` (the gather engine) for
-    hypersparse structure. ``"hybrid"``, ``"ell-seg"``, ``"coo"``,
-    ``"csr"``, ``reorder`` and ``tune=True`` are slice 2b, and ELL with
-    values other than f32 slice 4: they raise `NotImplementedError`, as
-    does a structure the reference compiles to a layout not ported yet.
-    ``dtype``: a torch dtype or None. With ``config.tile_m=None`` the BSR
-    tile height is the modeled best (`bench.model.best_tile_m`), raised
-    from 128 to 256 when the taller build is still mono.
+    layout) when tiles are full, ``"hybrid"`` (dense columns beside the
+    gather engine) or ``"ell"`` (the gather engine) for sparser structure,
+    by the reference's cost model. ``"ell-seg"`` forces column segments.
+    ``reorder`` (``"degree"``, ``"minhash"``, ``"tilepack"``, ``"hilbert"``
+    or ``"auto"``) permutes rows and columns before tiling; products permute
+    operands at the boundary, which the gather-engine formats elide without
+    the dual tiling where the reference does. ``"coo"``/``"csr"`` (the XLA
+    scatter engines) and ELL with values other than f32 are slice 4 and
+    ``tune=True`` slice 3: they raise `NotImplementedError`, as does a
+    structure the reference compiles to a layout not ported yet (a hybrid
+    with dense tiles, column-segmented BSR). ``dtype``: a torch dtype or
+    None. With ``config.tile_m=None`` the BSR tile height is the modeled
+    best (`bench.model.best_tile_m`), raised from 128 to 256 when the
+    taller build is still mono.
     """
     if format not in _FORMATS:
         raise ValueError(f"format must be one of {_FORMATS}")
-    if format in ("ell-seg", "hybrid", "coo", "csr"):
-        raise NotImplementedError(f"format={format!r} is slice 2b")
-    if reorder not in (None, "none") or tune:
-        raise NotImplementedError("reorder= and tune=True are slice 2b")
+    if format in ("coo", "csr"):
+        raise NotImplementedError(
+            f"format={format!r} (the reference's XLA scatter engines) is "
+            "slice 4"
+        )
+    if tune:
+        raise NotImplementedError(
+            "tune=True (per-matrix bucket edges) is slice 3"
+        )
     if dtype is not None and not isinstance(dtype, torch.dtype):
         raise TypeError("dtype must be a torch dtype or None")
     if hasattr(mat, "tocoo"):  # scipy input
@@ -264,21 +407,29 @@ def operator(
     else:
         coo = to_coo(mat)
 
+    # reorder before the format decision: the model must see the layout
+    # the tilings are built from
+    coo, row_perm, col_perm = _reorder(coo, reorder)
     if format == "auto":
         format = _auto_format(coo, config, dtype)
-        if format == "hybrid":
-            raise NotImplementedError(
-                "format='auto' picks 'hybrid' for this matrix (dense tiles "
-                "or dense columns beside the gather engine): slice 2b"
-            )
-    if format == "ell":
-        fwd = _compile_ell(coo, config, dtype, device)
-        bwd = _compile_ell(_transpose(coo), config, dtype, device) \
-            if transpose else None
-    else:
+    if (format != "bsr" and not transpose
+            and (row_perm is not None or col_perm is not None)):
+        coo, row_perm, col_perm = _elide_perms(coo, format, config,
+                                               row_perm, col_perm)
+    if format == "bsr":
         fwd, bwd = _compile_bsr_pair(coo, config, dtype, device, transpose)
-    return SparseOperator(fwd=attach_plan(fwd), bwd=attach_plan(bwd),
-                          shape=tuple(coo.shape))
+    else:
+        if config.tile_m is None:
+            config = config.resolve()
+        fwd = _compile_gather(coo, format, config, dtype, device)
+        bwd = _compile_gather(_transpose(coo), format, config, dtype,
+                              device) if transpose else None
+    return SparseOperator(
+        fwd=attach_plan(fwd), bwd=attach_plan(bwd), shape=tuple(coo.shape),
+        row_perm=row_perm, col_perm=col_perm,
+        row_inv=None if row_perm is None else invert_perm(row_perm),
+        col_inv=None if col_perm is None else invert_perm(col_perm),
+    )
 
 
 def _transpose(coo):

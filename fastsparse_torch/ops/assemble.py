@@ -13,8 +13,8 @@ is built, so the sum runs as static row gathers instead of a scatter:
 
 Row gathers are plain torch indexing, as the reference leaves them to XLA;
 the summation order (class by class, slots in order) is the reference's.
-Mono BSR layouts write Y in place and need no plan; the tile-BSR and
-hybrid plans are not ported yet.
+Mono BSR layouts write Y in place and need no plan; a hybrid gets plans
+on its parts; the tile-BSR strip plans are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,15 +36,19 @@ __all__ = [
 def attach_plan(fmt):
     """``fmt`` with an :class:`AssemblyPlan` attached where the engine uses
     one (an f32 EllMatrix / SegmentedEll without a plan); a mono BsrMatrix
-    passes through. Layouts whose plans are not ported raise."""
+    passes through; a HybridMatrix recurses into its parts. Layouts whose
+    plans are not ported raise."""
     from ..formats.bsr import BsrMatrix
     from ..formats.ell import EllMatrix, SegmentedEll
 
     if fmt is None:
         return None
-    if type(fmt).__name__ in ("HybridMatrix", "ColSegmented"):
+    if type(fmt).__name__ == "HybridMatrix":
+        return dataclasses.replace(fmt, dense=attach_plan(fmt.dense),
+                                   sparse=attach_plan(fmt.sparse))
+    if type(fmt).__name__ == "ColSegmented":
         raise NotImplementedError(
-            f"assembly plans for {type(fmt).__name__} are slice 2b/3"
+            "assembly plans for ColSegmented are slice 3"
         )
     if isinstance(fmt, BsrMatrix):
         if fmt.is_mono or not fmt.buckets:

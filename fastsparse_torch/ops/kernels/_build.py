@@ -40,6 +40,7 @@ _SIGNATURES = {
     "fs_mono_group": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     "fs_ell_bucket": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     "fs_ell_sweep": (_P,) * 6 + (_I, _I, _P),
+    "fs_densecols": (_P,) * 4 + (_I,) * 4 + (_P,),
 }
 
 _build_seconds = 0.0

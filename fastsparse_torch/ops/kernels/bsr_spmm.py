@@ -1,8 +1,10 @@
-"""The four mono-path kernels: CUDA wrappers and their plain PyTorch twins.
+"""The four mono-path kernels and the dense-column kernel: CUDA wrappers
+and their plain PyTorch twins.
 
 Each public function here is the counterpart of one Pallas TPU kernel in
 ``fastsparse/ops/pallas/bsr_spmm.py``. On a CUDA tensor it launches the
-hand-written sm_90a kernel from ``csrc/bsr_spmm.cu`` (built at first use,
+hand-written sm_90a kernel from ``csrc/bsr_spmm.cu`` (``densecols_spmm``:
+``csrc/densecols_spmm.cu``; built at first use,
 `_build.load_library`) and adds one to its entry in `launches`; a build or
 launch failure raises. On a CPU tensor it runs the ``*_plain`` version: the
 same arithmetic in eager torch ops, which is also the on-card oracle.
@@ -36,10 +38,13 @@ __all__ = [
     "mono_panel_spmm_plain",
     "mono_group_spmm",
     "mono_group_spmm_plain",
+    "densecols_spmm",
+    "densecols_spmm_plain",
 ]
 
 # kernel launches per wrapper (CUDA path only; the plain versions never count)
-launches = {"colmax": 0, "quant3_planes": 0, "mono_panel": 0, "mono_group": 0}
+launches = {"colmax": 0, "quant3_planes": 0, "mono_panel": 0, "mono_group": 0,
+            "densecols": 0}
 
 # f64 working set per chunk of the plain mono versions (exact integer dots
 # through a float64 matmul: every partial sum of int8 products stays far
@@ -321,4 +326,56 @@ def mono_group_spmm(
         _ptr(panels), _ptr(x), _ptr(out), ns, TM, tile_k, PK, stride, group,
         nb, nb,
     )
+    return out
+
+
+# ------------------------------------------------------------- densecols
+def densecols_spmm_plain(block, q3t, s):
+    nrow, D = block.shape
+    N = q3t.shape[0] // 3
+    qd = q3t.t().to(torch.float64)
+    out = torch.empty((nrow, N), dtype=torch.float32, device=block.device)
+    step = max(1, _PLAIN_CHUNK_BYTES // (8 * max(D + 3 * N, 1)))
+    for a in range(0, nrow, step):
+        b = min(a + step, nrow)
+        # exact integer dots: float64 holds every partial sum of int8 products
+        d = (block[a:b].to(torch.float64) @ qd).to(torch.float32)
+        out[a:b] = (
+            (d[:, :N] * 65536.0 + d[:, N : 2 * N] * 256.0) + d[:, 2 * N :]
+        ) * s
+    return out
+
+
+def densecols_spmm(block, q3t, s):
+    """``Y = block @ X_sel`` for a `DenseCols` block: f32 ``(nrow, N)``.
+
+    Replaces ``bsr_spmm.py:densecols_spmm_pallas``. ``block`` int8
+    ``(nrow, D)`` 0/1 cells; ``q3t`` int8 ``(3N, D)``, the radix-256 planes
+    of the selected X rows as k-contiguous rows (row ``p·N + n`` is plane
+    ``p`` of column ``n``: the transpose of the reference's ``[q0|q1|q2]``,
+    as `ops.spmm.densecols_planes` builds it); ``s`` f32 ``(1, N)`` scale.
+    Three exact s32 dots per output, folded ``((d0·65536 + d1·256) + d2)·s``
+    (bit-exact with the reference). Differences from the Pallas kernel: any
+    ``nrow``, ``D`` and ``N`` (it wants 128-multiples and a row count its
+    row panel divides), the transposed planes, and ``s`` is ``(1, N)``, not
+    eight equal rows."""
+    dev = block.device
+    _check("densecols.block", block, torch.int8, 2)
+    _check("densecols.q3t", q3t, torch.int8, 2, dev)
+    _check("densecols.s", s, torch.float32, 2, dev)
+    nrow, D = block.shape
+    N = q3t.shape[0] // 3
+    if q3t.shape[1] != D or q3t.shape[0] != 3 * N or tuple(s.shape) != (1, N):
+        raise ValueError(
+            f"densecols: block {tuple(block.shape)}, q3t {tuple(q3t.shape)} "
+            f"and s {tuple(s.shape)} disagree"
+        )
+    lib = _library_for(block)
+    if lib is None:
+        return densecols_spmm_plain(block, q3t, s)
+    out = torch.empty((nrow, N), dtype=torch.float32, device=dev)
+    vec = int(D % 16 == 0 and block.data_ptr() % 16 == 0
+              and q3t.data_ptr() % 16 == 0)
+    _launch("densecols", lib.fs_densecols, _ptr(block), _ptr(q3t), _ptr(s),
+            _ptr(out), nrow, D, N, vec)
     return out

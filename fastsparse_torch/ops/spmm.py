@@ -1,10 +1,12 @@
 """Multi-RHS SpMM ``Y = A @ X`` (counterpart of ``fastsparse/ops/spmm.py``).
 
-Ported: the mono BsrMatrix branch and the f32 EllMatrix / SegmentedEll
-branches (the gather engine). The reference's XLA engines (COO/CSR, the
-per-bucket scan for non-f32 ELL or an X panel past its residency budget)
-come with slice 4; the hybrid and column-segmented containers with slices
-2b and 3. Those raise `NotImplementedError`.
+Ported: the mono BsrMatrix branch, the f32 EllMatrix / SegmentedEll
+branches (the gather engine) and the HybridMatrix branch with its
+dense-column block (`dense_cols_spmm`, the `densecols_spmm` kernel). The
+reference's XLA engines (COO/CSR, the per-bucket scan for non-f32 ELL or
+an X panel past its residency budget) come with slice 4, the dense tiles
+of a hybrid and the column-segmented BSR containers with slice 3. Those
+raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -12,16 +14,62 @@ import torch
 
 from ..formats.bsr import BsrMatrix
 from ..formats.ell import EllMatrix, SegmentedEll
+from ..formats.hybrid import HybridMatrix
 
-__all__ = ["spmm"]
+__all__ = ["spmm", "dense_cols_spmm", "densecols_planes"]
 
 
 def _ell_dtype(A, X):
     return torch.promote_types(A.dtype, X.dtype)
 
 
+def densecols_planes(Xs):
+    """f32 ``(D, N)`` selected X rows -> the densecols kernel's operands:
+    the three radix-256 int8 planes as k-contiguous rows, int8 ``(3N, D)``
+    (row ``p·N + n`` is plane ``p`` of column ``n``), and the f32 ``(1, N)``
+    scale. The encoding is `bsr_ops._quant3_carry` (torch ops, as the
+    reference leaves it to XLA); the one concatenation writes the rows."""
+    from .bsr_ops import _quant3_carry
+
+    q0, q1, q2, s = _quant3_carry(Xs)
+    return torch.cat([q.t().to(torch.int8) for q in (q0, q1, q2)]), s
+
+
+def dense_cols_spmm(dc, X):
+    """``Y = block @ X[col_ids]`` for a `formats.hybrid.DenseCols`: f32
+    ``(nrow, N)`` for an f32 ``X``, at fp32 parity.
+
+    The selected rows are encoded as radix-256 int8 planes
+    (`densecols_planes`) and the block is read once by the
+    `densecols_spmm` kernel, at every N. The reference's bf16 branches
+    (``precision="default"``, a non-f32 X, ``DENSECOLS_DOT = "bf16"``) are
+    plain dots no caller of either package selects; they are not ported."""
+    if X.dtype != torch.float32:
+        raise NotImplementedError(
+            f"dense_cols_spmm over {X.dtype}: only f32 (the int8-plane "
+            "parity path) is ported"
+        )
+    from .kernels.bsr_spmm import densecols_spmm
+
+    q3t, s = densecols_planes(X[dc.col_ids.long()])
+    return densecols_spmm(dc.block, q3t, s)[: dc.shape[0]]
+
+
 def spmm(A, X):
     """``Y = A @ X``. ``X``: f32[ncol, N] -> f32[nrow, N]."""
+    if isinstance(A, HybridMatrix):
+        # the reference's order of adds: ((0 + dense) + sparse) + dense_cols
+        Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype,
+                        device=X.device)
+        if A.dense is not None:
+            raise NotImplementedError(
+                "the dense tiles of a hybrid (tile-BSR kernels) are slice 3"
+            )
+        if A.sparse is not None:
+            Y = Y + spmm(A.sparse, X)
+        if A.dense_cols is not None:
+            Y = Y + dense_cols_spmm(A.dense_cols, X)
+        return Y
     if isinstance(A, BsrMatrix):
         from .bsr_ops import bsr_spmm
 
@@ -39,5 +87,5 @@ def spmm(A, X):
             "engines: fp64 and wide unsegmented panels) are slice 4"
         )
     raise NotImplementedError(
-        f"spmm over {type(A).__name__} is not ported yet (slices 2b, 3, 4)"
+        f"spmm over {type(A).__name__} is not ported yet (slices 3, 4)"
     )

@@ -1,22 +1,38 @@
 """SpMV ``y = A @ x`` (counterpart of ``fastsparse/ops/spmv.py``).
 
-Ported: the mono BsrMatrix branch and the f32 EllMatrix / SegmentedEll
-branches. The reference runs ELL SpMV through the gather SpMM kernel on
-its accelerator (one gathered row per nonzero costs the same at N=1);
-the port takes that dispatch on every device: the CUDA kernels on a CUDA
-tensor, their plain versions on a CPU tensor. The other engines raise
-`NotImplementedError` (slices 2b, 3, 4).
+Ported: the mono BsrMatrix branch, the f32 EllMatrix / SegmentedEll
+branches and the HybridMatrix branch. The reference runs ELL SpMV through
+the gather SpMM kernel on its accelerator (one gathered row per nonzero
+costs the same at N=1); the port takes that dispatch on every device: the
+CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor. The
+other engines raise `NotImplementedError` (slices 3, 4).
 """
 from __future__ import annotations
 
+import torch
+
 from ..formats.bsr import BsrMatrix
 from ..formats.ell import EllMatrix, SegmentedEll
+from ..formats.hybrid import HybridMatrix
 
 __all__ = ["spmv"]
 
 
 def spmv(A, x):
     """``y = A @ x``. ``x``: f32[ncol] -> f32[nrow]."""
+    if isinstance(A, HybridMatrix):
+        y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
+        if A.dense is not None:
+            raise NotImplementedError(
+                "the dense tiles of a hybrid (tile-BSR kernels) are slice 3"
+            )
+        if A.sparse is not None:
+            y = y + spmv(A.sparse, x)
+        if A.dense_cols is not None:
+            from .spmm import dense_cols_spmm
+
+            y = y + dense_cols_spmm(A.dense_cols, x[:, None])[:, 0]
+        return y
     if isinstance(A, BsrMatrix):
         from .bsr_ops import bsr_spmv
 
@@ -35,5 +51,5 @@ def spmv(A, x):
             "engines) is slice 4"
         )
     raise NotImplementedError(
-        f"spmv over {type(A).__name__} is not ported yet (slices 2b, 3, 4)"
+        f"spmv over {type(A).__name__} is not ported yet (slices 3, 4)"
     )

@@ -5,9 +5,9 @@ only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors (colmax, quant3 and every ELL gather body bit-exact, the mono
-kernels at max|d|/max|ref| <= 1e-6), and operator products against scipy
-in float64.
+tensors (colmax, quant3, densecols and every ELL gather body bit-exact,
+the mono kernels at max|d|/max|ref| <= 1e-6), and operator products
+against scipy in float64.
 """
 import numpy as np
 import pytest
@@ -15,6 +15,7 @@ import scipy.sparse as sp
 import torch
 
 import fastsparse_torch as ft
+from fastsparse_torch.bench import model as tmodel
 from fastsparse_torch.formats import bsr as tbsr
 from fastsparse_torch.ops import bsr_ops
 from fastsparse_torch.ops.kernels import bsr_spmm as tk
@@ -101,7 +102,7 @@ def test_kernels_match_plain_on_card(card_op):
     torch.cuda.synchronize()
     assert _rel(yk, yp) <= 1e-6
     assert tk.launches == {"colmax": 1, "quant3_planes": 1, "mono_panel": 3,
-                           "mono_group": 1}
+                           "mono_group": 1, "densecols": 0}
 
 
 @pytest.mark.parametrize("N", [1, 16, 128, 130])
@@ -229,3 +230,69 @@ def test_ell_operator_on_card_vs_scipy(card, fmt):
     assert np.abs(z - ref).max() <= 1e-6 * np.abs(ref).max()
     # the valued layout runs bucket chunks, the binary one packed sweeps
     assert ek.launches["ell_bucket" if fmt == "auto" else "ell_sweep"] > 0
+
+
+@pytest.mark.parametrize("N", [1, 3, 32, 128, 256])
+@pytest.mark.parametrize("nrow,D", [(1000, 333), (2065, 512)])
+def test_densecols_kernel_matches_plain(card, nrow, D, N):
+    """Every tile variant (N<=8, N<=32, wider) on a ragged block: rows
+    past a CTA's tile, D past a 128-byte chunk (byte loads for D=333,
+    16-byte loads for D=512), lanes past a column block; bit-exact."""
+    g = np.random.default_rng(nrow + D + N)
+    block = torch.from_numpy((g.random((nrow, D)) < 0.3).astype(np.int8))
+    q3t = g.integers(-128, 128, (3 * N, D)).astype(np.int8)
+    q3t[:N] = g.integers(-127, 128, (N, D))  # the top plane's range
+    s = (g.random((1, N)) * 1e-5 + 1e-7).astype(np.float32)
+    args = (block.cuda(), torch.from_numpy(q3t).cuda(),
+            torch.from_numpy(s).cuda())
+    tk.reset_launches()
+    yk = tk.densecols_spmm(*args)
+    torch.cuda.synchronize()
+    assert tk.launches["densecols"] == 1
+    assert yk.shape == (nrow, N) and torch.equal(yk, tk.densecols_spmm_plain(*args))
+
+
+def test_hybrid_operator_on_card_vs_scipy(card, monkeypatch):
+    """format="auto" -> hybrid (dense columns + ELL, both tilings) on a
+    fingerprint matrix, with the dense-column constants shrunk to its
+    size; products through the card's kernels against scipy in float64."""
+    monkeypatch.setattr(tmodel, "DENSE_COL_MIN_D", 4)
+    monkeypatch.setattr(tmodel, "DENSE_COL_CELL_S", 2e-11)
+    monkeypatch.setattr(tmodel, "DENSE_COL_MIN_ROWS", 64)
+    m = ft.bench.matrices.ecfp_like(800, 2000, 24, 20, seed=2)
+    op = ft.operator(m, device=card)
+    assert type(op.fwd).__name__ == "HybridMatrix"
+    assert op.fwd.dense_cols is not None and op.bwd.dense_cols is not None
+    md = m.astype(np.float64)
+    tk.reset_launches()
+    for N in (1, 16, 128):
+        X = np.random.default_rng(N).standard_normal(
+            (m.shape[1], N)).astype(np.float32)
+        Y = op.matmat(torch.from_numpy(X).cuda()).cpu().numpy()
+        ref = md @ X.astype(np.float64)
+        assert np.abs(Y - ref).max() <= 1e-6 * np.abs(ref).max()
+    y = np.random.default_rng(0).standard_normal(m.shape[0]).astype(np.float32)
+    z = op.rmatvec(torch.from_numpy(y).cuda()).cpu().numpy()
+    ref = md.T @ y.astype(np.float64)
+    assert np.abs(z - ref).max() <= 1e-6 * np.abs(ref).max()
+    assert tk.launches["densecols"] == 4
+
+
+def test_reorder_boundary_on_card(card):
+    """operator(..., reorder="degree") with the dual tiling keeps both
+    permutations: operands are gathered at the boundary on the card."""
+    m = ft.bench.matrices.ecfp_like(800, 2000, 24, 20, seed=2)
+    op = ft.operator(m, format="ell", reorder="degree", device=card)
+    assert op.row_perm is not None and op.col_perm.is_cuda
+    md = m.astype(np.float64)
+    g = np.random.default_rng(3)
+    X = g.standard_normal((m.shape[1], 16)).astype(np.float32)
+    Z = g.standard_normal((m.shape[0], 16)).astype(np.float32)
+    for got, ref in (
+        (op.matmat(torch.from_numpy(X).cuda()), md @ X),
+        (op.rmatmat(torch.from_numpy(Z).cuda()), md.T @ Z),
+        (op.normal_matmat(torch.from_numpy(X).cuda(), reg=0.5),
+         md.T @ (md @ X) + 0.5 * X),
+    ):
+        got = got.cpu().numpy()
+        assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()

@@ -12,7 +12,8 @@ plain versions; the reference's Pallas kernels in interpret mode).
   first, as the CUDA kernel does);
 * `ell_spmm`, `spmv` and the operator's products within 1e-6 of the
   reference and of scipy in float64;
-* ``format="auto"`` makes the reference's choice (bsr, ell; hybrid raises).
+* ``format="auto"`` makes the reference's choice (bsr, ell, hybrid; a
+  hybrid with dense tiles raises, naming slice 3).
 """
 import types
 
@@ -347,7 +348,7 @@ def test_auto_format_matches_reference(case):
             "blocky_binary": "HybridMatrix"}[case]
     assert type(op_j.fwd).__name__ == want
     if want == "HybridMatrix":
-        with pytest.raises(NotImplementedError, match="2b"):
+        with pytest.raises(NotImplementedError, match="slice 3"):
             ft.operator(m, transpose=False, device="cpu")
         return
     op_t = ft.operator(m, transpose=False, device="cpu")
@@ -360,10 +361,19 @@ def test_auto_format_matches_reference(case):
 
 def test_unported_ell_options_raise(monkeypatch):
     m = _small(False)
-    for kw in ({"format": "ell-seg"}, {"format": "coo"}, {"format": "csr"},
-               {"reorder": "degree"}, {"tune": True}):
-        with pytest.raises(NotImplementedError):
+    for kw, slice_ in (({"format": "coo"}, "slice 4"),
+                       ({"format": "csr"}, "slice 4"),
+                       ({"tune": True}, "slice 3")):
+        with pytest.raises(NotImplementedError, match=slice_):
             ft.operator(m, device="cpu", **kw)
+    # ported since: forced column segments and reordering
+    op = ft.operator(m, format="ell-seg", reorder="degree", device="cpu")
+    assert type(op.fwd).__name__ == "SegmentedEll"
+    assert op.row_perm is not None and op.col_perm is not None
+    X = np.random.default_rng(2).standard_normal((m.shape[1], 3)).astype(
+        np.float32)
+    assert _rel(op.matmat(torch.from_numpy(X)).numpy(),
+                m @ X.astype(np.float64)) <= TOL
     with pytest.raises(NotImplementedError, match="fp64"):
         ft.operator(m.astype(np.float64), device="cpu")  # auto -> ell, f64
     op = ft.operator(m, device="cpu")
