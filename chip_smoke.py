@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels from the sources in
+It builds the ten CUDA kernels from the sources in
 ``fastsparse_torch/ops/kernels/csrc/`` (one nvcc per source, in parallel)
 and then:
 
@@ -51,6 +51,25 @@ and then:
    ``reorder="degree", transpose=False``, both against scipy f64.
    densecols and both gather kernels must launch. Then per-product times,
    launches per product, device busy time and idle share.
+7. tile kernel phase: the ECFP matrix as BASELINE config 3 is called
+   (``operator(m, reorder="auto", transpose=False)``; and with both
+   tilings, ``operator(m, reorder="auto")``) and config B as
+   ``bench.py:315`` calls it (``operator(mB, transpose=False,
+   reorder="degree")``), each layout checked against the reference's
+   (segment offsets, bucket kinds and dtypes, thresholds, padded tiles).
+   panel_spmm against its plain version on the ECFP forward segments
+   (windowed global X: narrow at N=32, fold "f32" at N=128 and 256),
+   bucket_spmm on the transpose tiling's largest segment (narrow N=32,
+   planes N=128), bucket_spmv on that segment and on config B's tile
+   segment, each at max|d|/max|ref| <= 1e-6, timed beside its plain
+   version, its bound and cuSPARSE's product of the same segment.
+8. tile main-path phase: with the counts set to 0, the ECFP forward
+   operator's matmat N = 32, 128, 256 and matvec within 1e-6 of scipy
+   f64; the Macau step (``rmatmat`` + ``cg_normal(reg=50, maxiter=30)``,
+   N=32) on the two-tiling operator, its true residual below 3e-3 of the
+   initial; config B matmat N=128 and matvec within 1e-5. bucket_spmm,
+   panel_spmm and bucket_spmv must each launch. Then per-product times,
+   launches, device busy time and idle share.
 
 Every kernel is timed with CUDA events (min of batches) beside its plain
 version, the least time the card could take for the same work (bytes over
@@ -77,6 +96,9 @@ SOURCES = {
     "ell_bucket": CSRC + "ell_spmm.cu",
     "ell_sweep": CSRC + "ell_spmm.cu",
     "densecols": CSRC + "densecols_spmm.cu",
+    "bucket_spmm": CSRC + "bsr_tiles.cu",
+    "panel_spmm": CSRC + "bsr_tiles.cu",
+    "bucket_spmv": CSRC + "bsr_tiles.cu",
 }
 REPLACES = {
     "colmax": "fastsparse/ops/pallas/bsr_spmm.py:619",
@@ -86,6 +108,9 @@ REPLACES = {
     "ell_bucket": "fastsparse/ops/pallas/ell_spmm.py:600",
     "ell_sweep": "fastsparse/ops/pallas/ell_spmm.py:362",
     "densecols": "fastsparse/ops/pallas/bsr_spmm.py:571",
+    "bucket_spmm": "fastsparse/ops/pallas/bsr_spmm.py:234",
+    "panel_spmm": "fastsparse/ops/pallas/bsr_spmm.py:446",
+    "bucket_spmv": "fastsparse/ops/pallas/bsr_spmm.py:1156",
 }
 MONO_KERNELS = ("colmax", "quant3_planes", "mono_panel", "mono_group")
 REL_TOL = 1e-6
@@ -93,6 +118,7 @@ REL_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 
 
 def check(cond, msg):
@@ -675,6 +701,327 @@ def hybrid_main_phase(ft, K, EK, opE, mE, time_cuda):
     return counts
 
 
+def bsr_csr(A):
+    """A CUDA CSR (f32) of a BsrMatrix of tile buckets or class panels, or
+    of a ColSegmented of them: cuSPARSE's operand for the same product."""
+    import torch
+
+    parts = [(0, A)] if not hasattr(A, "col_offsets") else list(
+        zip(A.col_offsets, A.segments))
+    rows, cols, vals = [], [], []
+    for off, S in parts:
+        TM, TK = S.tile_m, S.tile_k
+        for b in S.buckets:
+            sid = b.strip_ids.long()
+            if hasattr(b, "start_slab"):
+                i, r, c = b.panels.nonzero(as_tuple=True)
+                cols.append(b.start_slab.long()[i] * TK + c + off)
+                vals.append(b.panels[i, r, c].float())
+            else:
+                i, t, r, c = b.tiles.nonzero(as_tuple=True)
+                cols.append(b.slab_ids.long()[i, t] * TK + c + off)
+                vals.append(b.tiles[i, t, r, c].float())
+            rows.append(sid[i] * TM + r)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        size=tuple(A.shape)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def bsr_desc(S):
+    """One BsrMatrix segment as text: kind, dtype, tile height, buckets."""
+    if not S.buckets:
+        return "empty"
+    if S.is_mono:
+        return "mono"
+    if S.is_panel:
+        return (f"panels {S.dtype} tm={S.tile_m} ["
+                + ", ".join(f"{b.ns} w{b.width}" for b in S.buckets) + "]")
+    return (f"tiles {S.dtype} tm={S.tile_m} padded_tiles={S.padded_tiles} ["
+            + ", ".join(f"{b.ns}x{b.ntiles}" for b in S.buckets) + "]")
+
+
+def check_tile_hybrid(name, H, threshold, dc_shape, offsets, segs, nnz,
+                      sparse):
+    """A HybridMatrix with dense tiles against the reference's layout:
+    ``segs`` holds per segment (kind, dtype, (ns, width or T) list or
+    padded-tile count)."""
+    D = H.dense
+    print(f"{name}: threshold={H.threshold} dense_cols "
+          f"{tuple(H.dense_cols.block.shape)} dense {type(D).__name__} "
+          f"offsets {D.col_offsets} nnz {H.dense_nnz} sparse "
+          f"{type(H.sparse).__name__}", flush=True)
+    for off, S in zip(D.col_offsets, D.segments):
+        print(f"  segment {off}: {bsr_desc(S)}", flush=True)
+    check(H.threshold == threshold, f"{name}: threshold {H.threshold}")
+    check(tuple(H.dense_cols.block.shape) == dc_shape,
+          f"{name}: dense_cols {tuple(H.dense_cols.block.shape)}")
+    check(type(D).__name__ == "ColSegmented" and D.col_offsets == offsets,
+          f"{name}: dense part {type(D).__name__}")
+    check(H.dense_nnz == nnz and type(H.sparse).__name__ == sparse,
+          f"{name}: dense nnz {H.dense_nnz}, sparse {type(H.sparse).__name__}")
+    for S, want in zip(D.segments, segs):
+        if want is None:
+            check(not S.buckets, f"{name}: a segment is not empty")
+            continue
+        kind, dtype, spec = want
+        check(S.buckets and not S.is_mono and S.is_panel == (kind == "panels")
+              and str(S.dtype) == dtype and S.tile_m == 8,
+              f"{name}: segment {bsr_desc(S)}")
+        got = ([(b.ns, b.width) for b in S.buckets] if kind == "panels"
+               else S.padded_tiles if isinstance(spec, int)
+               else [(b.ns, b.ntiles) for b in S.buckets])
+        check(got == spec, f"{name}: segment {got} != {spec}")
+
+
+def tile_builds(ft, mE, mB):
+    """The three operators of the tile phases, their layouts checked."""
+    import torch
+
+    ops = {}
+    for key, m, kw in (("F", mE, dict(reorder="auto", transpose=False)),
+                       ("T", mE, dict(reorder="auto")),
+                       ("B", mB, dict(reorder="degree", transpose=False))):
+        t0 = time.perf_counter()
+        ops[key] = ft.operator(m, **kw)
+        torch.cuda.synchronize()
+        op = ops[key]
+        print(f"operator {key} {kw} build {time.perf_counter() - t0!r} s, "
+              f"perms kept: row {op.row_perm is not None} col "
+              f"{op.col_perm is not None}", flush=True)
+    opF, opT, opB = ops["F"], ops["T"], ops["B"]
+    check(opF.row_perm is not None and opF.col_perm is not None,
+          "ecfp reorder='auto': perms not kept")
+    fwd = ("HybridMatrix", 41, (50_176, 5_376), (0, 10_112),
+           [("panels", "torch.int8", [(3040, 1), (448, 2), (8, 3)]),
+            ("panels", "torch.int8", [(2648, 1), (128, 2)])],
+           738_877, "EllMatrix")
+    for name, H in (("ecfp fwd", opF.fwd), ("ecfp fwd (two tilings)",
+                                            opT.fwd)):
+        check(type(H).__name__ == fwd[0], f"{name}: {type(H).__name__}")
+        check_tile_hybrid(name, H, *fwd[1:])
+    check_tile_hybrid(
+        "ecfp bwd", opT.bwd, 40, (20_224, 13_440), (0, 12_544, 25_088, 37_632),
+        [("tiles", "torch.bfloat16", n) for n in (320, 5_504, 5_760, 4_736)],
+        1_019_177, "SegmentedEll")
+    check(opB.row_perm is None and opB.col_perm is None,
+          "config B reorder='degree': perms not elided")
+    check_tile_hybrid(
+        "config B fwd", opB.fwd, opB.fwd.threshold, (65_536, 2_560),
+        (0, 16_384, 32_768, 49_152),
+        [("tiles", "torch.bfloat16", [(8, 32)]),
+         ("panels", "torch.int8", [(8, 1)]), None, None],
+        opB.fwd.dense_nnz, "SegmentedEll")
+    return opF, opT, opB
+
+
+def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
+    """The three tile kernels against their plain versions at the main
+    path's shapes, each timed beside its bound and cuSPARSE."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.ops import bsr_ops as bo
+
+    g = np.random.default_rng(17)
+    res = {}
+
+    def run_set(name, fn, plain_fn, calls, quick=True):
+        """One product's launches of a kernel against the plain version;
+        beside the event time (which includes the wrappers' host work),
+        the device time of the launches under torch.profiler."""
+        kern = lambda *_: torch.cat([fn(*c) for c in calls])  # noqa: E731
+        r = compare(name, kern,
+                    lambda: torch.cat([plain_fn(*c) for c in calls]),
+                    False, (), {}, time_cuda, quick)[0]
+        busy, top = device_busy_ms(kern, None)
+        r["device_ms"] = None if busy is None else sum(
+            t for t, key in top if "_kernel" in key and "spm" in key)
+        return r
+
+    # panel_spmm on the ECFP forward segments: one global X, windowed
+    D = opF.fwd.dense
+    x_rows = D.seg_cols
+    K_rows = len(D.segments) * x_rows
+    D_csr = bsr_csr(D)
+    pan = [(b.start_slab[s0:s1], b.panels[s0:s1], si * x_rows)
+           for si, S in enumerate(D.segments)
+           for b, s0, s1, _ in bo._bsr_layout(S)]
+    pan_bytes = sum(p.numel() for _, p, _ in pan)
+    pan_rows = sum(p.shape[0] * p.shape[1] for _, p, _ in pan)
+    modes = {}
+    for N in (32, 128, 256):
+        X = torch.from_numpy(g.standard_normal(
+            (D.shape[1], N)).astype(np.float32)).cuda()
+        nq = bo._narrow_nq(N)
+        if nq:
+            Xg, fold = bo._pack_narrow_planes(X, K_rows, nq), False
+        else:
+            Xg, fold = bo._padded_x(X, K_rows, bo._round_up(N, 128)), "f32"
+
+        def fn(st, pn, rb, plain=False):
+            f = TT.panel_spmm_plain if plain else TT.panel_spmm
+            return f(st, pn, Xg, tile_k=128, fold=fold, row_base=rb)
+
+        r = run_set(f"panel_spmm[N={N}]", fn,
+                    lambda *c: fn(*c, plain=True), pan)
+        r.update(bound(pan_bytes + Xg.numel() * Xg.element_size()
+                       + pan_rows * Xg.shape[1] * 4, 6 * D.nnz * N,
+                       BF16_OPS_PER_S))
+        r["library_ms"] = library_ms(lambda: torch.sparse.mm(D_csr, X),
+                                     time_cuda)
+        r["shape"] = [len(pan), pan_rows, N]
+        print(f"  panel_spmm N={N}: {len(pan)} launches, device_ms="
+              f"{r['device_ms']!r} bound_ms={r['bound_ms']!r} "
+              f"({r['bound_by']}) cuSPARSE {r['library_ms']!r}", flush=True)
+        modes[f"N={N}"] = r
+    row = dict(modes["N=128"])
+    row["max_abs_err"] = max(v["max_abs_err"] for v in modes.values())
+    row["modes"] = modes
+    res["panel_spmm"] = row
+
+    # bucket_spmm on the ECFP transpose tiling's largest segment
+    S = max(opT.bwd.dense.segments, key=lambda s: s.padded_tiles)
+    S_csr = bsr_csr(S)
+    K = S.n_slabs * S.tile_k
+    tiles = [(b.slab_ids[s0:s1], b.tiles[s0:s1])
+             for b, s0, s1, _ in bo._bsr_layout(S)]
+    t_bytes = sum(t.numel() * 2 for _, t in tiles)
+    t_rows = sum(t.shape[0] * t.shape[2] for _, t in tiles)
+    modes = {}
+    for N in (32, 128):
+        X = torch.from_numpy(g.standard_normal(
+            (S.shape[1], N)).astype(np.float32)).cuda()
+        nq = bo._narrow_nq(N)
+        if nq:
+            Xp, planes = bo._pack_narrow_planes(X, K, nq), 1
+        else:
+            Xp, planes = bo._stack_planes(bo._padded_x(X, K, 128), 128,
+                                          128), 3
+        r = run_set(
+            f"bucket_spmm[N={N}]",
+            lambda sl, t: TT.bucket_spmm(sl, t, Xp, n_block=128,
+                                         planes=planes),
+            lambda sl, t: TT.bucket_spmm_plain(sl, t, Xp, n_block=128,
+                                               planes=planes), tiles)
+        r.update(bound(t_bytes + Xp.numel() * 2 + t_rows * 128 * 4,
+                       6 * S.nnz * N, BF16_OPS_PER_S))
+        r["library_ms"] = library_ms(lambda: torch.sparse.mm(S_csr, X),
+                                     time_cuda)
+        r["shape"] = [len(tiles), S.padded_tiles, N]
+        print(f"  bucket_spmm N={N}: {len(tiles)} launches over "
+              f"{S.padded_tiles} padded tiles, device_ms={r['device_ms']!r} "
+              f"bound_ms={r['bound_ms']!r} ({r['bound_by']}) cuSPARSE "
+              f"{r['library_ms']!r}", flush=True)
+        modes[f"N={N}"] = r
+    row = dict(modes["N=128"])
+    row["max_abs_err"] = max(v["max_abs_err"] for v in modes.values())
+    row["modes"] = modes
+    res["bucket_spmm"] = row
+
+    # bucket_spmv on that segment and on config B's tile segment
+    modes = {}
+    for name, S in (("ecfp bwd", S), ("config B", opB.fwd.dense.segments[0])):
+        S_csr = bsr_csr(S)
+        x = torch.from_numpy(g.standard_normal(
+            S.shape[1]).astype(np.float32)).cuda()
+        xp = bo._padded_x(x[:, None], S.n_slabs * S.tile_k, 1).reshape(
+            S.n_slabs, S.tile_k)
+        parts = [(b.slab_ids[s0:s1], b.tiles[s0:s1], xp)
+                 for b, s0, s1, _ in bo._bsr_layout(S)]
+        r = run_set(f"bucket_spmv[{name}]", TT.bucket_spmv,
+                    TT.bucket_spmv_plain, parts)
+        nb = sum(t.numel() * t.element_size() for _, t, _ in parts)
+        out = sum(t.shape[0] * t.shape[2] for _, t, _ in parts)
+        r.update(bound(nb + xp.numel() * 4 + out * 4, 2 * S.nnz,
+                       F32_OPS_PER_S))
+        x1 = x[:, None].contiguous()
+        r["library_ms"] = library_ms(lambda: torch.sparse.mm(S_csr, x1),
+                                     time_cuda)
+        r["shape"] = [len(parts), S.padded_tiles]
+        print(f"  bucket_spmv {name}: {len(parts)} launches, device_ms="
+              f"{r['device_ms']!r} bound_ms={r['bound_ms']!r} "
+              f"({r['bound_by']}) cuSPARSE {r['library_ms']!r}", flush=True)
+        modes[name] = r
+    row = dict(modes["ecfp bwd"])
+    row["max_abs_err"] = max(v["max_abs_err"] for v in modes.values())
+    row["modes"] = modes
+    res["bucket_spmv"] = row
+    return res
+
+
+def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
+    """BASELINE config 3 as called, the Macau step on its two tilings and
+    config B as bench.py calls it, counted and checked against scipy."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(19)
+    nE, fE = mE.shape
+    Xn = {N: g.standard_normal((fE, N)).astype(np.float32)
+          for N in (32, 128, 256)}
+    xn = Xn[32][:, 0].copy()
+    Rn = g.standard_normal((nE, 32)).astype(np.float32)
+    XBn = g.standard_normal((mB.shape[1], 128)).astype(np.float32)
+    xBn = XBn[:, 0].copy()
+    X = {N: torch.from_numpy(v).cuda() for N, v in Xn.items()}
+    x, R = torch.from_numpy(xn).cuda(), torch.from_numpy(Rn).cuda()
+    XB, xB = torch.from_numpy(XBn).cuda(), torch.from_numpy(xBn).cuda()
+    torch.cuda.synchronize()
+
+    reg = 50.0
+    for c in (K, EK, TT):
+        c.reset_launches()
+    Y = {N: opF.matmat(v) for N, v in X.items()}
+    y = opF.matvec(x)
+    rhs = opT.rmatmat(R)
+    sol = ft.cg_normal(opT, rhs, reg=reg, maxiter=30)
+    YB = opB.matmat(XB)
+    yB = opB.matvec(xB)
+    torch.cuda.synchronize()
+    counts = dict(K.launches, **EK.launches, **TT.launches)
+    print(f"tile main-path launches: {counts}", flush=True)
+
+    mE64, mB64 = mE.astype(np.float64), mB.astype(np.float64)
+    outs = {f"ecfp-auto.matmat N={N}": (Y[N], mE64 @ Xn[N].astype(np.float64),
+                                        REL_TOL) for N in Y}
+    outs["ecfp-auto.matvec"] = (y, mE64 @ xn.astype(np.float64), REL_TOL)
+    outs["ecfp-auto2.rmatmat N=32"] = (rhs, mE64.T @ Rn.astype(np.float64),
+                                       REL_TOL)
+    outs["configB-degree.matmat N=128"] = (YB, mB64 @ XBn.astype(np.float64),
+                                           1e-5)
+    outs["configB-degree.matvec"] = (yB, mB64 @ xBn.astype(np.float64), 1e-5)
+    rels = {}
+    for name, (out, ref, tol) in outs.items():
+        check(tuple(out.shape) == ref.shape and out.dtype == torch.float32
+              and out.is_cuda, f"{name}: {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite values")
+        rels[name] = rel_err(out.cpu().numpy(), ref)
+        check(rels[name] < tol, f"{name} rel {rels[name]}")
+    print(f"tile rel vs scipy f64: {rels}", flush=True)
+    xs = sol.x.cpu().numpy().astype(np.float64)
+    b = rhs.cpu().numpy().astype(np.float64)
+    r_true = np.linalg.norm(b - (mE64.T @ (mE64 @ xs) + reg * xs), axis=0)
+    r0 = np.linalg.norm(b, axis=0)
+    print(f"Macau step on operator(m, reorder='auto') N=32: iters="
+          f"{sol.iters} resnorm/initial max={float((r_true / r0).max())!r}",
+          flush=True)
+    check(bool(np.all(r_true < 3e-3 * r0)), "cg_normal: residual did not fall")
+    for name in ("bucket_spmm", "panel_spmm", "bucket_spmv"):
+        check(counts[name] > 0, f"kernel {name} never launched on the tile path")
+
+    products = {f"ecfp-auto.matmat N={N}": (opF.matmat, v)
+                for N, v in X.items()}
+    products["ecfp-auto.matvec"] = (opF.matvec, x)
+    products["ecfp-auto2.rmatmat N=32"] = (opT.rmatmat, R)
+    products["ecfp-auto2.normal_matmat N=32"] = (
+        lambda V: opT.normal_matmat(V, reg=reg), rhs)
+    products["configB-degree.matmat N=128"] = (opB.matmat, XB)
+    products["configB-degree.matvec"] = (opB.matvec, xB)
+    time_products(products, time_cuda, (K, EK, TT))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -693,6 +1040,7 @@ def main() -> int:
     from fastsparse_torch.bench.matrices import banded, ecfp_like, powerlaw
     from fastsparse_torch.bench.timing import time_cuda
     from fastsparse_torch.ops.kernels import bsr_spmm as K
+    from fastsparse_torch.ops.kernels import bsr_tiles as TT
     from fastsparse_torch.ops.kernels import ell_spmm as EK
     from fastsparse_torch.ops.kernels._build import build_seconds, load_library
 
@@ -857,6 +1205,15 @@ def main() -> int:
     kres.update(densecols_kernel_phase(K, opE, time_cuda))
     hyb_counts = hybrid_main_phase(ft, K, EK, opE, mE, time_cuda)
     counts["densecols"] = hyb_counts["densecols"]
+    del opE
+
+    # ---- the tile layouts: BASELINE config 3 and config B as called
+    opF, opT, opB = tile_builds(ft, mE, mB)
+    kres.update(tile_kernel_phase(TT, opF, opT, opB, time_cuda))
+    tile_counts = tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB,
+                                  time_cuda)
+    counts.update({k: tile_counts[k]
+                   for k in ("bucket_spmm", "panel_spmm", "bucket_spmv")})
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(k == "fastsparse" or k.startswith("fastsparse.")

@@ -6,16 +6,21 @@ path written by hand in CUDA C++ for NVIDIA Hopper (sm_90a). It imports
 torch and never jax. Ported so far: the mono int8-panel BSR main path
 (`operator(m, format="bsr")`, its products, the normal-equation chain and
 the CG solvers), the f32 ELL gather engine (`operator(m, format="ell")`),
-the hybrid format without dense tiles (a dense-column block beside the
-gather engine), ``format="auto"`` where it lands on any of these, and the
-``reorder=`` orderings. Entry points build on the card (``device="cuda"``)
+the tile-bucket and class-panel BSR layouts and their column-segmented
+containers, the hybrid format (dense tiles and a dense-column block beside
+the gather engine), ``format="auto"`` where it lands on any of these, and
+the ``reorder=`` orderings. Entry points build on the card (``device="cuda"``)
 unless the caller asks for another device.
 """
 from .config import Config, DEFAULT, LANES
 from .formats.coo import COO, BinaryCOO, coo_from_scipy, binary_coo_from_scipy
 from .formats.csr import CSR, BinaryCSR, csr_from_scipy, binary_csr_from_scipy
 from .formats.convert import to_coo, to_csr, to_csr_host
-from .formats.bsr import BsrMatrix, MonoGroupBucket, MonoPanelBucket, build_bsr
+from .formats.bsr import (
+    BsrBucket, BsrMatrix, MonoGroupBucket, MonoPanelBucket, PanelBucket,
+    build_bsr,
+)
+from .formats.segmented import ColSegmented, build_bsr_segmented
 from .formats.ell import (
     EllBucket, EllMatrix, SegmentedEll, build_ell, build_ell_segmented,
 )
@@ -34,7 +39,8 @@ __all__ = [
     "COO", "BinaryCOO", "coo_from_scipy", "binary_coo_from_scipy", "to_coo",
     "CSR", "BinaryCSR", "csr_from_scipy", "binary_csr_from_scipy", "to_csr",
     "to_csr_host",
-    "BsrMatrix", "MonoGroupBucket", "MonoPanelBucket", "build_bsr",
+    "BsrBucket", "BsrMatrix", "MonoGroupBucket", "MonoPanelBucket",
+    "PanelBucket", "build_bsr", "ColSegmented", "build_bsr_segmented",
     "EllBucket", "EllMatrix", "SegmentedEll", "build_ell",
     "build_ell_segmented",
     "DenseCols", "HybridMatrix", "build_hybrid", "dense_tile_fraction",

@@ -1,28 +1,35 @@
-"""Mono-panel block-sparse (BSR) layout and its builder.
+"""Block-sparse (BSR) layouts and their builder.
 
-Counterpart of the mono subset of ``fastsparse/formats/bsr.py``. A matrix
-is cut into row strips of ``tile_m`` rows and column slabs of ``tile_k``
-columns. The mono layout stores the whole matrix as ONE list of uniform
-width items (:class:`MonoPanelBucket`): each item is a dense
-``(tile_m, width·tile_k)`` panel of one strip, reading a contiguous slice
-of X. Beside it a zero-spill halo layout with one item per strip
-(:class:`MonoGroupBucket`, ``BsrMatrix.narrow``) serves narrow products
-(SpMV and N <= 8).
+Counterpart of ``fastsparse/formats/bsr.py``. A matrix is cut into row
+strips of ``tile_m`` rows and column slabs of ``tile_k`` columns, and
+compiled into one of four layouts:
+
+* mono (:class:`MonoPanelBucket`): the whole matrix as ONE list of
+  uniform-width items, each a dense ``(tile_m, width·tile_k)`` panel of one
+  strip reading a contiguous slice of X; beside it a zero-spill halo
+  layout with one item per strip (:class:`MonoGroupBucket`,
+  ``BsrMatrix.narrow``) serves narrow products (SpMV and N <= 8);
+* class panels (:class:`PanelBucket`): one contiguous ``(tile_m,
+  width·tile_k)`` panel per strip, strips grouped by width;
+* tile buckets (:class:`BsrBucket`): each strip's occupied
+  ``(tile_m, tile_k)`` tiles with their slab ids, strips grouped by
+  power-of-two tile counts.
 
 The layout decisions are host-side numpy and reproduce the reference's
-exactly: same items, windows, widths and panels for the same matrix and
-`Config`. The module constants below are layout parameters of that
-decision (kept for parity, and monkeypatched by tests in both packages),
-not limits of this card. The panel fill is one ``index_put_`` on the
-target device.
+exactly: same buckets, items, windows, widths, tiles and panels for the
+same matrix and `Config`. The module constants below are layout
+parameters of that decision (kept for parity, and monkeypatched by tests
+in both packages), not limits of this card. Each fill is one
+``index_put_`` on the target device.
 
-Not ported yet (slice 3), and refused with `NotImplementedError`: tile
-buckets, per-class panels, bitmask tiles and the grouped mono layout.
+Not ported yet (slice 3b), and refused with `NotImplementedError`:
+bitmask tiles and panels (``binary=True``, ``binary_tiles="bitmask"``) and
+the grouped mono layout.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +38,8 @@ from ..config import DEFAULT, Config
 from .coo import COO, BinaryCOO
 
 __all__ = [
+    "BsrBucket",
+    "PanelBucket",
     "MonoPanelBucket",
     "MonoGroupBucket",
     "BsrMatrix",
@@ -44,6 +53,45 @@ def _ceil_pow2(x: int) -> int:
 
 def _to_np(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrBucket:
+    """All row strips needing exactly ``ntiles`` (padded) tiles.
+
+    Slot ``i`` covers strip ``strip_ids[i]`` (``n_strips`` for a padding
+    slot); its tile ``t`` reads X rows from ``slab_ids[i, t]·tile_k`` on
+    (padding tiles read slab 0 and hold zeros)."""
+
+    strip_ids: torch.Tensor  # int32[ns]
+    slab_ids: torch.Tensor  # int32[ns, T]
+    tiles: torch.Tensor  # dtype[ns, T, TM, TK]
+    ntiles: int
+
+    @property
+    def ns(self) -> int:
+        return int(self.strip_ids.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelBucket:
+    """One panel class: strips whose occupied slabs span ``width``
+    contiguous slabs. Slot ``i`` is ONE ``(TM, width·TK)`` block of strip
+    ``strip_ids[i]`` (``n_strips`` for a padding slot) starting at column
+    ``start_slab[i]·tile_k``."""
+
+    strip_ids: torch.Tensor  # int32[ns]
+    start_slab: torch.Tensor  # int32[ns]
+    panels: torch.Tensor  # dtype[ns, TM, width·TK]
+    width: int
+
+    @property
+    def ns(self) -> int:
+        return int(self.strip_ids.shape[0])
+
+    @property
+    def ntiles(self) -> int:  # tile-equivalents
+        return self.width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,13 +188,17 @@ class MonoGroupBucket:
         return int(self.start_rel.shape[0])
 
 
+_PANEL_KINDS = (PanelBucket, MonoPanelBucket, MonoGroupBucket)
+
+
 @dataclasses.dataclass(frozen=True)
 class BsrMatrix:
-    """A matrix compiled into the mono layout (or an empty matrix, which
-    has no buckets). ``shape`` is the logical shape; ``n_strips`` and
-    ``n_slabs`` count the padded tile grid."""
+    """A matrix compiled into bucketed (tile_m × tile_k) tiles, class
+    panels or the mono layout (an empty matrix has no buckets). ``shape``
+    is the logical shape; ``n_strips`` and ``n_slabs`` count the padded
+    tile grid."""
 
-    buckets: Tuple[MonoPanelBucket, ...]
+    buckets: Tuple[Any, ...]
     shape: tuple
     nnz: int
     n_tiles: int  # occupied (tile_m × tile_k) tiles
@@ -154,6 +206,9 @@ class BsrMatrix:
     tile_m: int
     tile_k: int
     binary: bool
+    # strip-gather Y assembly of the tile and class-panel layouts
+    # (`ops.assemble.BsrStripPlan`), or None
+    strip_plan: Any = None
     # narrow-RHS halo engine (SpMV and N <= 8), or None
     narrow: Optional[MonoGroupBucket] = None
 
@@ -165,11 +220,23 @@ class BsrMatrix:
     def n_slabs(self) -> int:
         return -(-self.shape[1] // self.tile_k)
 
+    def _values(self):
+        b = self.buckets[0]
+        return b.panels if isinstance(b, _PANEL_KINDS) else b.tiles
+
     @property
     def dtype(self):
         if self.binary or not self.buckets:
             return torch.float32
-        return self.buckets[0].panels.dtype
+        return self._values().dtype
+
+    @property
+    def device(self):
+        return self._values().device if self.buckets else None
+
+    @property
+    def is_panel(self) -> bool:
+        return bool(self.buckets) and isinstance(self.buckets[0], _PANEL_KINDS)
 
     @property
     def is_mono(self) -> bool:
@@ -184,12 +251,14 @@ class BsrMatrix:
         )
 
     def todense(self) -> torch.Tensor:
-        """Dense f32 (int8 panels densify as f32) or panel-dtype matrix."""
+        """Dense f32 (int8 panels densify as f32) or tile-dtype matrix."""
         TM, TK = self.tile_m, self.tile_k
         nsp, nsl = self.n_strips, self.n_slabs
         ddt = torch.float32 if self.dtype == torch.int8 else self.dtype
         if not self.buckets:
             return torch.zeros(self.shape, dtype=ddt)
+        if not self.is_mono:
+            return self._todense_strips(ddt)
         dev = self.buckets[0].panels.device
         wide = nsl * TK
         for b in self.buckets:
@@ -208,6 +277,35 @@ class BsrMatrix:
             )
             outp.index_put_(idx, b.panels.to(ddt), accumulate=True)
         dense = outp[:nsp, :, : nsl * TK].reshape(nsp * TM, nsl * TK)
+        return dense[: self.shape[0], : self.shape[1]]
+
+    def _todense_strips(self, ddt) -> torch.Tensor:
+        """Tile buckets and class panels: each slot's block added at its
+        strip (padding slots land in the dump strip ``n_strips``)."""
+        TM, TK = self.tile_m, self.tile_k
+        nsp, nsl = self.n_strips, self.n_slabs
+        dev = self.device
+        outp = torch.zeros((nsp + 1, TM, nsl * TK), dtype=ddt, device=dev)
+        ar_m = torch.arange(TM, device=dev)
+        for b in self.buckets:
+            sids = b.strip_ids.long()
+            if isinstance(b, PanelBucket):
+                PK = b.width * TK
+                cols = (b.start_slab.long()[:, None] * TK
+                        + torch.arange(PK, device=dev)[None, :])
+                idx = (sids[:, None, None].expand(-1, TM, PK),
+                       ar_m[None, :, None].expand(b.ns, -1, PK),
+                       cols[:, None, :].expand(-1, TM, -1))
+                outp.index_put_(idx, b.panels.to(ddt), accumulate=True)
+                continue
+            T = b.ntiles
+            cols = (b.slab_ids.long()[:, :, None] * TK
+                    + torch.arange(TK, device=dev))  # (ns, T, TK)
+            idx = (sids[:, None, None, None].expand(-1, T, TM, TK),
+                   ar_m[None, None, :, None].expand(b.ns, T, -1, TK),
+                   cols[:, :, None, :].expand(-1, -1, TM, -1))
+            outp.index_put_(idx, b.tiles.to(ddt), accumulate=True)
+        dense = outp[:nsp].reshape(nsp * TM, nsl * TK)
         return dense[: self.shape[0], : self.shape[1]]
 
 
@@ -485,17 +583,25 @@ def _build_mono_halo(
 
 
 def build_bsr(
-    mat, config: Config = DEFAULT, dtype=None, mono_only: bool = False,
-    device="cuda",
+    mat, config: Config = DEFAULT, dtype=None, binary=None, panels=None,
+    mono_only: bool = False, device="cuda",
 ) -> BsrMatrix:
-    """Compile a COO matrix into the mono layout on ``device``.
+    """Compile a COO matrix into a BSR layout on ``device``.
 
     Takes the reference's layout decision (`fastsparse.formats.bsr.
     build_bsr`): mono when its padded footprint is within
-    ``MONO_BYTES_FACTOR`` of the best alternative layout. ``mono_only=True``
-    returns None unless mono wins. An empty matrix compiles to a layout
-    with no buckets. Where the reference would pick a layout that is not
-    ported yet, raises `NotImplementedError`.
+    ``MONO_BYTES_FACTOR`` of the best alternative layout, else class panels
+    when their footprint is no larger than the tile buckets' (and X fits
+    the panel kernels' residency cap), else tile buckets. ``panels=True``
+    or ``False`` forces the class-panel layout or keeps it out, as in the
+    reference. ``mono_only=True`` returns None unless mono wins. An empty
+    matrix compiles to a layout with no buckets.
+
+    A 0/1 input (`BinaryCOO`) stores its values as int8 in panel layouts
+    (the ``binary_tiles="int8"`` default) and as bf16 in tile buckets.
+    Bitmask tiles (``binary=True``, ``binary_tiles="bitmask"``, or a binary
+    input with a ``dtype``) and the grouped mono layout raise
+    `NotImplementedError`: they are slice 3b.
     """
     config = config.resolve()
     TM, TK = config.tile_m, config.tile_k
@@ -506,17 +612,17 @@ def build_bsr(
     else:
         raise TypeError(f"unsupported input {type(mat).__name__}")
     is_bin_in = isinstance(coo, BinaryCOO)
-    # 0/1 input: int8 (the default) or bf16 panels; bitmask tiles are not
-    # ported
     int8_tiles = False
-    if is_bin_in:
-        if dtype is not None or config.binary_tiles not in ("bf16", "int8"):
-            raise NotImplementedError(
-                "bitmask tiles (binary input with a dtype, or "
-                "binary_tiles='bitmask') are slice 3"
-            )
+    if binary is None and is_bin_in and dtype is None and (
+            config.binary_tiles in ("bf16", "int8")):
+        # 0/1 values stored as bf16 tiles (exact), int8 in panel layouts
         dtype = torch.bfloat16
         int8_tiles = config.binary_tiles == "int8"
+    elif binary or (binary is None and is_bin_in):
+        raise NotImplementedError(
+            "bitmask tiles (binary=True, binary_tiles='bitmask', or a binary "
+            "input with a dtype) are slice 3b"
+        )
 
     nrow, ncol = coo.shape
     n_strips = -(-nrow // TM)
@@ -524,14 +630,17 @@ def build_bsr(
     rows = coo.rows[: coo.n_valid].cpu().numpy().astype(np.int64)
     cols = coo.cols[: coo.n_valid].cpu().numpy().astype(np.int64)
 
-    # occupied tiles, their strips, and the tile-bucket footprint the mono
-    # decision compares against
-    upair = np.unique((rows // TM) * n_slabs + cols // TK)
+    # occupied tiles, their strips, and each entry's tile rank in its strip
+    upair, inv = np.unique((rows // TM) * n_slabs + cols // TK,
+                           return_inverse=True)
     ustrip = upair // n_slabs
     uslab = upair % n_slabs
     tiles_per_strip = np.bincount(ustrip, minlength=n_strips)
     first_of_strip = np.zeros(n_strips, np.int64)
     np.cumsum(tiles_per_strip[:-1], out=first_of_strip[1:])
+    urank = np.arange(upair.size) - first_of_strip[ustrip]
+
+    # strips bucketed by padded tile count (power-of-two slot counts)
     widths = sorted(set(int(t) for t in config.bsr_bucket_tiles))
     max_needed = int(tiles_per_strip.max()) if upair.size else 1
     if max_needed > widths[-1]:
@@ -540,14 +649,27 @@ def build_bsr(
     for w in reversed(widths):
         T_of_strip[tiles_per_strip <= w] = w
     T_of_strip[tiles_per_strip == 0] = 0
+    buckets_meta = []  # (T, strips in the bucket, padded ns, first tile slot)
+    tile_base_of_strip = np.zeros(n_strips, np.int64)
     flat_tiles = 0
     for w in widths:
-        cnt = int((T_of_strip == w).sum())
-        if cnt:
-            flat_tiles += _ceil_pow2(max(cnt, 8)) * w
+        strips_b = np.nonzero(T_of_strip == w)[0]
+        if strips_b.size == 0:
+            continue
+        ns = _ceil_pow2(max(strips_b.size, 8))
+        buckets_meta.append((w, strips_b, ns, flat_tiles))
+        tile_base_of_strip[strips_b] = flat_tiles + np.arange(strips_b.size) * w
+        flat_tiles += ns * w
 
+    if panels is None and config.bsr_panels != "auto":
+        panels = False
+    from ..config import BSR_SEG_COLS_F32
+
+    # class panels hold the whole X panel resident in the reference (f32,
+    # its planes split in-kernel), so they are gated on the f32 column cap
+    classes_ok = n_slabs * TK <= BSR_SEG_COLS_F32
     mono_mode = config.bsr_mono
-    if (config.bsr_panels == "auto" or mono_mode == "force") and upair.size:
+    if (panels is not False or mono_mode == "force") and upair.size:
         last = first_of_strip + np.maximum(tiles_per_strip - 1, 0)
         smin = np.zeros(n_strips, np.int64)
         smax = np.zeros(n_strips, np.int64)
@@ -578,7 +700,7 @@ def build_bsr(
             if config.bsr_mono_grouped:
                 raise NotImplementedError(
                     "the grouped mono layout (bsr_mono_grouped=True) is "
-                    "slice 3"
+                    "slice 3b"
                 )
             W, win_slabs, p_strip, p_lo, p_len, _ = mono_plan
             mono_dtype = torch.int8 if int8_tiles else dtype
@@ -592,14 +714,111 @@ def build_bsr(
                 n_strips, n_slabs, TM, TK, smin, smax, ne, device,
             )
             return dataclasses.replace(m, narrow=h) if h is not None else m
+        if mono_only:
+            return None
+        # ties go to panels: equal bytes, one contiguous slice per strip
+        if (classes_ok or panels is True) and panels is not False and (
+            panels is True or 0 < panel_slabs <= flat_tiles
+        ):
+            return _build_panels(
+                rows, cols, coo, is_bin_in,
+                torch.int8 if int8_tiles else dtype, (nrow, ncol),
+                n_strips, n_slabs, TM, TK, wq, smin, int(upair.size), device,
+            )
     if mono_only:
         return None
-    if not upair.size:
-        return BsrMatrix(
-            buckets=(), shape=(nrow, ncol), nnz=0, n_tiles=0,
-            padded_tiles=0, tile_m=TM, tile_k=TK, binary=False,
-        )
-    raise NotImplementedError(
-        "this structure compiles to tile buckets or class panels in the "
-        "reference; those BSR layouts are slice 3"
+    return _build_tiles(
+        rows, cols, coo, is_bin_in, dtype, (nrow, ncol), n_strips, TM, TK,
+        buckets_meta, tile_base_of_strip[ustrip] + urank, inv, uslab,
+        flat_tiles, device,
+    )
+
+
+def _flat_fill(slot, n, vals_dev):
+    """One device scatter-add of the entry values into a flat buffer."""
+    dev = vals_dev.device
+    flat = torch.zeros(n, dtype=vals_dev.dtype, device=dev)
+    flat.index_put_((torch.as_tensor(slot, dtype=torch.int64, device=dev),),
+                    vals_dev, accumulate=True)
+    return flat
+
+
+def _build_tiles(rows, cols, coo, is_bin_in, dtype, shape, n_strips, TM, TK,
+                 buckets_meta, tile_slot_of_u, inv, uslab, flat_tiles,
+                 device) -> BsrMatrix:
+    """Tile-bucket build: every entry lands in its tile's slot of one flat
+    fill; each bucket is a slice of it."""
+    nrow, ncol = shape
+    per = TM * TK
+    slot = tile_slot_of_u[inv] * per + (rows % TM) * TK + cols % TK
+    vals_dev = _mono_vals(coo, is_bin_in, dtype, rows.shape[0], device)
+    flat = _flat_fill(slot, flat_tiles * per, vals_dev)
+    slab_of_slot = np.zeros(max(flat_tiles, 1), np.int32)
+    slab_of_slot[tile_slot_of_u] = uslab
+    buckets = []
+    for w, strips_b, ns, base in buckets_meta:
+        strip_ids = np.full(ns, n_strips, np.int32)
+        strip_ids[: strips_b.size] = strips_b
+        buckets.append(BsrBucket(
+            strip_ids=torch.as_tensor(strip_ids, device=device),
+            slab_ids=torch.as_tensor(
+                slab_of_slot[base : base + ns * w].reshape(ns, w),
+                device=device),
+            tiles=flat[base * per : (base + ns * w) * per].reshape(
+                ns, w, TM, TK),
+            ntiles=int(w),
+        ))
+    return BsrMatrix(
+        buckets=tuple(buckets), shape=(nrow, ncol), nnz=int(rows.shape[0]),
+        n_tiles=int(uslab.size), padded_tiles=int(flat_tiles), tile_m=TM,
+        tile_k=TK, binary=False,
+    )
+
+
+def _build_panels(rows, cols, coo, is_bin_in, dtype, shape, n_strips,
+                  n_slabs, TM, TK, wq, smin, n_tiles, device) -> BsrMatrix:
+    """Class-panel build: one contiguous (TM, W·TK) block per strip, strips
+    grouped by their ladder width ``wq`` (0 = empty), each class padded to
+    a multiple of 8 slots, one flat fill."""
+    nrow, ncol = shape
+    ne = wq > 0
+    classes = np.unique(wq[ne]) if ne.any() else np.asarray([1], np.int64)
+    # start clamped so that start + W <= n_slabs (X slices stay in bounds)
+    start = np.zeros(n_strips, np.int64)
+    start[ne] = np.minimum(smin[ne], n_slabs - wq[ne])
+    base = np.zeros(n_strips, np.int64)  # flat element offset of each panel
+    meta = []
+    off = 0
+    for w in classes:
+        strips_c = np.nonzero(wq == w)[0]
+        ns_pad = _round8(max(strips_c.size, 8))
+        per = TM * int(w) * TK
+        meta.append((int(w), strips_c, ns_pad, off))
+        base[strips_c] = off + np.arange(strips_c.size) * per
+        off += ns_pad * per
+    strip = rows // TM
+    slot = (base[strip] + (rows % TM) * (wq[strip] * TK)
+            + cols - start[strip] * TK)
+    vals_dev = _mono_vals(coo, is_bin_in, dtype, rows.shape[0], device)
+    flat = _flat_fill(slot, off, vals_dev)
+    buckets = []
+    padded = 0
+    for w, strips_c, ns_pad, cbase in meta:
+        PK = w * TK
+        strip_ids = np.full(ns_pad, n_strips, np.int32)
+        strip_ids[: strips_c.size] = strips_c
+        st = np.zeros(ns_pad, np.int32)
+        st[: strips_c.size] = start[strips_c]
+        buckets.append(PanelBucket(
+            strip_ids=torch.as_tensor(strip_ids, device=device),
+            start_slab=torch.as_tensor(st, device=device),
+            panels=flat[cbase : cbase + ns_pad * TM * PK].reshape(
+                ns_pad, TM, PK),
+            width=w,
+        ))
+        padded += ns_pad * w
+    return BsrMatrix(
+        buckets=tuple(buckets), shape=(nrow, ncol), nnz=int(rows.shape[0]),
+        n_tiles=n_tiles, padded_tiles=padded, tile_m=TM, tile_k=TK,
+        binary=False,
     )

@@ -5,10 +5,9 @@ A matrix splits into up to three parts, summed by the products:
 * ``dense_cols`` (`DenseCols`): the high-degree columns of a binary matrix
   as one dense int8 0/1 block, multiplied by the `densecols_spmm` kernel;
 * ``sparse``: the scattered rest as bucketed ELL for the gather engine;
-* ``dense``: (8 × 128) tiles holding at least ``threshold`` entries, as
-  tiled BSR. The tile kernels are slice 3: `build_hybrid` raises where the
-  split would put entries in dense tiles, rather than build a layout the
-  reference does not.
+* ``dense``: (tile_m × tile_k) tiles holding at least ``threshold``
+  entries, as a BSR layout (tile buckets or class panels, a `ColSegmented`
+  of them past the BSR column cap), multiplied by the tile kernels.
 
 The split is decided on the host with numpy and reproduces the
 reference's: dense-column extraction first, then the occupancy threshold
@@ -62,9 +61,8 @@ class DenseCols:
 
 @dataclasses.dataclass(frozen=True)
 class HybridMatrix:
-    """``dense`` (tiled BSR, slice 3: always None in the port's builds) +
-    ``sparse`` (bucketed ELL) + ``dense_cols`` (`DenseCols`) split of one
-    matrix."""
+    """``dense`` (BsrMatrix | ColSegmented) + ``sparse`` (bucketed ELL) +
+    ``dense_cols`` (`DenseCols`) split of one matrix."""
 
     dense: Optional[Any]
     sparse: Optional[Any]  # EllMatrix | SegmentedEll | None
@@ -175,10 +173,13 @@ def build_hybrid(mat, config: Config = DEFAULT, threshold="auto",
     The high-degree columns of a binary matrix are extracted first.
     ``threshold="auto"`` picks the tile-occupancy cutoff minimizing the
     modeled product cost on what the dense-column extraction left
-    (`bench.model.auto_threshold`); an int pins it. A split that puts
-    entries in dense tiles raises `NotImplementedError`: the tile-BSR
-    kernels it needs are slice 3.
+    (`bench.model.auto_threshold`); an int pins it. Entries of tiles at or
+    over the threshold compile into BSR (column-segmented past
+    ``BSR_SEG_COLS_BINARY3`` for 0/1 input, ``BSR_SEG_COLS_F32`` else),
+    with the modeled-best tile height when ``config.tile_m`` is None; the
+    rest into ELL.
     """
+    auto_tm = config.tile_m is None
     config = config.resolve()
     shape = tuple(mat.shape)
     rows, cols, vals, binary = _host(mat)
@@ -192,27 +193,51 @@ def build_hybrid(mat, config: Config = DEFAULT, threshold="auto",
                                           config.tile_k)
     sel = _dense_sel(rows, cols, shape[1], config.tile_m, config.tile_k,
                      threshold)
-    n_dense = int(sel.sum())
-    if n_dense:
-        raise NotImplementedError(
-            f"the hybrid split puts {n_dense} of {rows.size} entries in dense "
-            f"tiles (threshold {threshold}): the tile-BSR part of the hybrid "
-            "is slice 3"
-        )
-    sparse = None
-    if rows.size:
+
+    def make_coo(idx):
         if binary:
-            rest = BinaryCOO.from_arrays(rows, cols, shape, device="cpu")
+            return BinaryCOO.from_arrays(rows[idx], cols[idx], shape,
+                                         device="cpu")
+        return COO(rows=torch.as_tensor(rows[idx].astype(np.int32)),
+                   cols=torch.as_tensor(cols[idx].astype(np.int32)),
+                   vals=vals[torch.as_tensor(np.nonzero(idx)[0])],
+                   shape=shape, n_valid=int(idx.sum()))
+
+    from ..linops import (
+        BSR_SEG_COLS_BINARY3,
+        BSR_SEG_COLS_F32,
+        _balanced_seg_cols,
+    )
+
+    dense = sparse = None
+    n_dense = int(sel.sum())
+    bsr_cap = (BSR_SEG_COLS_BINARY3 if binary and dtype in (None, torch.float32)
+               else BSR_SEG_COLS_F32)
+    if n_dense and auto_tm:
+        # taller tiles for the dense core when it merges vertically
+        tm = _model.best_tile_m(rows[sel], cols[sel], shape, config.tile_k)
+        if tm != config.tile_m:
+            config = dataclasses.replace(config, tile_m=tm)
+    if n_dense:
+        if shape[1] > bsr_cap:
+            from .segmented import build_bsr_segmented
+
+            dense = build_bsr_segmented(
+                make_coo(sel), config=config,
+                seg_cols=_balanced_seg_cols(shape[1], bsr_cap), dtype=dtype,
+                device=device,
+            )
         else:
-            rest = COO(rows=torch.as_tensor(rows.astype(np.int32)),
-                       cols=torch.as_tensor(cols.astype(np.int32)),
-                       vals=vals, shape=shape, n_valid=int(rows.size))
+            from .bsr import build_bsr
+
+            dense = build_bsr(make_coo(sel), config=config, dtype=dtype,
+                              device=device)
+    if (~sel).any():
+        rest = make_coo(~sel)
         # hybrid is gather-engine machinery: long rows split so every
         # bucket rides the whole-row packed body
         split = config.ell_split_rows
         if shape[1] > seg_cols:
-            from ..linops import _balanced_seg_cols
-
             sparse = build_ell_segmented(
                 rest, config=config,
                 seg_cols=_balanced_seg_cols(shape[1], seg_cols), dtype=dtype,
@@ -222,7 +247,7 @@ def build_hybrid(mat, config: Config = DEFAULT, threshold="auto",
             sparse = build_ell(rest, config=config, dtype=dtype,
                                split_rows=split, device=device)
     return HybridMatrix(
-        dense=None,
+        dense=dense,
         sparse=sparse,
         shape=shape,
         nnz=int(rows.size) + (dc.nnz if dc is not None else 0),

@@ -2,12 +2,16 @@
 
 `reference_arrays` flattens an operator into a dict of numpy arrays and
 static ints: for a mono BSR tiling the bucket arrays, the narrow halo
-layout, shapes and tile sizes; for an ELL tiling (EllMatrix or
+layout, shapes and tile sizes; for a tile-bucket or class-panel BSR
+tiling every bucket's arrays (``strip_ids``, ``slab_ids`` and ``tiles``,
+or ``strip_ids``, ``start_slab`` and ``panels``; bf16 values as f32 with
+their dtype's name) and the strip plan; for a ColSegmented its segments,
+offsets and cross-segment plan; for an ELL tiling (EllMatrix or
 SegmentedEll) every bucket's ``row_ids``, ``cols``, ``vals``, ``packed``
-and ``n_real`` and the assembly plan; for a HybridMatrix without dense
-tiles its ELL part, its `DenseCols` block (``col_ids``, ``block``,
-``shape``, ``nnz``, ``n_cols``), ``threshold`` and ``dense_nnz``; and the
-operator's four permutations. It reads attributes only, so it
+and ``n_real`` and the assembly plan; for a HybridMatrix its dense tiles,
+its ELL part, its `DenseCols` block (``col_ids``, ``block``, ``shape``,
+``nnz``, ``n_cols``), ``threshold`` and ``dense_nnz``; and the operator's
+four permutations. It reads attributes only, so it
 takes an operator of either package (the JAX reference's or this port's)
 without importing the other. `operator_from_reference_arrays` rebuilds the
 port's `SparseOperator` from such a dict on a given device; the tests use
@@ -18,11 +22,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .formats.bsr import BsrMatrix, MonoGroupBucket, MonoPanelBucket
+from .formats.bsr import (
+    BsrBucket, BsrMatrix, MonoGroupBucket, MonoPanelBucket, PanelBucket,
+)
 from .formats.ell import EllBucket, EllMatrix, SegmentedEll
 from .formats.hybrid import DenseCols, HybridMatrix
+from .formats.segmented import ColSegmented
 from .linops import SparseOperator
-from .ops.assemble import AssemblyPlan
+from .ops.assemble import AssemblyPlan, BsrStripPlan
 
 __all__ = ["reference_arrays", "operator_from_reference_arrays"]
 
@@ -42,6 +49,22 @@ def _np(a):
     return np.asarray(a)
 
 
+def _vals(a):
+    """(numpy array, dtype name) of a value array of either package; bf16
+    values (exact in f32) travel as f32."""
+    name = str(a.dtype).split(".")[-1]
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return (a.float() if name == "bfloat16" else a).numpy(), name
+    a = np.asarray(a)
+    return (a.astype(np.float32) if name == "bfloat16" else a), name
+
+
+def _vals_from(d, key, device):
+    return torch.as_tensor(np.array(d[key]), device=device).to(
+        getattr(torch, d[key + ".dtype"]))
+
+
 def _plan_arrays(plan, prefix, d):
     d[prefix + "has_plan"] = plan is not None
     if plan is None:
@@ -52,6 +75,39 @@ def _plan_arrays(plan, prefix, d):
     d[prefix + "plan.rowpos"] = _np(plan.rowpos)
     for k, c in enumerate(plan.classes):
         d[prefix + f"plan.class{k}"] = _np(c)
+    row_srcs = getattr(plan, "row_srcs", ()) or ()
+    d[prefix + "plan.n_row_srcs"] = len(row_srcs)
+    for k, r in enumerate(row_srcs):
+        d[prefix + f"plan.row_src{k}"] = _np(r)
+
+
+def _strip_plan_arrays(plan, prefix, d):
+    d[prefix + "has_strip_plan"] = plan is not None
+    if plan is None:
+        return
+    d[prefix + "strip_plan.pos"] = _np(plan.pos)
+    d[prefix + "strip_plan.n_parts"] = int(plan.n_parts)
+    d[prefix + "strip_plan.layout_key"] = tuple(plan.layout_key)
+    d[prefix + "strip_plan.row_pos"] = (
+        None if plan.row_pos is None else _np(plan.row_pos))
+
+
+def _bucket_arrays(A, prefix, d):
+    """A tile-bucket / class-panel BsrMatrix's buckets and strip plan."""
+    d[prefix + "kind"] = "bsr"
+    d[prefix + "n_buckets"] = len(A.buckets)
+    for i, b in enumerate(A.buckets):
+        p = prefix + f"b{i}."
+        d[p + "strip_ids"] = _np(b.strip_ids)
+        if hasattr(b, "start_slab"):  # PanelBucket
+            d[p + "start_slab"] = _np(b.start_slab)
+            d[p + "panels"], d[p + "panels.dtype"] = _vals(b.panels)
+            d[p + "width"] = int(b.width)
+        else:
+            d[p + "slab_ids"] = _np(b.slab_ids)
+            d[p + "tiles"], d[p + "tiles.dtype"] = _vals(b.tiles)
+            d[p + "ntiles"] = int(b.ntiles)
+    _strip_plan_arrays(A.strip_plan, prefix, d)
 
 
 def _ell_arrays(A, prefix, d):
@@ -78,14 +134,13 @@ _HYBRID_INTS = ("nnz", "dense_nnz", "threshold")
 
 
 def _hybrid_arrays(A, prefix, d):
-    if A.dense is not None:
-        raise NotImplementedError(
-            "hybrid layouts with dense tiles carry over with slice 3"
-        )
     d[prefix + "kind"] = "hybrid"
     d[prefix + "shape"] = tuple(int(v) for v in A.shape)
     for k in _HYBRID_INTS:
         d[prefix + k] = int(getattr(A, k))
+    d[prefix + "has_dense"] = A.dense is not None
+    if A.dense is not None:
+        _matrix_arrays(A.dense, prefix + "dense.", d)
     d[prefix + "has_sparse"] = A.sparse is not None
     if A.sparse is not None:
         _matrix_arrays(A.sparse, prefix + "sparse.", d)
@@ -102,6 +157,16 @@ def _hybrid_arrays(A, prefix, d):
 def _matrix_arrays(A, prefix, d):
     if hasattr(A, "dense_cols"):  # HybridMatrix
         _hybrid_arrays(A, prefix, d)
+        return
+    if type(A).__name__ == "ColSegmented":
+        d[prefix + "kind"] = "colseg"
+        d[prefix + "shape"] = tuple(int(v) for v in A.shape)
+        d[prefix + "nnz"] = int(A.nnz)
+        d[prefix + "seg_cols"] = int(A.seg_cols)
+        d[prefix + "col_offsets"] = tuple(int(v) for v in A.col_offsets)
+        for i, seg in enumerate(A.segments):
+            _matrix_arrays(seg, prefix + f"seg{i}.", d)
+        _plan_arrays(A.plan, prefix, d)
         return
     if hasattr(A, "col_offsets"):  # SegmentedEll
         d[prefix + "kind"] = "ell-seg"
@@ -123,7 +188,10 @@ def _matrix_arrays(A, prefix, d):
     if not A.buckets:
         d[prefix + "kind"] = "empty"
         return
-    if not A.is_mono or A.is_mono_grouped or len(A.buckets) != 1:
+    if not A.is_mono:
+        _bucket_arrays(A, prefix, d)
+        return
+    if A.is_mono_grouped or len(A.buckets) != 1:
         raise NotImplementedError("only single-bucket mono layouts carry over")
     d[prefix + "kind"] = "mono"
     b = A.buckets[0]
@@ -141,7 +209,7 @@ def _matrix_arrays(A, prefix, d):
 
 
 def reference_arrays(op) -> dict:
-    """Flatten a mono-BSR, ELL or hybrid operator (either package) into a
+    """Flatten a BSR, ELL or hybrid operator (either package) into a
     dict of numpy arrays and static ints, keyed ``fwd.*`` and ``bwd.*``,
     with the permutations (None or int32 arrays) under their names."""
     d = {"shape": tuple(int(v) for v in op.shape),
@@ -170,6 +238,11 @@ def _plan_from(d, prefix, device):
         widths=tuple(widths),
         n_slots=d[prefix + "plan.n_slots"],
         layout_key=tuple(d[prefix + "plan.layout_key"]),
+        row_srcs=tuple(
+            torch.as_tensor(np.array(d[prefix + f"plan.row_src{k}"]),
+                            device=device)
+            for k in range(d[prefix + "plan.n_row_srcs"])
+        ),
     )
 
 
@@ -192,7 +265,9 @@ def _ell_from(d, prefix, device) -> EllMatrix:
 
 
 def _hybrid_from(d, prefix, device) -> HybridMatrix:
-    sparse = dc = None
+    dense = sparse = dc = None
+    if d[prefix + "has_dense"]:
+        dense = _matrix_from(d, prefix + "dense.", device)
     if d[prefix + "has_sparse"]:
         sparse = _matrix_from(d, prefix + "sparse.", device)
     if d[prefix + "has_dense_cols"]:
@@ -204,7 +279,7 @@ def _hybrid_from(d, prefix, device) -> HybridMatrix:
             shape=tuple(d[prefix + "dc.shape"]), nnz=d[prefix + "dc.nnz"],
             n_cols=d[prefix + "dc.n_cols"],
         )
-    return HybridMatrix(dense=None, sparse=sparse, dense_cols=dc,
+    return HybridMatrix(dense=dense, sparse=sparse, dense_cols=dc,
                         shape=tuple(d[prefix + "shape"]),
                         **{k: d[prefix + k] for k in _HYBRID_INTS})
 
@@ -215,6 +290,15 @@ def _matrix_from(d, prefix, device):
         return _hybrid_from(d, prefix, device)
     if kind == "ell":
         return _ell_from(d, prefix, device)
+    if kind == "colseg":
+        offsets = d[prefix + "col_offsets"]
+        return ColSegmented(
+            segments=tuple(_matrix_from(d, prefix + f"seg{i}.", device)
+                           for i in range(len(offsets))),
+            col_offsets=tuple(offsets), seg_cols=d[prefix + "seg_cols"],
+            shape=tuple(d[prefix + "shape"]), nnz=d[prefix + "nnz"],
+            plan=_plan_from(d, prefix, device),
+        )
     if kind == "ell-seg":
         offsets = d[prefix + "col_offsets"]
         return SegmentedEll(
@@ -227,12 +311,42 @@ def _matrix_from(d, prefix, device):
     return _bsr_from(d, prefix, device)
 
 
+def _bucket_from(d, p, device):
+    def t(k):
+        return torch.as_tensor(np.array(d[p + k]), device=device)
+
+    if p + "start_slab" in d:
+        return PanelBucket(strip_ids=t("strip_ids"), start_slab=t("start_slab"),
+                           panels=_vals_from(d, p + "panels", device),
+                           width=d[p + "width"])
+    return BsrBucket(strip_ids=t("strip_ids"), slab_ids=t("slab_ids"),
+                     tiles=_vals_from(d, p + "tiles", device),
+                     ntiles=d[p + "ntiles"])
+
+
+def _strip_plan_from(d, prefix, device):
+    if not d[prefix + "has_strip_plan"]:
+        return None
+    p = prefix + "strip_plan."
+    row_pos = d[p + "row_pos"]
+    return BsrStripPlan(
+        pos=torch.as_tensor(np.array(d[p + "pos"]), device=device),
+        n_parts=d[p + "n_parts"], layout_key=tuple(d[p + "layout_key"]),
+        row_pos=None if row_pos is None else torch.as_tensor(
+            np.array(row_pos), device=device),
+    )
+
+
 def _bsr_from(d, prefix, device) -> BsrMatrix:
     def t(k, dtype=None):
         return torch.as_tensor(np.array(d[prefix + k]), dtype=dtype,
                                device=device)
 
-    buckets, narrow = (), None
+    buckets, narrow, strip_plan = (), None, None
+    if d[prefix + "kind"] == "bsr":
+        buckets = tuple(_bucket_from(d, prefix + f"b{i}.", device)
+                        for i in range(d[prefix + "n_buckets"]))
+        strip_plan = _strip_plan_from(d, prefix, device)
     if d[prefix + "kind"] == "mono":
         panels = t("panels")
         buckets = (MonoPanelBucket.from_items(
@@ -251,6 +365,7 @@ def _bsr_from(d, prefix, device) -> BsrMatrix:
         buckets=buckets,
         shape=tuple(d[prefix + "shape"]),
         binary=bool(d[prefix + "binary"]),
+        strip_plan=strip_plan,
         narrow=narrow,
         **{k: int(d[prefix + k]) for k in _MATRIX_INTS},
     )

@@ -4,9 +4,10 @@
 `operator()` compiles a matrix and, with ``transpose=True``, its transpose
 into layouts on one device, so every product, the transpose and the
 normal equations included, is a forward pass through a kernel. Ported
-formats: ``"bsr"`` compiled to the mono layout, ``"ell"`` and ``"ell-seg"``
+formats: ``"bsr"`` (the mono layout, class panels or tile buckets,
+column-segmented past the BSR column caps), ``"ell"`` and ``"ell-seg"``
 (the f32 gather engine, column-segmented past ``SEG_COLS``), ``"hybrid"``
-without dense tiles (a dense-column block beside the gather engine) and
+(dense tiles and a dense-column block beside the gather engine) and
 ``"auto"``, which picks among them as the reference does; and the
 reference's ``reorder=`` orderings with their permutation boundary.
 """
@@ -38,6 +39,7 @@ from .formats.convert import to_coo
 from .formats.coo import BinaryCOO, binary_coo_from_scipy, coo_from_scipy
 from .formats.ell import EllMatrix, SegmentedEll, build_ell, build_ell_segmented
 from .formats.hybrid import HybridMatrix, build_hybrid
+from .formats.segmented import build_bsr_segmented
 from .ops import spmm as _spmm_mod
 from .ops import spmv as _spmv_mod
 from .ops.assemble import attach_plan
@@ -218,24 +220,31 @@ def _auto_format(coo, config: Config, dtype) -> str:
 
 
 def _compile_bsr(coo, config: Config, dtype, device):
-    """The reference's ``_compile_one(..., "bsr")``: wide matrices try mono
-    first (mono windows X, so it needs no column segments); what is left
-    would be a column-segmented layout, which is slice 3."""
+    """The reference's ``_compile_one(..., "bsr")``: a matrix wider than
+    the column cap tries mono first (mono windows X, so it needs no column
+    segments), else compiles one BSR layout per balanced column segment.
+    A 0/1 matrix past ``BSR_SEG_COLS_BINARY3`` whose pieces are not all
+    panel layouts is rebuilt at that tighter cap (the tile kernels' X
+    planes take 6 bytes per element in the reference)."""
     def build(cap):
         if coo.shape[1] > cap:
             m = build_bsr(coo, config=config, dtype=dtype, mono_only=True,
                           device=device)
-            if m is None:
-                raise NotImplementedError(
-                    "column-segmented BSR layouts are slice 3"
-                )
-            return m
+            if m is not None:
+                return m
+            return build_bsr_segmented(
+                coo, config=config,
+                seg_cols=_balanced_seg_cols(coo.shape[1], cap), dtype=dtype,
+                device=device,
+            )
         return build_bsr(coo, config=config, dtype=dtype, device=device)
 
     built = build(BSR_SEG_COLS_F32)
     binary3 = isinstance(coo, BinaryCOO) and dtype in (None, torch.float32)
-    if binary3 and coo.shape[1] > BSR_SEG_COLS_BINARY3 and not built.is_mono:
-        built = build(BSR_SEG_COLS_BINARY3)
+    if binary3 and coo.shape[1] > BSR_SEG_COLS_BINARY3:
+        pieces = getattr(built, "segments", (built,))
+        if not all(getattr(p, "is_panel", False) for p in pieces):
+            built = build(BSR_SEG_COLS_BINARY3)
     return built
 
 
@@ -369,21 +378,20 @@ def operator(
     :class:`SparseOperator` on ``device`` (the card unless the caller asks
     for another).
 
-    ``format="auto"`` takes the reference's decision: ``"bsr"`` (the mono
-    layout) when tiles are full, ``"hybrid"`` (dense columns beside the
-    gather engine) or ``"ell"`` (the gather engine) for sparser structure,
-    by the reference's cost model. ``"ell-seg"`` forces column segments.
+    ``format="auto"`` takes the reference's decision: ``"bsr"`` when tiles
+    are full, ``"hybrid"`` (dense tiles and dense columns beside the gather
+    engine) or ``"ell"`` (the gather engine) for sparser structure, by the
+    reference's cost model. ``"ell-seg"`` forces column segments.
     ``reorder`` (``"degree"``, ``"minhash"``, ``"tilepack"``, ``"hilbert"``
     or ``"auto"``) permutes rows and columns before tiling; products permute
     operands at the boundary, which the gather-engine formats elide without
     the dual tiling where the reference does. ``"coo"``/``"csr"`` (the XLA
     scatter engines) and ELL with values other than f32 are slice 4 and
-    ``tune=True`` slice 3: they raise `NotImplementedError`, as does a
-    structure the reference compiles to a layout not ported yet (a hybrid
-    with dense tiles, column-segmented BSR). ``dtype``: a torch dtype or
-    None. With ``config.tile_m=None`` the BSR tile height is the modeled
-    best (`bench.model.best_tile_m`), raised from 128 to 256 when the
-    taller build is still mono.
+    ``tune=True`` and bitmask tiles slice 3b: they raise
+    `NotImplementedError`. ``dtype``: a torch dtype or None. With
+    ``config.tile_m=None`` the BSR tile height is the modeled best
+    (`bench.model.best_tile_m`), raised from 128 to 256 when the taller
+    build is still mono.
     """
     if format not in _FORMATS:
         raise ValueError(f"format must be one of {_FORMATS}")
@@ -394,7 +402,7 @@ def operator(
         )
     if tune:
         raise NotImplementedError(
-            "tune=True (per-matrix bucket edges) is slice 3"
+            "tune=True (per-matrix bucket edges) is slice 3b"
         )
     if dtype is not None and not isinstance(dtype, torch.dtype):
         raise TypeError("dtype must be a torch dtype or None")
@@ -451,13 +459,10 @@ def _compile_bsr_pair(coo, config, dtype, device, transpose):
         config = dataclasses.replace(config, tile_m=tm)
     fwd = _compile_bsr(coo, config, dtype, device)
     # taller mono items: keep tile_m=256 when that build is still mono
-    if auto_tm and config.tile_m == 128 and fwd.is_mono:
+    if auto_tm and config.tile_m == 128 and getattr(fwd, "is_mono", False):
         cfg256 = dataclasses.replace(config, tile_m=256)
-        try:
-            fwd256 = _compile_bsr(coo, cfg256, dtype, device)
-        except NotImplementedError:  # the 256 build is not mono
-            fwd256 = None
-        if fwd256 is not None and fwd256.is_mono:
+        fwd256 = _compile_bsr(coo, cfg256, dtype, device)
+        if getattr(fwd256, "is_mono", False):
             fwd, config = fwd256, cfg256
     bwd = _compile_bsr(_transpose(coo), config, dtype, device) \
         if transpose else None

@@ -1,5 +1,4 @@
-"""Gather-plan Y assembly for the ELL engine (counterpart of the ELL part of
-``fastsparse/ops/assemble.py``).
+"""Gather-plan Y assembly (counterpart of ``fastsparse/ops/assemble.py``).
 
 `ell_spmm` collects per-part row panels and must sum them into Y. The slot
 layout (which output row every part slot feeds) is fixed when the format
@@ -13,8 +12,12 @@ is built, so the sum runs as static row gathers instead of a scatter:
 
 Row gathers are plain torch indexing, as the reference leaves them to XLA;
 the summation order (class by class, slots in order) is the reference's.
-Mono BSR layouts write Y in place and need no plan; a hybrid gets plans
-on its parts; the tile-BSR strip plans are not ported yet.
+
+The tile-bucket and class-panel BSR layouts get a `BsrStripPlan` (strips
+are disjoint across buckets, so Y is one gather of the per-part strip
+panels), a `ColSegmented` of them an `AssemblyPlan` whose ``row_srcs``
+sum each output row's per-segment panels. Mono BSR layouts write Y in
+place and need no plan; a hybrid gets plans on its parts.
 """
 from __future__ import annotations
 
@@ -26,18 +29,25 @@ import torch
 
 __all__ = [
     "AssemblyPlan",
+    "BsrStripPlan",
     "attach_plan",
     "build_assembly_plan",
+    "build_colseg_plan",
+    "build_strip_plan",
     "apply_plan",
+    "bsr_layout_key",
+    "colseg_layout_key",
     "layout_key",
 ]
 
 
 def attach_plan(fmt):
-    """``fmt`` with an :class:`AssemblyPlan` attached where the engine uses
-    one (an f32 EllMatrix / SegmentedEll without a plan); a mono BsrMatrix
-    passes through; a HybridMatrix recurses into its parts. Layouts whose
-    plans are not ported raise."""
+    """``fmt`` with assembly plans attached where the engines use them: an
+    f32 EllMatrix / SegmentedEll an :class:`AssemblyPlan`, a tile-bucket or
+    class-panel BsrMatrix a :class:`BsrStripPlan`, a ColSegmented of
+    BsrMatrix its cross-segment :class:`AssemblyPlan` (after its segments
+    get theirs); a HybridMatrix recurses into its parts. A mono or empty
+    BsrMatrix passes through."""
     from ..formats.bsr import BsrMatrix
     from ..formats.ell import EllMatrix, SegmentedEll
 
@@ -47,18 +57,91 @@ def attach_plan(fmt):
         return dataclasses.replace(fmt, dense=attach_plan(fmt.dense),
                                    sparse=attach_plan(fmt.sparse))
     if type(fmt).__name__ == "ColSegmented":
-        raise NotImplementedError(
-            "assembly plans for ColSegmented are slice 3"
-        )
+        fmt = dataclasses.replace(
+            fmt, segments=tuple(attach_plan(s) for s in fmt.segments))
+        if (fmt.plan is None and fmt.segments
+                and all(isinstance(s, BsrMatrix) for s in fmt.segments)):
+            fmt = dataclasses.replace(fmt, plan=build_colseg_plan(fmt))
+        return fmt
     if isinstance(fmt, BsrMatrix):
-        if fmt.is_mono or not fmt.buckets:
+        if fmt.is_mono or not fmt.buckets or fmt.strip_plan is not None:
             return fmt  # mono kernels write Y in place: no plan needed
-        raise NotImplementedError("tile-BSR strip plans are slice 3")
+        return dataclasses.replace(fmt, strip_plan=build_strip_plan(fmt))
     if isinstance(fmt, (EllMatrix, SegmentedEll)) and fmt.plan is None:
         segs = fmt.segments if isinstance(fmt, SegmentedEll) else (fmt,)
         if all(s.dtype == torch.float32 for s in segs):
             return dataclasses.replace(fmt, plan=build_assembly_plan(fmt))
     return fmt
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrStripPlan:
+    """Strip-gather schedule of a tile-bucket or class-panel BsrMatrix.
+
+    ``pos`` int32 ``(n_strips,)``: the row of the concatenated per-part
+    strip panels holding strip ``s``'s output (``n_parts``, the appended
+    zero panel, for empty strips). ``row_pos`` int32 ``(nrow,)``: the same
+    per output row in the flattened ``(n_parts·TM + 1, Npad)`` parts (one
+    gather gives the exact ``(nrow, Npad)`` output), or None past int32."""
+
+    pos: torch.Tensor
+    n_parts: int
+    layout_key: Tuple
+    row_pos: Any = None
+
+
+def bsr_layout_key():
+    """The BSR chunking state strip plans are valid under."""
+    from . import bsr_ops as bo
+
+    return (bo._SMEM_IDX_BUDGET,)
+
+
+def colseg_layout_key():
+    return ("colseg",) + bsr_layout_key()
+
+
+def _i32(a, device):
+    return torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
+
+
+def build_strip_plan(A) -> BsrStripPlan:
+    """Host-side strip plan: one ``strip_ids`` fetch per bucket, walking
+    `bsr_ops._bsr_layout` (the same part order `bsr_spmm` appends)."""
+    from . import bsr_ops as bo
+
+    nsp = A.n_strips
+    pos = np.full((nsp,), -1, np.int64)
+    off = 0
+    cur_b, sid_full = None, None
+    for b, s0, s1, n_pad in bo._bsr_layout(A):
+        if b is not cur_b:
+            cur_b = b
+            sid_full = b.strip_ids.cpu().numpy()
+        sid = sid_full[s0:s1]
+        real = sid < nsp  # padding slots point at the dump strip
+        pos[sid[real]] = off + np.nonzero(real)[0]
+        off += n_pad
+    pos[pos < 0] = off  # zero-panel sentinel for empty strips
+    rp = _row_positions(pos[None, :], off, A.tile_m, A.shape[0])
+    dev = A.device
+    return BsrStripPlan(
+        pos=_i32(pos, dev), n_parts=int(off), layout_key=bsr_layout_key(),
+        row_pos=None if rp is None else _i32(rp[0], dev),
+    )
+
+
+def _row_positions(slot_of_strip, n_parts, TM, nrow):
+    """Strip-level slot positions ``(n_levels, n_strips)`` (sentinel
+    ``n_parts``) -> per level, each output row's index in the flattened
+    ``(n_parts·TM + 1, Npad)`` parts (last row zero), as int64 numpy; None
+    when that index would overflow int32."""
+    if (n_parts + 1) * TM >= 2**31:
+        return None
+    r = np.arange(nrow, dtype=np.int64)
+    s, q = r // TM, r % TM
+    return [np.where(lvl[s] < n_parts, lvl[s] * TM + q, n_parts * TM)
+            for lvl in np.asarray(slot_of_strip, np.int64)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +160,10 @@ class AssemblyPlan:
     widths: Tuple[int, ...]
     n_slots: int  # rows of parts_cat the plan was built for
     layout_key: Tuple
+    # cross-segment strip plans only: ``row_srcs[m][r]`` is output row r's
+    # m-th contribution in the flattened ``(n_slots·TM + 1, Npad)`` parts
+    # (sentinel: the zero row)
+    row_srcs: Tuple[torch.Tensor, ...] = ()
 
 
 def _slot_stream(A):
@@ -166,16 +253,64 @@ def build_assembly_plan(A) -> AssemblyPlan:
     classes, widths, rowpos = _classes_from_slots(rid_all, valid_all,
                                                   A.shape[0])
     dev = A.device or "cpu"
-
-    def i32(a):
-        return torch.as_tensor(a.astype(np.int32), device=dev)
-
     return AssemblyPlan(
-        classes=tuple(i32(c) for c in classes),
-        rowpos=i32(rowpos),
+        classes=tuple(_i32(c, dev) for c in classes),
+        rowpos=_i32(rowpos, dev),
         widths=tuple(widths),
         n_slots=len(rid_all),
         layout_key=layout_key(),
+    )
+
+
+def build_colseg_plan(A) -> AssemblyPlan:
+    """Cross-segment strip plan for a ColSegmented of BsrMatrix: a strip
+    appears once per segment its entries touch, each time as one
+    ``(TM, Npad)`` part panel. Multiplicity classes over the strips, and
+    the row-granular ``row_srcs`` `bsr_ops.colseg_spmm` sums."""
+    from . import bsr_ops as bo
+
+    nsp = A.segments[0].n_strips
+    sids, valids = [], []
+    for seg in A.segments:
+        cur_b, sid_full = None, None
+        for b, s0, s1, n_pad in bo._bsr_layout(seg):
+            if b is not cur_b:
+                cur_b = b
+                sid_full = b.strip_ids.cpu().numpy().astype(np.int64)
+            sid = np.zeros(n_pad, np.int64)
+            sid[: s1 - s0] = sid_full[s0:s1]
+            valid = np.zeros(n_pad, bool)
+            valid[: s1 - s0] = sid_full[s0:s1] < nsp
+            sids.append(sid)
+            valids.append(valid)
+    rid_all = np.concatenate(sids) if sids else np.zeros((0,), np.int64)
+    valid_all = np.concatenate(valids) if valids else np.zeros((0,), bool)
+    classes, widths, rowpos = _classes_from_slots(rid_all, valid_all, nsp)
+
+    # slot position of each strip's m-th part, for the row-granular sum
+    n_slots = len(rid_all)
+    pos_all = np.nonzero(valid_all)[0]
+    strips = rid_all[pos_all]
+    order = np.argsort(strips, kind="stable")
+    ss, ps = strips[order], pos_all[order]
+    counts = np.bincount(ss.astype(np.int64), minlength=nsp)
+    starts = np.zeros(nsp, np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    maxm = int(counts.max()) if counts.size else 0
+    slot_of_strip = np.full((max(maxm, 1), nsp), n_slots, np.int64)
+    for m in range(maxm):
+        sel = counts > m
+        slot_of_strip[m, sel] = ps[starts[sel] + m]
+    row_srcs = _row_positions(slot_of_strip, n_slots,
+                              A.segments[0].tile_m, A.shape[0])
+    dev = A.device or "cpu"
+    return AssemblyPlan(
+        classes=tuple(_i32(c, dev) for c in classes),
+        rowpos=_i32(rowpos, dev),
+        widths=tuple(widths),
+        n_slots=n_slots,
+        layout_key=colseg_layout_key(),
+        row_srcs=tuple(_i32(r, dev) for r in (row_srcs or ())),
     )
 
 

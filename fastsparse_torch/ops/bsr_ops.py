@@ -1,35 +1,58 @@
-"""Mono BSR products: X encoding, kernel dispatch and the normal-equation
-chain (counterpart of the mono subset of ``fastsparse/ops/bsr_ops.py``).
+"""BSR products: X encoding, kernel dispatch, part assembly and the
+normal-equation chain (counterpart of ``fastsparse/ops/bsr_ops.py``).
 
-Every product of an int8-panel mono layout with an f32 operand runs at
-fp32 parity through radix-256 int8 X planes: per RHS column j,
-``x ≈ (q0·2^16 + q1·2^8 + q2)·s_j`` with ``s_j = colmax_j/(127·2^16)``, so
-each plane is one exact s8·s8→s32 dot. Wide products (N > 40) encode X
-with the `colmax` and `quant3_planes` kernels and run `mono_panel_spmm` in
-fold "i8w"; narrow products (N <= 40) encode with torch ops (the reference
-does this in XLA) and fold the three plane blocks after the kernel. N <= 8
-goes to the halo engine (`mono_group_spmm`) when the matrix has one.
+Mono layouts: every product of an int8-panel mono layout with an f32
+operand runs at fp32 parity through radix-256 int8 X planes: per RHS
+column j, ``x ≈ (q0·2^16 + q1·2^8 + q2)·s_j`` with
+``s_j = colmax_j/(127·2^16)``, so each plane is one exact s8·s8→s32 dot.
+Wide products (N > 40) encode X with the `colmax` and `quant3_planes`
+kernels and run `mono_panel_spmm` in fold "i8w"; narrow products (N <= 40)
+encode with torch ops (the reference does this in XLA) and fold the three
+plane blocks after the kernel. N <= 8 goes to the halo engine
+(`mono_group_spmm`) when the matrix has one.
 
-Only this path is ported. Other X dtypes, ``precision`` values and panel
-dtypes raise `NotImplementedError`; there is no silent fallback to a COO
-engine.
+Tile-bucket and class-panel layouts (and `ColSegmented` containers of
+them): fp32 parity from three bf16 planes of X over tiles that are exact
+in bf16 (0/1 values as bf16 or int8). Tile buckets run `bucket_spmm`
+(planes stacked along the lanes for N > 40, the narrow packing
+``[x0|x1|x2]`` in one 128-lane block for N <= 40, or plain f32 tiles × f32
+X for valued matrices); class panels run `panel_spmm` (the planes split
+in-kernel from f32 X for N > 40, the narrow packing for N <= 40); SpMV on
+tile buckets runs `bucket_spmv`. Each bucket is cut into parts of at most
+``_SMEM_IDX_BUDGET`` index entries, and the parts' strip panels are
+assembled by the layout's gather plan (`ops.assemble`). The reference's
+TPU residency budgets (``_SMEM_IDX_BUDGET``, ``RESIDENT_VMEM_BUDGET``, the
+``n_block`` cap, `pick_strategy`) are kept as layout parameters for
+parity: they decide the part count, the plans and the arithmetic.
+
+Only the f32 operand at ``precision="highest"`` is ported. Other X dtypes
+and precisions raise `NotImplementedError`, as do the bodies off this
+path (the streamed tile body and the bitmask modes, slice 3b; the
+reference's pre-split panel fold, off by its default, is not ported);
+there is no silent fallback to a COO engine.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..formats.bsr import BsrMatrix, MonoPanelBucket
+from ..formats.bsr import BsrMatrix, MonoPanelBucket, PanelBucket
 from .kernels.bsr_spmm import (
     colmax,
     mono_group_spmm,
     mono_panel_spmm,
     quant3_planes,
 )
+from .kernels.bsr_tiles import bucket_spmm, bucket_spmv, panel_spmm
 
-__all__ = ["bsr_spmm", "bsr_spmv", "halo_nq", "mono_chain"]
+__all__ = ["bsr_spmm", "bsr_spmv", "colseg_spmm", "halo_nq", "mono_chain"]
 
 LANES = 128
+# Layout parameters of the reference's TPU budgets, kept for parity: index
+# entries per part (its SMEM budget) and the X-panel residency budget that
+# caps n_block and picks the tile body.
+_SMEM_IDX_BUDGET = 64 * 1024
+RESIDENT_VMEM_BUDGET = 12 * 1024 * 1024
 # Widest narrow padded width the halo engine serves (the reference adopted
 # it for N <= 8 only; N in 9..40 takes the per-item narrow path).
 HALO_NQ_MAX = 8
@@ -143,7 +166,7 @@ def _mono_raw(A, X, precision):
     feeds a partner mono tiling directly (`mono_chain`)."""
     b = A.buckets[0]
     if not isinstance(b, MonoPanelBucket):
-        raise NotImplementedError("the grouped mono layout is slice 3")
+        raise NotImplementedError("the grouped mono layout is slice 3b")
     N = X.shape[1]
     (Xp, scale), NB, Npad, fold, nq = _prep_mono_x(A, X, N, precision)
     Y = mono_panel_spmm(
@@ -232,18 +255,388 @@ def mono_chain(A, At, X, precision="highest"):
     return Y2[: At.shape[0], :N]
 
 
-def bsr_spmm(A: BsrMatrix, X, *, precision: str = "highest"):
-    """``Y = A @ X`` for a mono BsrMatrix. X: f32 (ncol, N) on the
-    matrix's device."""
-    if not A.buckets:  # empty matrix
-        return torch.zeros((A.shape[0], X.shape[1]), dtype=torch.float32,
-                           device=X.device)
+def _require_parity(x_dtype, precision):
+    if precision != "highest":
+        raise NotImplementedError(
+            f"precision={precision!r}: only 'highest' (fp32 parity) is ported"
+        )
+    if x_dtype != torch.float32:
+        raise NotImplementedError(
+            f"X dtype {x_dtype}: only float32 operands are ported (bf16 and "
+            "fp64 products are slices 3b and 4)"
+        )
+
+
+def pick_strategy(n_slabs, tile_k, n_block, itemsize):
+    """The reference's X placement for the tile kernel: "resident" while
+    the X panel fits ``RESIDENT_VMEM_BUDGET``, else "streamed"."""
+    if n_slabs * tile_k * n_block * itemsize > RESIDENT_VMEM_BUDGET:
+        return "streamed"
+    return "resident"
+
+
+def _bucket_ranges(ns: int, T: int):
+    """Part ranges ``(s0, s1, n_pad)`` of one bucket: at most
+    ``_SMEM_IDX_BUDGET`` index entries each, every part of a chunked
+    bucket padded to the same slot count."""
+    ns_max = max(8, (_SMEM_IDX_BUDGET // max(T, 1)) // 8 * 8)
+    if ns <= ns_max:
+        yield 0, ns, ns
+        return
+    for s0 in range(0, ns, ns_max):
+        yield s0, min(s0 + ns_max, ns), ns_max
+
+
+def _bsr_layout(A):
+    """THE part layout of a tile-bucket or class-panel BsrMatrix, shared
+    by the products and the plan builders (`ops.assemble`): yields
+    ``(bucket, s0, s1, n_pad)``, a part covering bucket slots [s0, s1)
+    padded to ``n_pad`` (padding slots yield zero strip panels)."""
+    for b in A.buckets:
+        ns, T = (b.ns, 1) if isinstance(b, PanelBucket) else tuple(
+            b.slab_ids.shape)
+        for s0, s1, n_pad in _bucket_ranges(ns, T):
+            yield b, s0, s1, n_pad
+
+
+def _pad_part(Yb, n, n_pad, TM):
+    """A part's kernel output ``(n·TM, Npad)`` as ``(n_pad, TM, Npad)``,
+    zero panels for the padding slots."""
+    Yb = Yb.reshape(n, TM, -1)
+    if n_pad > n:
+        Yb = torch.cat([Yb, Yb.new_zeros((n_pad - n,) + tuple(Yb.shape[1:]))])
+    return Yb
+
+
+def _part_sids(b, s0, s1, n_pad, nsp):
+    sid = b.strip_ids[s0:s1]
+    if n_pad > s1 - s0:
+        sid = torch.cat([sid, sid.new_full((n_pad - (s1 - s0),), nsp)])
+    return sid
+
+
+def _split_bf16_planes(Xp):
+    """f32 ``(K, N)`` -> bf16 planes ``(hi, h1, x2)`` with hi + h1 + x2 ≈ x
+    to ~24 bits, split by masking the mantissa (as the reference does; hi
+    and h1 are exact in bf16, x2 rounds once)."""
+    mask = -65536  # 0xFFFF0000 as int32
+    hi = (Xp.contiguous().view(torch.int32) & mask).view(torch.float32)
+    r1 = Xp - hi
+    h1 = (r1.view(torch.int32) & mask).view(torch.float32)
+    x2 = r1 - h1
+    return hi.to(torch.bfloat16), h1.to(torch.bfloat16), x2.to(torch.bfloat16)
+
+
+def _stack_planes(Xp, NB: int, Npad: int):
+    """f32 ``(K, Npad)`` -> bf16 ``(K, 3·Npad)``: the three planes stacked
+    along the lanes per NB-wide block j, ``[x0_j | x1_j | x2_j]``."""
+    K = Xp.shape[0]
+    nj = Npad // NB
+    planes = _split_bf16_planes(Xp)
+    return torch.stack([p.reshape(K, nj, NB) for p in planes],
+                       dim=2).reshape(K, nj * 3 * NB)
+
+
+def _pack_narrow_planes(X, K: int, nq: int, nb: int = LANES):
+    """f32 ``X (ncol, N)`` -> bf16 ``(K, nb)``: ``[x0 | x1 | x2 | 0]`` with
+    each plane padded to ``nq`` columns and rows padded (or cut) to K."""
+    ncol, N = X.shape
+    Xf = X.to(torch.float32)
+    if ncol > K:
+        Xf = Xf[:K]
+    Xf = F.pad(Xf, (0, nq - N, 0, max(K - ncol, 0)))
+    planes = list(_split_bf16_planes(Xf))
+    if nb > 3 * nq:
+        planes.append(Xf.new_zeros((K, nb - 3 * nq), dtype=torch.bfloat16))
+    return torch.cat(planes, dim=1)
+
+
+def _fold_narrow(Y, nq: int):
+    """Fold the narrow packing's three plane blocks: (d0 + d1) + d2."""
+    return Y[:, :nq] + Y[:, nq : 2 * nq] + Y[:, 2 * nq : 3 * nq]
+
+
+def _padded_x(X, K: int, Npad: int):
+    Xp = X.new_zeros((K, Npad), dtype=torch.float32)
+    Xp[: X.shape[0], : X.shape[1]] = X
+    return Xp
+
+
+def _tile_parts(A, Xp, n_block: int, planes: int, strategy: str):
+    """Run `bucket_spmm` per part; returns (sids, parts)."""
+    if strategy != "resident":
+        raise NotImplementedError(
+            "the streamed tile body (an X panel past the residency budget) "
+            "is slice 3b"
+        )
+    TM, nsp = A.tile_m, A.n_strips
+    sids, parts = [], []
+    for b, s0, s1, n_pad in _bsr_layout(A):
+        Yb = bucket_spmm(b.slab_ids[s0:s1], b.tiles[s0:s1], Xp,
+                         n_block=n_block, planes=planes)
+        sids.append(_part_sids(b, s0, s1, n_pad, nsp))
+        parts.append(_pad_part(Yb, s1 - s0, n_pad, TM))
+    return sids, parts
+
+
+def _tile_impl(A, X, n_block, _parts):
+    """Tile-bucket ``Y = A @ X`` (the reference's non-panel `bsr_spmm`)."""
+    N = X.shape[1]
+    TK, nsl = A.tile_k, A.n_slabs
+    exact_bf16 = A.dtype == torch.bfloat16
+    nq = _narrow_nq(N) if n_block is None and exact_bf16 else 0
+    if nq:
+        # narrow RHS: all three planes in one 128-lane block
+        Xp = _pack_narrow_planes(X, nsl * TK, nq)
+        strategy = pick_strategy(nsl, TK, LANES, 2)
+        sids, parts = _tile_parts(A, Xp, LANES, 1, strategy)
+        return _finish(A, sids, parts, LANES, nq, N, _parts)
+    if n_block is None:
+        n_block = min(_round_up(N, LANES), 512)
+        # a wider RHS sweeps extra column blocks rather than widen X past
+        # the residency budget
+        while n_block > LANES and nsl * TK * n_block * 4 > RESIDENT_VMEM_BUDGET:
+            n_block //= 2
+    Npad = _round_up(N, n_block)
+    Xp = _padded_x(X, nsl * TK, Npad)
+    # bf16 tiles take the three-plane body ("planes_n") unless its X panel
+    # would be streamed where plain f32 X stays resident
+    planes = exact_bf16
+    strategy = pick_strategy(nsl, TK, n_block, 6 if planes else 4)
+    if planes and strategy == "streamed" and pick_strategy(
+            nsl, TK, n_block, 4) == "resident":
+        planes, strategy = False, "resident"
+    if planes:
+        Xp = _stack_planes(Xp, n_block, Npad)
+    sids, parts = _tile_parts(A, Xp, n_block, 3 if planes else 1, strategy)
+    return _finish(A, sids, parts, Npad, 0, N, _parts)
+
+
+def _finish(A, sids, parts, Npad, nq, N, _parts):
+    """Assemble the parts into Y (or hand them to `colseg_spmm`)."""
+    if _parts:
+        return sids, parts, Npad, nq
+    Y = _assemble_rows(A, parts, Npad)
+    if Y is None:
+        Y = _assemble_strips(A, sids, parts, Npad)[: A.shape[0]]
+    return (_fold_narrow(Y, nq) if nq else Y)[:, :N]
+
+
+def _plan_ok(plan, parts, key):
+    return (plan is not None and parts and plan.layout_key == key
+            and plan.n_parts == sum(int(p.shape[0]) for p in parts))
+
+
+def _assemble_rows(A, parts, Npad):
+    """Row-granular assembly: one gather over the flattened part panels
+    gives the exact ``(nrow, Npad)`` output. None without a valid plan."""
+    from .assemble import bsr_layout_key
+
+    plan = A.strip_plan
+    if not _plan_ok(plan, parts, bsr_layout_key()) or plan.row_pos is None:
+        return None
+    cat = torch.cat([p.reshape(-1, Npad) for p in parts]
+                    + [parts[0].new_zeros((1, Npad))])
+    return cat[plan.row_pos.long()]
+
+
+def _assemble_strips(A, sids, parts, Npad):
+    """Part panels -> Y f32 ``(n_strips·TM, Npad)``: the plan's strip
+    gather, else a scatter of the panels to their strips."""
+    from .assemble import bsr_layout_key
+
+    TM, nsp = A.tile_m, A.n_strips
+    plan = A.strip_plan
+    if _plan_ok(plan, parts, bsr_layout_key()):
+        cat = torch.cat(parts + [parts[0].new_zeros((1, TM, Npad))])
+        return cat[plan.pos.long()].reshape(nsp * TM, Npad)
+    Y = torch.zeros((nsp + 1, TM, Npad), dtype=torch.float32,
+                    device=A.device)
+    if parts:
+        Y[torch.cat(sids).long()] = torch.cat(parts)
+    return Y[:nsp].reshape(nsp * TM, Npad)
+
+
+def _prep_panel_x(A, X, N):
+    """Pad and encode X for the panel kernel: (Xp, Npad, fold, nq), with
+    ``nq > 0`` for the narrow packing (folded after assembly)."""
+    TK, nsl = A.tile_k, A.n_slabs
+    parity = A.dtype in (torch.bfloat16, torch.int8)
+    nq = _narrow_nq(N) if parity else 0
+    if nq:
+        return _pack_narrow_planes(X, nsl * TK, nq), LANES, False, nq
+    Npad = _round_up(N, LANES)
+    return _padded_x(X, nsl * TK, Npad), Npad, "f32" if parity else False, 0
+
+
+def _panel_parts(A, Xp, fold, row_base: int = 0):
+    """Run `panel_spmm` per part; ``row_base`` windows a global padded X
+    (the column-segmented callers). Returns (sids, parts)."""
+    TM, nsp = A.tile_m, A.n_strips
+    sids, parts = [], []
+    for b, s0, s1, n_pad in _bsr_layout(A):
+        Yb = panel_spmm(b.start_slab[s0:s1], b.panels[s0:s1], Xp,
+                        tile_k=A.tile_k, fold=fold, row_base=row_base)
+        sids.append(_part_sids(b, s0, s1, n_pad, nsp))
+        parts.append(_pad_part(Yb, s1 - s0, n_pad, TM))
+    return sids, parts
+
+
+def _panel_impl(A, X, _parts):
+    N = X.shape[1]
+    Xp, Npad, fold, nq = _prep_panel_x(A, X, N)
+    sids, parts = _panel_parts(A, Xp, fold)
+    return _finish(A, sids, parts, Npad, nq, N, _parts)
+
+
+def bsr_spmm(A: BsrMatrix, X, *, n_block=None, precision: str = "highest",
+             _parts: bool = False):
+    """``Y = A @ X`` for a BsrMatrix. X: f32 (ncol, N) on the matrix's
+    device. ``n_block`` pins the tile path's column block (`bsr_spmv`'s
+    one-column fallback). ``_parts=True`` (`colseg_spmm`) returns the raw
+    ``(sids, parts, Npad, nq)`` part panels instead of Y."""
+    _require_parity(X.dtype, precision)
     if A.is_mono:
+        if _parts:
+            raise TypeError("mono layouts are never column segments")
         return _mono_impl(A, X, precision)
-    raise NotImplementedError("non-mono BSR layouts are slice 3")
+    if not A.buckets and not _parts:  # empty matrix
+        return X.new_zeros((A.shape[0], X.shape[1]))
+    if A.buckets and A.dtype not in (torch.bfloat16, torch.int8,
+                                     torch.float32):
+        raise NotImplementedError(
+            f"{A.dtype} tiles: only bf16/int8 (0/1) and f32 tiles are ported"
+        )
+    if A.is_panel:
+        return _panel_impl(A, X, _parts)
+    return _tile_impl(A, X, n_block, _parts)
+
+
+def _seg_mode(seg, N, x_dtype, precision):
+    """(Npad, nq) the `bsr_spmm` paths produce for one segment: they must
+    agree across segments for the cross-segment assembly."""
+    exact = seg.dtype in (torch.bfloat16, torch.int8)
+    parity = exact and precision == "highest" and x_dtype == torch.float32
+    if seg.is_panel:
+        nq = _narrow_nq(N) if parity else 0
+        return (LANES, nq) if nq else (_round_up(N, LANES), 0)
+    nq = _narrow_nq(N) if parity and seg.dtype == torch.bfloat16 else 0
+    if nq:
+        return LANES, nq
+    nb = min(_round_up(N, LANES), 512)
+    isz = 4 if x_dtype == torch.float32 else 2
+    while nb > LANES and seg.n_slabs * seg.tile_k * nb * isz > RESIDENT_VMEM_BUDGET:
+        nb //= 2
+    return _round_up(N, nb), 0
+
+
+def _colseg_panel_parts_global(A, X, N, Npad, nq):
+    """All segments' panel parts over ONE globally padded X, each launch
+    reading its segment's window of it (no per-segment X copies). Needs
+    panel segments of one dtype with uniform, tile-aligned widths; None
+    otherwise (the caller runs the segments one by one)."""
+    segs = A.segments
+    if not all(s.is_panel for s in segs):
+        return None
+    if len({s.dtype for s in segs}) != 1:
+        return None
+    seg_w, TK = A.seg_cols, segs[0].tile_k
+    if seg_w % TK or any(off != i * seg_w
+                         for i, off in enumerate(A.col_offsets)):
+        return None
+    x_rows = seg_w
+    if any(s.n_slabs * TK > x_rows for s in segs):
+        return None
+    K_rows = len(segs) * x_rows
+    parity = segs[0].dtype in (torch.bfloat16, torch.int8)
+    if nq:
+        Xg, fold = _pack_narrow_planes(X, K_rows, nq), False
+    else:
+        Xg, fold = _padded_x(X, K_rows, Npad), "f32" if parity else False
+    parts_all = []
+    for si, seg in enumerate(segs):
+        parts_all += _panel_parts(seg, Xg, fold, row_base=si * x_rows)[1]
+    return parts_all
+
+
+def colseg_spmm(A, X, *, precision: str = "highest"):
+    """Cross-segment ``Y = A @ X`` for a ColSegmented of BsrMatrix: all
+    segments' strip panels summed by one gather plan
+    (`ops.assemble.build_colseg_plan`). None when the plan is absent or the
+    segments disagree on the product's mode (the caller then sums the
+    segments' own products, as the reference does)."""
+    from .assemble import colseg_layout_key
+
+    segs = A.segments
+    plan = A.plan
+    if (plan is None or not segs or plan.layout_key != colseg_layout_key()
+            or not all(isinstance(s, BsrMatrix) for s in segs)):
+        return None
+    _require_parity(X.dtype, precision)
+    N = X.shape[1]
+    modes = {_seg_mode(s, N, X.dtype, precision) for s in segs}
+    TM, nsp = segs[0].tile_m, segs[0].n_strips
+    if len(modes) != 1 or any(s.tile_m != TM or s.n_strips != nsp
+                              for s in segs):
+        return None
+    Npad, nq = modes.pop()
+    parts_all = _colseg_panel_parts_global(A, X, N, Npad, nq)
+    if parts_all is None:
+        parts_all = []
+        for off, seg in zip(A.col_offsets, segs):
+            _, parts, Npad_s, nq_s = bsr_spmm(
+                seg, X[off : off + seg.shape[1]], precision=precision,
+                _parts=True)
+            if (Npad_s, nq_s) != (Npad, nq):
+                return None
+            parts_all += parts
+    if plan.n_slots != sum(int(p.shape[0]) for p in parts_all):
+        return None
+    zero = X.new_zeros((1, Npad))
+    if plan.row_srcs:
+        # row-granular: each output row sums its per-segment panels
+        pcat = torch.cat([p.reshape(-1, Npad) for p in parts_all] + [zero])
+        Y = pcat[plan.row_srcs[0].long()]
+        for src in plan.row_srcs[1:]:
+            Y = Y + pcat[src.long()]
+        return (_fold_narrow(Y, nq) if nq else Y)[:, :N]
+    pcat = torch.cat(parts_all) if parts_all else X.new_zeros((0, TM, Npad))
+    ys = []
+    for c, pos_c in zip(plan.widths, plan.classes):
+        pos = pos_c.long()
+        yc = pcat[pos[:, 0]]
+        for k in range(1, c):
+            yc = yc + pcat[pos[:, k]]
+        ys.append(yc)
+    ys.append(zero.reshape(1, 1, Npad).expand(1, TM, Npad))
+    Y = torch.cat(ys)[plan.rowpos.long()].reshape(nsp * TM, Npad)
+    if nq:
+        Y = _fold_narrow(Y, nq)
+    return Y[: A.shape[0], :N]
 
 
 def bsr_spmv(A: BsrMatrix, x):
-    """``y = A @ x`` for a mono BsrMatrix: a one-column product (the halo
-    engine when the matrix has one)."""
-    return bsr_spmm(A, x[:, None])[:, 0]
+    """``y = A @ x``: `bucket_spmv` per part for tile buckets (TM <= 32, x
+    within the reference's residency budget); otherwise a one-column
+    product (panel layouts, the halo engine for mono)."""
+    _require_parity(x.dtype, "highest")
+    nrow, ncol = A.shape
+    TM, TK, nsp, nsl = A.tile_m, A.tile_k, A.n_strips, A.n_slabs
+    if not A.buckets:
+        return x.new_zeros((nrow,))
+    if A.is_panel:
+        return bsr_spmm(A, x[:, None])[:, 0]
+    if nsl * TK * 4 > 12 * 1024 * 1024 or TM > 32:
+        return bsr_spmm(A, x[:, None], n_block=LANES)[:, 0]
+    if A.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"bucket_spmv over {A.dtype} tiles")
+    xp = x.new_zeros((nsl * TK,))
+    xp[:ncol] = x
+    xp = xp.reshape(nsl, TK)
+    y = x.new_zeros((nsp + 1, TM))
+    for b in A.buckets:
+        ns, T = b.slab_ids.shape
+        for s0, s1, _ in _bucket_ranges(ns, T):
+            y[b.strip_ids[s0:s1].long()] = bucket_spmv(
+                b.slab_ids[s0:s1], b.tiles[s0:s1], xp)
+    return y[:nsp].reshape(nsp * TM)[:nrow]

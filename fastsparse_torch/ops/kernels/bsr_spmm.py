@@ -231,7 +231,7 @@ def mono_panel_spmm(
     if fold not in ("i8w", False):
         raise NotImplementedError(
             f"mono_panel_spmm fold={fold!r}: only 'i8w' and the narrow int8 "
-            "mode are ported (the other folds are slice 3)"
+            "mode are ported (the other folds are slice 3b)"
         )
     dev = x.device
     for nm, t in (("window", window), ("strip_ptr", strip_ptr),

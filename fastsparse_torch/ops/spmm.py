@@ -1,12 +1,13 @@
 """Multi-RHS SpMM ``Y = A @ X`` (counterpart of ``fastsparse/ops/spmm.py``).
 
-Ported: the mono BsrMatrix branch, the f32 EllMatrix / SegmentedEll
-branches (the gather engine) and the HybridMatrix branch with its
-dense-column block (`dense_cols_spmm`, the `densecols_spmm` kernel). The
-reference's XLA engines (COO/CSR, the per-bucket scan for non-f32 ELL or
-an X panel past its residency budget) come with slice 4, the dense tiles
-of a hybrid and the column-segmented BSR containers with slice 3. Those
-raise `NotImplementedError`.
+Ported: the BsrMatrix branch (mono, class panels, tile buckets), the
+ColSegmented branch (one cross-segment plan, else the sum of the segments'
+products, as the reference dispatches), the f32 EllMatrix / SegmentedEll
+branches (the gather engine) and the HybridMatrix branch with its dense
+tiles and its dense-column block (`dense_cols_spmm`, the `densecols_spmm`
+kernel). The reference's XLA engines (COO/CSR, the per-bucket scan for
+non-f32 ELL or an X panel past its residency budget) come with slice 4;
+they raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from ..formats.bsr import BsrMatrix
 from ..formats.ell import EllMatrix, SegmentedEll
 from ..formats.hybrid import HybridMatrix
+from ..formats.segmented import ColSegmented
 
 __all__ = ["spmm", "dense_cols_spmm", "densecols_planes"]
 
@@ -62,13 +64,22 @@ def spmm(A, X):
         Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype,
                         device=X.device)
         if A.dense is not None:
-            raise NotImplementedError(
-                "the dense tiles of a hybrid (tile-BSR kernels) are slice 3"
-            )
+            Y = Y + spmm(A.dense, X)
         if A.sparse is not None:
             Y = Y + spmm(A.sparse, X)
         if A.dense_cols is not None:
             Y = Y + dense_cols_spmm(A.dense_cols, X)
+        return Y
+    if isinstance(A, ColSegmented):
+        from .bsr_ops import colseg_spmm
+
+        Y = colseg_spmm(A, X)
+        if Y is not None:
+            return Y
+        Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype,
+                        device=X.device)
+        for off, seg in zip(A.col_offsets, A.segments):
+            Y = Y + spmm(seg, X[off : off + seg.shape[1]])
         return Y
     if isinstance(A, BsrMatrix):
         from .bsr_ops import bsr_spmm
@@ -87,5 +98,5 @@ def spmm(A, X):
             "engines: fp64 and wide unsegmented panels) are slice 4"
         )
     raise NotImplementedError(
-        f"spmm over {type(A).__name__} is not ported yet (slices 3, 4)"
+        f"spmm over {type(A).__name__} is not ported yet (slice 4)"
     )

@@ -1,11 +1,14 @@
 """SpMV ``y = A @ x`` (counterpart of ``fastsparse/ops/spmv.py``).
 
-Ported: the mono BsrMatrix branch, the f32 EllMatrix / SegmentedEll
-branches and the HybridMatrix branch. The reference runs ELL SpMV through
+Ported: the BsrMatrix branch (the `bucket_spmv` kernel for tile buckets,
+a one-column product for panel layouts), the ColSegmented branch (the
+cross-segment product, else each segment's own SpMV, as the reference
+dispatches), the f32 EllMatrix / SegmentedEll branches and the
+HybridMatrix branch. The reference runs ELL SpMV through
 the gather SpMM kernel on its accelerator (one gathered row per nonzero
 costs the same at N=1); the port takes that dispatch on every device: the
 CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor. The
-other engines raise `NotImplementedError` (slices 3, 4).
+other engines raise `NotImplementedError` (slice 4).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 from ..formats.bsr import BsrMatrix
 from ..formats.ell import EllMatrix, SegmentedEll
 from ..formats.hybrid import HybridMatrix
+from ..formats.segmented import ColSegmented
 
 __all__ = ["spmv"]
 
@@ -23,15 +27,23 @@ def spmv(A, x):
     if isinstance(A, HybridMatrix):
         y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
         if A.dense is not None:
-            raise NotImplementedError(
-                "the dense tiles of a hybrid (tile-BSR kernels) are slice 3"
-            )
+            y = y + spmv(A.dense, x)
         if A.sparse is not None:
             y = y + spmv(A.sparse, x)
         if A.dense_cols is not None:
             from .spmm import dense_cols_spmm
 
             y = y + dense_cols_spmm(A.dense_cols, x[:, None])[:, 0]
+        return y
+    if isinstance(A, ColSegmented):
+        from .bsr_ops import colseg_spmm
+
+        y = colseg_spmm(A, x[:, None])
+        if y is not None:
+            return y[:, 0]
+        y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
+        for off, seg in zip(A.col_offsets, A.segments):
+            y = y + spmv(seg, x[off : off + seg.shape[1]])
         return y
     if isinstance(A, BsrMatrix):
         from .bsr_ops import bsr_spmv
@@ -51,5 +63,5 @@ def spmv(A, x):
             "engines) is slice 4"
         )
     raise NotImplementedError(
-        f"spmv over {type(A).__name__} is not ported yet (slices 3, 4)"
+        f"spmv over {type(A).__name__} is not ported yet (slice 4)"
     )

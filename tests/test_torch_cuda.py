@@ -6,8 +6,8 @@ only the port is installed:
 
 Each kernel is held against its plain PyTorch version on the same card
 tensors (colmax, quant3, densecols and every ELL gather body bit-exact,
-the mono kernels at max|d|/max|ref| <= 1e-6), and operator products
-against scipy in float64.
+the mono and tile-layout kernels at max|d|/max|ref| <= 1e-6), and
+operator products against scipy in float64.
 """
 import numpy as np
 import pytest
@@ -19,6 +19,7 @@ from fastsparse_torch.bench import model as tmodel
 from fastsparse_torch.formats import bsr as tbsr
 from fastsparse_torch.ops import bsr_ops
 from fastsparse_torch.ops.kernels import bsr_spmm as tk
+from fastsparse_torch.ops.kernels import bsr_tiles as tt
 from fastsparse_torch.ops.kernels import ell_spmm as ek
 
 pytestmark = pytest.mark.cuda
@@ -296,3 +297,144 @@ def test_reorder_boundary_on_card(card):
     ):
         got = got.cpu().numpy()
         assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+# ------------------------------------------------------ tile-layout kernels
+# (tile dtype, x dtype, planes) of every bucket_spmm mode
+BUCKET_MODES = {
+    "planes_n": (torch.bfloat16, torch.bfloat16, 3),
+    "narrow": (torch.bfloat16, torch.bfloat16, 1),
+    "f32": (torch.float32, torch.float32, 1),
+    "bf16_f32": (torch.bfloat16, torch.float32, 1),
+}
+
+
+def _tile_bucket(g, ns, T, TM, TK=128, n_slabs=20, dtype=torch.bfloat16):
+    """A ragged bucket: random 0/1 (or f32) tiles, the last slots all-zero
+    padding at slab 0, as the builder pads."""
+    slab = g.integers(0, n_slabs, (ns, T)).astype(np.int32)
+    tiles = (g.random((ns, T, TM, TK)) < 0.3).astype(np.float32)
+    if dtype == torch.float32:
+        tiles *= g.standard_normal(tiles.shape).astype(np.float32)
+    slab[-2:] = 0
+    tiles[-2:] = 0.0
+    return (torch.from_numpy(slab).cuda(),
+            torch.from_numpy(tiles).to(dtype).cuda())
+
+
+@pytest.mark.parametrize("TM", [8, 20])
+@pytest.mark.parametrize("mode", sorted(BUCKET_MODES))
+def test_bucket_spmm_kernel_matches_plain(card, mode, TM):
+    tdt, xdt, planes = BUCKET_MODES[mode]
+    g = np.random.default_rng(TM)
+    slab, tiles = _tile_bucket(g, ns=13, T=3, TM=TM, dtype=tdt)
+    nb, Npad = 128, 256
+    x = torch.from_numpy(g.standard_normal(
+        (20 * 128, planes * Npad)).astype(np.float32)).to(xdt).cuda()
+    tt.reset_launches()
+    yk = tt.bucket_spmm(slab, tiles, x, n_block=nb, planes=planes)
+    torch.cuda.synchronize()
+    assert tt.launches["bucket_spmm"] == 1
+    yp = tt.bucket_spmm_plain(slab, tiles, x, n_block=nb, planes=planes)
+    assert yk.shape == (13 * TM, Npad) and _rel(yk, yp) <= 1e-6
+    assert torch.equal(yk[-2 * TM:], torch.zeros_like(yk[-2 * TM:]))
+
+
+# (panel dtype, x dtype, fold)
+PANEL_MODES = {
+    "f32_int8": (torch.int8, torch.float32, "f32"),
+    "f32_bf16": (torch.bfloat16, torch.float32, "f32"),
+    "narrow_int8": (torch.int8, torch.bfloat16, False),
+    "narrow_bf16": (torch.bfloat16, torch.bfloat16, False),
+    "valued": (torch.float32, torch.float32, False),
+}
+
+
+@pytest.mark.parametrize("row_base", [0, 1280])
+@pytest.mark.parametrize("mode", sorted(PANEL_MODES))
+def test_panel_spmm_kernel_matches_plain(card, mode, row_base):
+    pdt, xdt, fold = PANEL_MODES[mode]
+    g = np.random.default_rng(7)
+    ns, TM, W = 11, 8, 3
+    start = torch.from_numpy(
+        g.integers(0, 10 - W + 1, ns).astype(np.int32)).cuda()
+    pan = (g.random((ns, TM, W * 128)) < 0.3).astype(np.float32)
+    if pdt == torch.float32:
+        pan *= g.standard_normal(pan.shape).astype(np.float32)
+    pan = torch.from_numpy(pan).to(pdt).cuda()
+    lanes = 384 if fold == "f32" else 128
+    x = torch.from_numpy(g.standard_normal(
+        (2560, lanes)).astype(np.float32)).to(xdt).cuda()
+    kw = dict(tile_k=128, fold=fold, row_base=row_base)
+    tt.reset_launches()
+    yk = tt.panel_spmm(start, pan, x, **kw)
+    torch.cuda.synchronize()
+    assert tt.launches["panel_spmm"] == 1
+    yp = tt.panel_spmm_plain(start, pan, x, **kw)
+    assert yk.shape == (ns * TM, lanes) and _rel(yk, yp) <= 1e-6
+
+
+@pytest.mark.parametrize("TM", [8, 20])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bucket_spmv_kernel_matches_plain(card, dtype, TM):
+    g = np.random.default_rng(TM + 1)
+    slab, tiles = _tile_bucket(g, ns=21, T=5, TM=TM, dtype=dtype)
+    x = torch.from_numpy(g.standard_normal((20, 128)).astype(np.float32)).cuda()
+    tt.reset_launches()
+    yk = tt.bucket_spmv(slab, tiles, x)
+    torch.cuda.synchronize()
+    assert tt.launches["bucket_spmv"] == 1
+    assert yk.shape == (21, TM) and _rel(yk, tt.bucket_spmv_plain(
+        slab, tiles, x)) <= 1e-6
+
+
+def test_tile_kernels_raise_rather_than_fall_back(card):
+    g = np.random.default_rng(0)
+    slab, tiles = _tile_bucket(g, ns=9, T=2, TM=8)
+    x = torch.zeros((20 * 128, 256), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a strided X: no copy, no plain path
+        tt.bucket_spmm(slab, tiles, x[:, ::2], n_block=128, planes=1)
+    with pytest.raises(ValueError):  # X on the host, tiles on the card
+        tt.bucket_spmm(slab, tiles, x.cpu(), n_block=128, planes=1)
+    tt.reset_launches()
+    with pytest.raises(NotImplementedError):  # no such body
+        tt.bucket_spmm(slab, tiles, x[:, :128].contiguous().float(),
+                       n_block=128, planes=3)
+    assert tt.launches["bucket_spmm"] == 0
+
+
+def test_tile_operators_on_card_vs_scipy(card):
+    """Tile buckets through operator(m, format="bsr") and a column-
+    segmented layout whose SpMV segments disagree (the bucket_spmv path),
+    on the card, against scipy in float64; each tile kernel launches."""
+    g = np.random.default_rng(5)
+    r, c = g.integers(0, 1600, 600), g.integers(0, 1600, 600)
+    m = sp.coo_matrix((np.ones(600, np.float32), (r, c)), shape=(1600, 1600))
+    m.sum_duplicates()
+    m.data[:] = 1.0
+    op = ft.operator(m.tocsr(), format="bsr", device=card)
+    assert not op.fwd.is_panel and op.fwd.strip_plan is not None
+    r1, c1 = g.integers(0, 400, 300), g.integers(0, 2048, 300)
+    r2 = g.integers(0, 400, 6000)
+    c2 = 2048 + r2 * 1800 // 400 + g.integers(0, 100, r2.size)
+    mb = sp.coo_matrix((np.ones(6300, np.float32), (np.r_[r1, r2],
+                        np.r_[c1, c2])), shape=(400, 6144))
+    mb.sum_duplicates()
+    mb.data[:] = 1.0
+    from fastsparse_torch.formats.segmented import build_bsr_segmented
+    from fastsparse_torch.ops.assemble import attach_plan
+
+    cs = attach_plan(build_bsr_segmented(
+        ft.binary_coo_from_scipy(mb, device=card),
+        config=ft.Config(bsr_mono="off"), seg_cols=2048, device=card))
+    tt.reset_launches()
+    for A, mat in ((op.fwd, m), (cs, mb)):
+        md = mat.astype(np.float64)
+        for N in (8, 130):
+            X = g.standard_normal((mat.shape[1], N)).astype(np.float32)
+            Y = ft.spmm(A, torch.from_numpy(X).cuda()).cpu().numpy()
+            assert _rel(torch.from_numpy(Y), torch.from_numpy(md @ X)) <= 1e-6
+        x = g.standard_normal(mat.shape[1]).astype(np.float32)
+        y = ft.spmv(A, torch.from_numpy(x).cuda()).cpu()
+        assert _rel(y, torch.from_numpy(md @ x)) <= 1e-6
+    assert all(v > 0 for v in tt.launches.values()), tt.launches

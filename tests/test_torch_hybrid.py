@@ -15,7 +15,9 @@ own hybrid tests do), so small matrices extract a `DenseCols` block.
   within 1e-6 of scipy in float64;
 * the orderings and the permutation elision equal the reference's;
 * a Macau inner step (rmatmat + cg_normal) on a hybrid operator;
-* a split that yields dense tiles raises `NotImplementedError`.
+* a split that yields dense tiles builds the reference's layout, and
+  raises `NotImplementedError` where the dense tiles would be bitmask
+  tiles (slice 3b).
 """
 import types
 
@@ -397,12 +399,22 @@ def _blocky():
 
 
 def test_dense_tiles_raise(monkeypatch):
+    """Dense tiles build as the reference's; as bitmask tiles (slice 3b)
+    they raise."""
     for mod in (jmodel, tmodel):  # no dense columns: the corner stays tiles
         monkeypatch.setattr(mod, "DENSE_COL_MIN_ROWS", 16384)
     m = _blocky()
     cj, ct = _coos(m)
-    assert jhyb.build_hybrid(cj).dense is not None
+    Hj = jasm.attach_plan(jhyb.build_hybrid(cj))
+    Ht = tasm.attach_plan(thyb.build_hybrid(ct, device="cpu"))
+    assert Hj.dense is not None and Ht.dense is not None
+    _assert_same(_arrays(Hj), _arrays(Ht))
+    X = np.random.default_rng(2).standard_normal((3000, 8)).astype(np.float32)
+    assert _rel(ft.spmm(Ht, torch.from_numpy(X)).numpy(),
+                m @ X.astype(np.float64)) <= TOL
     with pytest.raises(NotImplementedError, match="slice 3"):
-        thyb.build_hybrid(ct, device="cpu")
+        thyb.build_hybrid(ct, config=ft.Config(binary_tiles="bitmask"),
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="slice 3"):
-        ft.operator(m, format="hybrid", device="cpu")
+        ft.operator(m, format="hybrid", device="cpu",
+                    config=ft.Config(binary_tiles="bitmask"))

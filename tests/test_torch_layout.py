@@ -130,15 +130,20 @@ def test_layout_interop_roundtrip(small_windows):
 
 
 def test_layout_not_mono_raises():
-    """With mono off the reference compiles class panels; the port refuses
-    that layout instead of building something else."""
+    """With mono off the reference compiles class panels, and the port
+    builds the same layout; as bitmask panels (slice 3b) it raises
+    instead of building something else."""
     m = _banded(5, 1500, 3000, 250)
     op_j = fs.operator(m, format="bsr", transpose=False,
                        config=JConfig(bsr_mono="off"))
-    assert not op_j.fwd.is_mono
+    assert not op_j.fwd.is_mono and op_j.fwd.is_panel
+    op_t = ft.operator(m, format="bsr", transpose=False,
+                       config=ft.Config(bsr_mono="off"), device="cpu")
+    _assert_same_layout(interop.reference_arrays(op_j),
+                        interop.reference_arrays(op_t))
     with pytest.raises(NotImplementedError):
-        ft.operator(m, format="bsr", transpose=False,
-                    config=ft.Config(bsr_mono="off"), device="cpu")
+        ft.operator(m, format="bsr", transpose=False, device="cpu",
+                    config=ft.Config(bsr_mono="off", binary_tiles="bitmask"))
 
 
 def test_layout_empty_matrix():
@@ -158,7 +163,8 @@ def test_unported_options_raise():
     m = _banded(6, 600, 900, 100)
     X = torch.ones((900, 4))
     with pytest.raises(NotImplementedError):
-        ft.operator(m, format="hybrid", device="cpu")
+        ft.operator(m, format="hybrid", device="cpu",
+                    config=ft.Config(binary_tiles="bitmask"))
     with pytest.raises(NotImplementedError):
         ft.operator(m, format="bsr", device="cpu",
                     config=ft.Config(bsr_mono_grouped=True))
