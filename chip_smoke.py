@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the ten CUDA kernels from the sources in
+It builds the twelve CUDA kernels from the sources in
 ``fastsparse_torch/ops/kernels/csrc/`` (one nvcc per source, in parallel)
 and then:
 
@@ -62,7 +62,11 @@ and then:
    bucket_spmm on the transpose tiling's largest segment (narrow N=32,
    planes N=128), bucket_spmv on that segment and on config B's tile
    segment, each at max|d|/max|ref| <= 1e-6, timed beside its plain
-   version, its bound and cuSPARSE's product of the same segment.
+   version, its bound and cuSPARSE's product of the same segment. Then a
+   ``tile_k=512`` tile-BSR product (a scattered 0/1 matrix through
+   ``operator(m, format="bsr", config=Config(tile_m=8, tile_k=512))``)
+   on the card against the same layout's product by the plain versions
+   and against scipy, each within 1e-6.
 8. tile main-path phase: with the counts set to 0, the ECFP forward
    operator's matmat N = 32, 128, 256 and matvec within 1e-6 of scipy
    f64; the Macau step (``rmatmat`` + ``cg_normal(reg=50, maxiter=30)``,
@@ -70,6 +74,23 @@ and then:
    initial; config B matmat N=128 and matvec within 1e-5. bucket_spmm,
    panel_spmm and bucket_spmv must each launch. Then per-product times,
    launches, device busy time and idle share.
+9. dd kernel phase: the two double-word gathers against their plain
+   versions, bit-equal in hi and lo: ell_bucket_dd_valued on the largest
+   bucket of BASELINE config 1's `build_ell_dd` (N=1) and of config 2 in
+   fp64 (N=1 and N=32), ell_bucket_dd on config B's largest unsplit unit
+   bucket (N=1 and N=32); each timed beside its plain version, its bound
+   and cuSPARSE's f64 product of the same rows.
+10. fp64 main-path phase: with the counts set to 0, BASELINE config 1
+   (``powerlaw(100_000, 100_000, 5_000_000, seed=0, alpha=1.0)``, f64)
+   both ways the reference's suite runs it, ``operator(m1, format="ell",
+   transpose=True).matvec(x)`` (the torch f64 engine) and
+   ``spmm_dd(build_ell_dd(m1), x[:, None])`` (13 segments); config 2 in
+   fp64 through ``spmm_dd(build_ell_dd(m))`` at N=1; and the unit form,
+   ``spmm_dd(operator(mB, format="ell", transpose=False,
+   config=Config(ell_split_rows=0)), X)`` at N=32 (3 segments). Each
+   within max|d|/max|ref| 1e-10 of scipy f64; both dd kernels must
+   launch. Then host build seconds, per-product times, launches, device
+   busy time and idle share.
 
 Every kernel is timed with CUDA events (min of batches) beside its plain
 version, the least time the card could take for the same work (bytes over
@@ -99,6 +120,8 @@ SOURCES = {
     "bucket_spmm": CSRC + "bsr_tiles.cu",
     "panel_spmm": CSRC + "bsr_tiles.cu",
     "bucket_spmv": CSRC + "bsr_tiles.cu",
+    "ell_bucket_dd": CSRC + "ell_dd.cu",
+    "ell_bucket_dd_valued": CSRC + "ell_dd.cu",
 }
 REPLACES = {
     "colmax": "fastsparse/ops/pallas/bsr_spmm.py:619",
@@ -111,9 +134,12 @@ REPLACES = {
     "bucket_spmm": "fastsparse/ops/pallas/bsr_spmm.py:234",
     "panel_spmm": "fastsparse/ops/pallas/bsr_spmm.py:446",
     "bucket_spmv": "fastsparse/ops/pallas/bsr_spmm.py:1156",
+    "ell_bucket_dd": "fastsparse/ops/pallas/ell_spmm.py:551",
+    "ell_bucket_dd_valued": "fastsparse/ops/pallas/ell_spmm.py:501",
 }
 MONO_KERNELS = ("colmax", "quant3_planes", "mono_panel", "mono_group")
 REL_TOL = 1e-6
+DD_TOL = 1e-10  # BASELINE's fp64 bar
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -950,6 +976,38 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
     return res
 
 
+def tile_k_check(ft):
+    """A tile_k=512 tile-bucket product on the card against the same
+    layout's product by the plain versions (built on the CPU) and against
+    scipy."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    g = np.random.default_rng(23)
+    n, nnz = 2048, 8_000
+    m = sp.coo_matrix((np.ones(nnz, np.float32), (g.integers(0, n, nnz),
+                       g.integers(0, n, nnz))), shape=(n, n))
+    m.sum_duplicates()
+    m.data[:] = 1.0
+    m = m.tocsr()
+    # mono and class panels off: tile buckets, bucket_spmm's layout
+    cfg = ft.Config(tile_m=8, tile_k=512, bsr_mono="off", bsr_panels="off")
+    ops = {dev: ft.operator(m, format="bsr", transpose=False, config=cfg,
+                            device=dev) for dev in ("cuda", "cpu")}
+    A = ops["cuda"].fwd
+    check(A.tile_k == 512 and not A.is_mono and not A.is_panel,
+          f"tile_k=512: layout {bsr_desc(A)}")
+    Xn = g.standard_normal((n, 128)).astype(np.float32)
+    yk = ops["cuda"].matmat(torch.from_numpy(Xn).cuda()).cpu()
+    yp = ops["cpu"].matmat(torch.from_numpy(Xn))
+    rel_p = rel_err(yk.numpy(), yp.double().numpy())
+    rel_s = rel_err(yk.numpy(), m.astype(np.float64) @ Xn.astype(np.float64))
+    print(f"tile_k=512 ({bsr_desc(A)}) matmat N=128: rel vs plain "
+          f"{rel_p!r}, vs scipy {rel_s!r}", flush=True)
+    check(rel_p <= REL_TOL and rel_s <= REL_TOL, "tile_k=512 product")
+
+
 def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
     """BASELINE config 3 as called, the Macau step on its two tilings and
     config B as bench.py calls it, counted and checked against scipy."""
@@ -1022,6 +1080,256 @@ def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
     return counts
 
 
+def largest_dd_bucket(A, valued):
+    """(offset, segment, bucket, lo bucket or None) of the bucket with the
+    most slots in a DdEll (valued) or a unit ELL tiling."""
+    from fastsparse_torch.ops.ell_ops import _segments
+
+    if valued:
+        items = [(off, sh, b, bl)
+                 for (off, sh), (_, sl) in zip(_segments(A.hi), _segments(A.lo))
+                 for b, bl in zip(sh.buckets, sl.buckets)]
+    else:
+        items = [(off, seg, b, None) for off, seg in _segments(A)
+                 for b in seg.buckets]
+    return max(items, key=lambda it: it[2].cols.numel())
+
+
+def dd_kernel_run(DK, name, cols, vh, vl, x2, time_cuda):
+    """One dd kernel against its plain version on the same card tensors
+    (bit-equal in hi and lo), timed beside it, its bound and cuSPARSE's
+    f64 product of the same rows."""
+    import torch
+
+    valued = vh is not None
+    if valued:
+        def kern():
+            return DK.ell_bucket_spmm_dd_valued(cols, vh, vl, x2)
+
+        def plain():
+            return DK.ell_bucket_spmm_dd_valued_plain(cols, vh, vl, x2)
+    else:
+        def kern():
+            return DK.ell_bucket_spmm_dd(cols, x2)
+
+        def plain():
+            return DK.ell_bucket_spmm_dd_plain(cols, x2)
+    yk = kern()
+    torch.cuda.synchronize()
+    yp = plain()
+    torch.cuda.synchronize()
+    for part, k, p in zip(("hi", "lo"), yk, yp):
+        check(k.shape == p.shape and k.dtype == p.dtype == torch.float32,
+              f"{name}: {part} {tuple(k.shape)} {k.dtype}")
+        check(torch.equal(k, p), f"{name}: {part} not bit-equal to plain "
+              f"(max|d|={(k.double() - p.double()).abs().max().item()!r})")
+    d = max((k.double() - p.double()).abs().max().item()
+            for k, p in zip(yk, yp))
+    tk = time_cuda(kern)
+    tp = time_cuda(plain, reps=2, batches=3, warmup=1)
+    nb, K = cols.shape
+    k_rows, L = x2.shape[0] // 2, x2.shape[1]
+    slots = nb * K
+    rows_used = int(torch.unique(cols).numel())
+    r = {"max_abs_err": d, "ms": tk["min_ms"], "plain_ms": tp["min_ms"],
+         "shape": [nb, K, L]}
+    r.update(bound(slots * (12 if valued else 4) + rows_used * L * 8
+                   + nb * L * 8,
+                   slots * L * (25 if valued else 8) + (4 * slots if valued
+                                                        else 0),
+                   F32_OPS_PER_S))
+    vals = (vh.double() + vl.double()) if valued else torch.ones(
+        (nb, K), dtype=torch.float64, device=cols.device)
+    Acsr = gather_csr(cols, vals, k_rows)
+    X64 = (x2[:k_rows].double() + x2[k_rows:].double()).contiguous()
+    r["library_ms"] = library_ms(lambda: torch.sparse.mm(Acsr, X64),
+                                 time_cuda)
+    print(f"kernel {name}: bit-equal, ms={r['ms']!r} plain_ms="
+          f"{r['plain_ms']!r} bound_ms={r['bound_ms']!r} ({r['bound_by']}) "
+          f"cuSPARSE f64 {r['library_ms']!r}", flush=True)
+    return r
+
+
+def dd_kernel_phase(DK, A1, A2d, opBu, time_cuda):
+    """Each dd kernel against its plain version at the main path's shapes:
+    #13 on config 1's and config 2-fp64's largest DdEll bucket, #12 on
+    config B's largest unsplit unit bucket."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.ops.ell_ops import _dd_panel
+
+    g = np.random.default_rng(29)
+
+    def panel(off, seg, N):
+        X = torch.from_numpy(g.standard_normal(
+            (off + seg.shape[1], N))).cuda()
+        xh = X.float()
+        return _dd_panel(xh, (X - xh.double()).float(), off, seg.shape[1])
+
+    modes = {}
+    for cname, A, Ns in (("config 1", A1, (1,)), ("config 2-fp64", A2d,
+                                                  (1, 32))):
+        off, seg, b, bl = largest_dd_bucket(A, True)
+        print(f"{cname} largest DdEll bucket {tuple(b.cols.shape)} "
+              f"(segment at column {off})", flush=True)
+        for N in Ns:
+            modes[f"{cname},N={N}"] = dd_kernel_run(
+                DK, f"ell_bucket_dd_valued[{cname},N={N}]", b.cols, b.vals,
+                bl.vals, panel(off, seg, N), time_cuda)
+    valued = dict(modes["config 1,N=1"])
+    valued["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
+    valued["modes"] = modes
+    off, seg, b, _ = largest_dd_bucket(opBu.fwd, False)
+    print(f"config B largest unit bucket {tuple(b.cols.shape)} (segment at "
+          f"column {off})", flush=True)
+    modes = {f"N={N}": dd_kernel_run(DK, f"ell_bucket_dd[config B,N={N}]",
+                                     b.cols, None, None, panel(off, seg, N),
+                                     time_cuda)
+             for N in (1, 32)}
+    unit = dict(modes["N=32"])
+    unit["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
+    unit["modes"] = modes
+    return {"ell_bucket_dd": unit, "ell_bucket_dd_valued": valued}
+
+
+def fp64_builds(ft, mB):
+    """The fp64 path's matrices and layouts, each build timed on the host:
+    BASELINE config 1 (operator and DdEll), config 2 in fp64 (DdEll) and
+    config B's unit ELL operator, unsplit."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.bench.matrices import powerlaw
+
+    out, secs = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+
+    timed("m1", lambda: powerlaw(100_000, 100_000, 5_000_000, seed=0,
+                                 alpha=1.0, dtype=np.float64))
+    m1 = out["m1"]
+    timed("op1", lambda: ft.operator(m1, format="ell", transpose=True,
+                                     device="cuda"))
+    timed("A1", lambda: ft.build_ell_dd(m1, device="cuda"))
+    timed("m2d", lambda: powerlaw(20_000, 20_000, 1_000_000, seed=0,
+                                  dtype=np.float64))
+    timed("A2d", lambda: ft.build_ell_dd(out["m2d"], device="cuda"))
+    timed("opBu", lambda: ft.operator(
+        mB, format="ell", transpose=False,
+        config=ft.Config(ell_split_rows=0), device="cuda"))
+    print("fp64 host build s: " + ", ".join(
+        f"{k}={v!r}" for k, v in secs.items()), flush=True)
+    op1, A1, A2d, opBu = out["op1"], out["A1"], out["A2d"], out["opBu"]
+    check(type(op1.fwd).__name__ == "SegmentedEll"
+          and op1.fwd.dtype == torch.float64
+          and all(s.split_rows == 0 for s in op1.fwd.segments),
+          "config 1: operator(format='ell') is not an unsplit f64 ELL")
+    check(len(A1.hi.segments) == 13, "config 1: DdEll is not 13 segments")
+    check(len(opBu.fwd.segments) == 3 and opBu.fwd.segments[0].unit_vals
+          and all(s.split_rows == 0 for s in opBu.fwd.segments),
+          "config B: not 3 unsplit unit segments")
+    print(f"config 1 nnz={m1.nnz}: operator segments "
+          f"{[s.shape[1] for s in op1.fwd.segments]}, DdEll 13 segments "
+          f"{sum(len(s.buckets) for s in A1.hi.segments)} buckets, padded "
+          f"slots {A1.hi.padded_nnz}; config 2-fp64 nnz={out['m2d'].nnz}: "
+          f"DdEll {len(A2d.hi.segments)} segments; config B unit "
+          f"{sum(len(s.buckets) for s in opBu.fwd.segments)} buckets",
+          flush=True)
+    return m1, out["m2d"], op1, A1, A2d, opBu
+
+
+def longest_dd_launches(fn, arg, tiling, name, top=5):
+    """The longest dd kernel launches of one product under torch.profiler,
+    each with its bucket's (segment, rows, slots): launches run in the
+    order `ell_spmm_dd` walks the buckets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastsparse_torch.ops.ell_ops import _segments
+
+    shapes = [(si, *b.cols.shape) for si, (_, seg) in
+              enumerate(_segments(tiling)) for b in seg.buckets]
+    fn(arg)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(arg)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if "ell_dd_kernel" in e.name),
+                     key=lambda e: e.time_range.start)
+        us = [e.time_range.elapsed_us() for e in evs]
+    except Exception as exc:  # the sandbox's profiler is untried
+        print(f"{name} launches: not measured ({exc!r})", flush=True)
+        return
+    if len(us) != len(shapes):
+        print(f"{name} launches: {len(us)} kernel events for "
+              f"{len(shapes)} buckets, not matched", flush=True)
+        return
+    order = sorted(range(len(us)), key=lambda i: -us[i])[:top]
+    print(f"{name}: {len(us)} dd launches, {sum(us)!r} us in all; longest "
+          + ", ".join(f"{us[i]!r} us (segment {shapes[i][0]}, "
+                      f"{shapes[i][1]} rows x {shapes[i][2]} slots)"
+                      for i in order), flush=True)
+
+
+def fp64_main_phase(ft, counters, DK, m1, m2d, mB, op1, A1, A2d, opBu,
+                    time_cuda):
+    """BASELINE config 1 both ways, config 2 in fp64 and the unit spmm_dd
+    through the public API, counted and held to scipy f64 at 1e-10."""
+    import numpy as np
+    import torch
+
+    x1n = np.random.default_rng(1).standard_normal(100_000)
+    g = np.random.default_rng(31)
+    x2n = g.standard_normal((20_000, 1))
+    XBn = g.standard_normal((mB.shape[1], 32))
+    x1 = torch.from_numpy(x1n).cuda()
+    x2 = torch.from_numpy(x2n).cuda()
+    XB = torch.from_numpy(XBn).cuda()
+    torch.cuda.synchronize()
+
+    for c in counters:
+        c.reset_launches()
+    y1 = op1.matvec(x1)
+    y1dd = ft.spmm_dd(A1, x1[:, None])
+    y2dd = ft.spmm_dd(A2d, x2)
+    YB = ft.spmm_dd(opBu, XB)
+    torch.cuda.synchronize()
+    counts = {k: v for c in counters for k, v in c.launches.items()}
+    print(f"fp64 main-path launches: {counts}", flush=True)
+    outs = {"config1.operator.matvec": (y1, m1 @ x1n),
+            "config1.spmm_dd": (y1dd[:, 0], m1 @ x1n),
+            "config2-fp64.spmm_dd": (y2dd, m2d @ x2n),
+            "configB-unit.spmm_dd N=32": (YB, mB.astype(np.float64) @ XBn)}
+    rels = {}
+    for name, (out, ref) in outs.items():
+        check(tuple(out.shape) == ref.shape and out.dtype == torch.float64
+              and out.is_cuda, f"{name}: {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite values")
+        rels[name] = rel_err(out.cpu().numpy(), ref)
+    print(f"fp64 rel vs scipy f64: {rels}", flush=True)
+    for name, r in rels.items():
+        check(r <= DD_TOL, f"{name} rel {r}")
+    for name in ("ell_bucket_dd", "ell_bucket_dd_valued"):
+        check(counts[name] > 0, f"kernel {name} never launched on the fp64 path")
+
+    longest_dd_launches(lambda v: ft.spmm_dd(A2d, v), x2, A2d.hi,
+                        "config2-fp64.spmm_dd")
+    products = {
+        "config1.operator.matvec": (op1.matvec, x1),
+        "config1.spmm_dd": (lambda v: ft.spmm_dd(A1, v), x1[:, None]),
+        "config2-fp64.spmm_dd": (lambda v: ft.spmm_dd(A2d, v), x2),
+        "configB-unit.spmm_dd N=32": (lambda v: ft.spmm_dd(opBu, v), XB),
+    }
+    time_products(products, time_cuda, counters)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1041,6 +1349,7 @@ def main() -> int:
     from fastsparse_torch.bench.timing import time_cuda
     from fastsparse_torch.ops.kernels import bsr_spmm as K
     from fastsparse_torch.ops.kernels import bsr_tiles as TT
+    from fastsparse_torch.ops.kernels import ell_dd as DK
     from fastsparse_torch.ops.kernels import ell_spmm as EK
     from fastsparse_torch.ops.kernels._build import build_seconds, load_library
 
@@ -1210,10 +1519,20 @@ def main() -> int:
     # ---- the tile layouts: BASELINE config 3 and config B as called
     opF, opT, opB = tile_builds(ft, mE, mB)
     kres.update(tile_kernel_phase(TT, opF, opT, opB, time_cuda))
+    tile_k_check(ft)
     tile_counts = tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB,
                                   time_cuda)
     counts.update({k: tile_counts[k]
                    for k in ("bucket_spmm", "panel_spmm", "bucket_spmv")})
+    del opF, opT, opB
+
+    # ---- fp64: BASELINE config 1, config 2 in fp64, the unit dd form
+    m1, m2d, op1, A1, A2d, opBu = fp64_builds(ft, mB)
+    kres.update(dd_kernel_phase(DK, A1, A2d, opBu, time_cuda))
+    dd_counts = fp64_main_phase(ft, (K, EK, TT, DK), DK, m1, m2d, mB, op1,
+                                A1, A2d, opBu, time_cuda)
+    counts.update({k: dd_counts[k]
+                   for k in ("ell_bucket_dd", "ell_bucket_dd_valued")})
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(k == "fastsparse" or k.startswith("fastsparse.")

@@ -8,8 +8,9 @@ torch and never jax. Ported so far: the mono int8-panel BSR main path
 the CG solvers), the f32 ELL gather engine (`operator(m, format="ell")`),
 the tile-bucket and class-panel BSR layouts and their column-segmented
 containers, the hybrid format (dense tiles and a dense-column block beside
-the gather engine), ``format="auto"`` where it lands on any of these, and
-the ``reorder=`` orderings. Entry points build on the card (``device="cuda"``)
+the gather engine), ``format="auto"`` where it lands on any of these, the
+``reorder=`` orderings, f64 ELL operators and the fp64-class double-word
+products (`build_ell_dd`, `spmm_dd`). Entry points build on the card (``device="cuda"``)
 unless the caller asks for another device.
 """
 from .config import Config, DEFAULT, LANES
@@ -22,13 +23,14 @@ from .formats.bsr import (
 )
 from .formats.segmented import ColSegmented, build_bsr_segmented
 from .formats.ell import (
-    EllBucket, EllMatrix, SegmentedEll, build_ell, build_ell_segmented,
+    DdEll, EllBucket, EllMatrix, SegmentedEll, build_ell, build_ell_dd,
+    build_ell_segmented,
 )
 from .formats.hybrid import (
     DenseCols, HybridMatrix, build_hybrid, dense_tile_fraction,
 )
 from .linops import SparseOperator, operator
-from .ops.spmm import spmm
+from .ops.spmm import spmm, spmm_dd
 from .ops.spmv import spmv
 from .solvers.cg import CGResult, cg, cg_normal, normal_jacobi
 from . import bench
@@ -41,10 +43,10 @@ __all__ = [
     "to_csr_host",
     "BsrBucket", "BsrMatrix", "MonoGroupBucket", "MonoPanelBucket",
     "PanelBucket", "build_bsr", "ColSegmented", "build_bsr_segmented",
-    "EllBucket", "EllMatrix", "SegmentedEll", "build_ell",
-    "build_ell_segmented",
+    "DdEll", "EllBucket", "EllMatrix", "SegmentedEll", "build_ell",
+    "build_ell_dd", "build_ell_segmented",
     "DenseCols", "HybridMatrix", "build_hybrid", "dense_tile_fraction",
-    "SparseOperator", "operator", "spmm", "spmv",
+    "SparseOperator", "operator", "spmm", "spmm_dd", "spmv",
     "CGResult", "cg", "cg_normal", "normal_jacobi",
     "bench", "interop",
 ]

@@ -18,7 +18,9 @@ Layout per bucket (width K):
 * ``packed int32[nb, K/2]`` — ``c0 | c1<<16`` pairs of binary buckets
   with even K and 16-bit columns, else None.
 
-Not ported yet: ``DdEll`` / ``build_ell_dd`` (the fp64-class layouts).
+`DdEll` / `build_ell_dd` hold a valued f64 matrix as two structure-equal
+builds whose f32 value planes satisfy ``hi + lo == v`` to ~2^-48 (the
+operands of the fp64-class gather, `ops.ell_ops.ell_spmm_dd`).
 """
 from __future__ import annotations
 
@@ -37,8 +39,10 @@ __all__ = [
     "EllBucket",
     "EllMatrix",
     "SegmentedEll",
+    "DdEll",
     "build_ell",
     "build_ell_segmented",
+    "build_ell_dd",
 ]
 
 
@@ -291,3 +295,71 @@ def build_ell_segmented(mat, config: Config = DEFAULT, seg_cols: int = 16384,
         offsets.append(lo)
     return SegmentedEll(segments=tuple(segments), col_offsets=tuple(offsets),
                         seg_cols=seg_cols, shape=(nrow, ncol), nnz=int(n))
+
+
+@dataclasses.dataclass(frozen=True)
+class DdEll:
+    """Double-word valued ELL: two structure-equal builds (EllMatrix or
+    SegmentedEll) whose f32 value planes satisfy ``hi + lo == v`` (f64) to
+    ~2^-48. The planes share their ``row_ids`` and ``cols`` tensors."""
+
+    hi: Any  # EllMatrix | SegmentedEll, f32 head plane
+    lo: Any  # same structure, f32 residual plane
+    shape: tuple
+    nnz: int
+
+    @property
+    def device(self):
+        return self.hi.device
+
+
+def _with_vals(A, f):
+    """``A`` (EllMatrix or SegmentedEll) with every bucket's values
+    replaced by ``f(vals)``; structure tensors are shared."""
+    if isinstance(A, SegmentedEll):
+        return dataclasses.replace(
+            A, segments=tuple(_with_vals(s, f) for s in A.segments))
+    return dataclasses.replace(A, buckets=tuple(
+        dataclasses.replace(b, vals=f(b.vals)) for b in A.buckets))
+
+
+def build_ell_dd(mat, config: Config = DEFAULT, seg_cols=None,
+                 device="cuda") -> DdEll:
+    """Compile a valued matrix (a scipy matrix or a port COO/CSR; f64
+    values) into :class:`DdEll` on ``device``, as the reference builds it.
+
+    ``seg_cols=None`` segments at 8,192 columns when the matrix is wider
+    (the reference's TPU residency choice, kept as a layout parameter);
+    ``0`` never segments. The entries are placed by position only, so the
+    port builds the structure once with f64 values and splits each slot's
+    value: ``vh = f32(v)``, ``vl = f32(v - vh)``, the reference's host
+    split, which gives the reference's ``hi`` and ``lo`` layouts."""
+    if isinstance(mat, BinaryCOO):
+        raise TypeError("binary matrices use the unit dd path (build_ell)")
+    if hasattr(mat, "tocoo"):  # scipy
+        m = mat.tocoo()
+        rows, cols = m.row.astype(np.int64), m.col.astype(np.int64)
+        vals, shape = m.data.astype(np.float64), tuple(m.shape)
+    else:
+        if isinstance(mat, (CSR, BinaryCSR)):
+            mat = mat.to_coo()
+        n = mat.n_valid
+        rows = mat.rows[:n].cpu().numpy().astype(np.int64)
+        cols = mat.cols[:n].cpu().numpy().astype(np.int64)
+        vals = mat.vals[:n].cpu().numpy().astype(np.float64)
+        shape = tuple(mat.shape)
+    if seg_cols is None:
+        seg_cols = 8192 if shape[1] > 8192 else 0
+    coo = COO(rows=torch.as_tensor(rows.astype(np.int32)),
+              cols=torch.as_tensor(cols.astype(np.int32)),
+              vals=torch.as_tensor(vals), shape=shape, n_valid=int(rows.size))
+    if seg_cols:
+        A = build_ell_segmented(coo, config=config, seg_cols=seg_cols,
+                                device=device)
+    else:
+        A = build_ell(coo, config=config, device=device)
+    return DdEll(
+        hi=_with_vals(A, lambda v: v.float()),
+        lo=_with_vals(A, lambda v: (v - v.float().double()).float()),
+        shape=shape, nnz=int(rows.size),
+    )

@@ -8,7 +8,9 @@ or ``strip_ids``, ``start_slab`` and ``panels``; bf16 values as f32 with
 their dtype's name) and the strip plan; for a ColSegmented its segments,
 offsets and cross-segment plan; for an ELL tiling (EllMatrix or
 SegmentedEll) every bucket's ``row_ids``, ``cols``, ``vals``, ``packed``
-and ``n_real`` and the assembly plan; for a HybridMatrix its dense tiles,
+and ``n_real`` and the assembly plan (f32 or f64 values); for a `DdEll`
+its ``hi`` and ``lo`` planes, each an ELL tiling; for a HybridMatrix its
+dense tiles,
 its ELL part, its `DenseCols` block (``col_ids``, ``block``, ``shape``,
 ``nnz``, ``n_cols``), ``threshold`` and ``dense_nnz``; and the operator's
 four permutations. It reads attributes only, so it
@@ -25,7 +27,7 @@ import torch
 from .formats.bsr import (
     BsrBucket, BsrMatrix, MonoGroupBucket, MonoPanelBucket, PanelBucket,
 )
-from .formats.ell import EllBucket, EllMatrix, SegmentedEll
+from .formats.ell import DdEll, EllBucket, EllMatrix, SegmentedEll
 from .formats.hybrid import DenseCols, HybridMatrix
 from .formats.segmented import ColSegmented
 from .linops import SparseOperator
@@ -155,6 +157,13 @@ def _hybrid_arrays(A, prefix, d):
 
 
 def _matrix_arrays(A, prefix, d):
+    if hasattr(A, "hi") and hasattr(A, "lo"):  # DdEll
+        d[prefix + "kind"] = "dd"
+        d[prefix + "shape"] = tuple(int(v) for v in A.shape)
+        d[prefix + "nnz"] = int(A.nnz)
+        _matrix_arrays(A.hi, prefix + "hi.", d)
+        _matrix_arrays(A.lo, prefix + "lo.", d)
+        return
     if hasattr(A, "dense_cols"):  # HybridMatrix
         _hybrid_arrays(A, prefix, d)
         return
@@ -209,7 +218,7 @@ def _matrix_arrays(A, prefix, d):
 
 
 def reference_arrays(op) -> dict:
-    """Flatten a BSR, ELL or hybrid operator (either package) into a
+    """Flatten a BSR, ELL, dd or hybrid operator (either package) into a
     dict of numpy arrays and static ints, keyed ``fwd.*`` and ``bwd.*``,
     with the permutations (None or int32 arrays) under their names."""
     d = {"shape": tuple(int(v) for v in op.shape),
@@ -286,6 +295,10 @@ def _hybrid_from(d, prefix, device) -> HybridMatrix:
 
 def _matrix_from(d, prefix, device):
     kind = d[prefix + "kind"]
+    if kind == "dd":
+        return DdEll(hi=_matrix_from(d, prefix + "hi.", device),
+                     lo=_matrix_from(d, prefix + "lo.", device),
+                     shape=tuple(d[prefix + "shape"]), nnz=d[prefix + "nnz"])
     if kind == "hybrid":
         return _hybrid_from(d, prefix, device)
     if kind == "ell":

@@ -6,7 +6,8 @@ into layouts on one device, so every product, the transpose and the
 normal equations included, is a forward pass through a kernel. Ported
 formats: ``"bsr"`` (the mono layout, class panels or tile buckets,
 column-segmented past the BSR column caps), ``"ell"`` and ``"ell-seg"``
-(the f32 gather engine, column-segmented past ``SEG_COLS``), ``"hybrid"``
+(the f32 gather engine, or torch ops for f64 values; column-segmented past
+``SEG_COLS``), ``"hybrid"``
 (dense tiles and a dense-column block beside the gather engine) and
 ``"auto"``, which picks among them as the reference does; and the
 reference's ``reorder=`` orderings with their permutation boundary.
@@ -97,7 +98,7 @@ class SparseOperator:
                                                       HybridMatrix)):
             raise NotImplementedError(
                 "ELL transpose products without the dual tiling (the "
-                "reference's scatter engine) are slice 4; build with "
+                "reference's scatter engine) are slice 4b; build with "
                 "operator(..., transpose=True)"
             )
         if self.bwd is None:
@@ -250,14 +251,11 @@ def _compile_bsr(coo, config: Config, dtype, device):
 
 def _compile_ell(coo, config: Config, dtype, device, segmented=False):
     """The reference's ``_compile_one(..., "ell" | "ell-seg")``: rows split
-    at ``config.ell_split_rows`` (f32 only), column segments past
-    ``SEG_COLS`` (always, for ``segmented``)."""
-    if _value_dtype(coo, dtype) != torch.float32:
-        raise NotImplementedError(
-            "ELL with values other than f32 runs off the gather engine in "
-            "the reference (fp64-class and XLA engines): slice 4 (fp64)"
-        )
-    split = config.resolve().ell_split_rows
+    at ``config.ell_split_rows`` (f32 only: other dtypes, and the fp64-class
+    products, need the unsplit layout), column segments past ``SEG_COLS``
+    (always, for ``segmented``)."""
+    split = (config.resolve().ell_split_rows
+             if _value_dtype(coo, dtype) == torch.float32 else 0)
     if segmented or coo.shape[1] > SEG_COLS:
         return build_ell_segmented(
             coo, config=config, seg_cols=_balanced_seg_cols(coo.shape[1]),
@@ -381,13 +379,17 @@ def operator(
     ``format="auto"`` takes the reference's decision: ``"bsr"`` when tiles
     are full, ``"hybrid"`` (dense tiles and dense columns beside the gather
     engine) or ``"ell"`` (the gather engine) for sparser structure, by the
-    reference's cost model. ``"ell-seg"`` forces column segments.
+    reference's cost model; values other than f32/bf16 (f64) go to
+    ``"ell"``, built unsplit, whose products run the reference's per-bucket
+    gather as torch ops. `spmm_dd` takes an ``"ell"`` operator of a 0/1
+    matrix built with ``Config(ell_split_rows=0)``. ``"ell-seg"`` forces
+    column segments.
     ``reorder`` (``"degree"``, ``"minhash"``, ``"tilepack"``, ``"hilbert"``
     or ``"auto"``) permutes rows and columns before tiling; products permute
     operands at the boundary, which the gather-engine formats elide without
     the dual tiling where the reference does. ``"coo"``/``"csr"`` (the XLA
-    scatter engines) and ELL with values other than f32 are slice 4 and
-    ``tune=True`` and bitmask tiles slice 3b: they raise
+    scatter engines) are slice 4b and ``tune=True`` and bitmask tiles slice
+    3b: they raise
     `NotImplementedError`. ``dtype``: a torch dtype or None. With
     ``config.tile_m=None`` the BSR tile height is the modeled best
     (`bench.model.best_tile_m`), raised from 128 to 256 when the taller
@@ -398,7 +400,7 @@ def operator(
     if format in ("coo", "csr"):
         raise NotImplementedError(
             f"format={format!r} (the reference's XLA scatter engines) is "
-            "slice 4"
+            "slice 4b"
         )
     if tune:
         raise NotImplementedError(

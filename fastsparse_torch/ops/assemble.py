@@ -45,9 +45,9 @@ def attach_plan(fmt):
     """``fmt`` with assembly plans attached where the engines use them: an
     f32 EllMatrix / SegmentedEll an :class:`AssemblyPlan`, a tile-bucket or
     class-panel BsrMatrix a :class:`BsrStripPlan`, a ColSegmented of
-    BsrMatrix its cross-segment :class:`AssemblyPlan` (after its segments
-    get theirs); a HybridMatrix recurses into its parts. A mono or empty
-    BsrMatrix passes through."""
+    BsrMatrix with no mono segment its cross-segment :class:`AssemblyPlan`
+    (after its segments get theirs); a HybridMatrix recurses into its
+    parts. A mono or empty BsrMatrix passes through."""
     from ..formats.bsr import BsrMatrix
     from ..formats.ell import EllMatrix, SegmentedEll
 
@@ -59,8 +59,12 @@ def attach_plan(fmt):
     if type(fmt).__name__ == "ColSegmented":
         fmt = dataclasses.replace(
             fmt, segments=tuple(attach_plan(s) for s in fmt.segments))
+        # a mono segment writes Y in place and has no strip panels to
+        # gather: without a plan the product sums the segments' own
+        # products (the reference raises here instead)
         if (fmt.plan is None and fmt.segments
-                and all(isinstance(s, BsrMatrix) for s in fmt.segments)):
+                and all(isinstance(s, BsrMatrix) and not s.is_mono
+                        for s in fmt.segments)):
             fmt = dataclasses.replace(fmt, plan=build_colseg_plan(fmt))
         return fmt
     if isinstance(fmt, BsrMatrix):

@@ -1,5 +1,4 @@
-"""ELL gather-engine dispatch (counterpart of ``fastsparse/ops/ell_ops.py``,
-the f32 path).
+"""ELL gather-engine dispatch (counterpart of ``fastsparse/ops/ell_ops.py``).
 
 Bridges `formats.ell` to the gather kernels (`ops.kernels.ell_spmm`): pads
 each column segment's X panel (a zero sentinel row past its columns),
@@ -12,8 +11,10 @@ The budgets and flags below are the reference's layout parameters, kept
 as module attributes of the same names so tests can monkeypatch them in
 both packages: they fix which slots share a launch, and so the plan, not
 anything of this card (one bucket row's sum never crosses a chunk). The
-SMEM-blocked kernel behind ``USE_SMEM_PATH`` is not ported, and the
-fp64-class (dd) products wait for slice 4.
+SMEM-blocked kernel behind ``USE_SMEM_PATH`` is not ported.
+
+`ell_spmm_dd` is the fp64-class product (unit ELL or `DdEll`) through the
+double-word gather kernels (`ops.kernels.ell_dd`).
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ from .kernels.ell_spmm import (
     packed_pair_ok,
 )
 
-__all__ = ["ell_spmm", "gather_engine_supported", "gather_engine_fits"]
+__all__ = ["ell_spmm", "ell_spmm_dd", "gather_engine_supported",
+           "gather_engine_fits"]
 
 LANES = 128
 # flat entries per launch in the reference (its SMEM scalar-prefetch budget)
@@ -209,3 +211,132 @@ def ell_spmm(A, X):
     if parts:
         Y.index_add_(0, torch.cat(rids).long(), torch.cat(parts))
     return Y[:, :N]
+
+
+# ------------------------------------------------- fp64-class (dd) products
+def _dd_add(ah, al, bh, bl, folded=False):
+    """Elementwise double-word addition (TwoSum, then renormalise), f32,
+    ``b`` being one segment's sums, in the order the reference's compiled
+    program adds them (`ell_spmm_dd`'s merge). Its source reads
+    ``lo = al + bl + e``, and that is what the first merge computes; in
+    every later merge ``bl`` is a scatter-add into zeros whose one consumer
+    is that sum, XLA's algebraic simplifier folds the adds into the
+    scatter, and the program computes ``(al + e) + bl`` (``folded``; seen
+    in its optimised HLO, and bit for bit under strict f32). Both are
+    double-word sums of the same accuracy."""
+    s = ah + bh
+    v = s - ah
+    e = (ah - (s - v)) + (bh - v)
+    lo = (al + e) + bl if folded else (al + bl) + e
+    hi = s + lo
+    return hi, lo - (hi - s)
+
+
+def _dd_panel(xh, xl, off, seg_ncol):
+    """One segment's f32 operand panel: its hi plane in rows [0, rows_pad),
+    its lo plane in rows [rows_pad, 2·rows_pad), each zero past the
+    segment's columns (the unit sentinel ``seg_ncol`` reads zeros in
+    both)."""
+    rows_pad = _round_up(max(seg_ncol + 1, 8), 8)
+    x2 = xh.new_zeros((2 * rows_pad, xh.shape[1]))
+    x2[:seg_ncol] = xh[off : off + seg_ncol]
+    x2[rows_pad : rows_pad + seg_ncol] = xl[off : off + seg_ncol]
+    return x2
+
+
+def _dd_segment(buckets, x2, nrow):
+    """One segment's (Shi, Slo): one kernel launch per bucket (``buckets``
+    holds ``(bucket, lo_bucket)`` pairs, ``lo_bucket`` None for unit
+    values), the bucket rows added into zeros at their row ids. Within a
+    segment every real row sits in one bucket row, so each add is exact;
+    padding rows add zeros."""
+    from .kernels.ell_dd import ell_bucket_spmm_dd, ell_bucket_spmm_dd_valued
+
+    rids, yhs, yls = [], [], []
+    for b, bl in buckets:
+        if bl is None:
+            yh, yl = ell_bucket_spmm_dd(b.cols, x2)
+        else:
+            yh, yl = ell_bucket_spmm_dd_valued(b.cols, b.vals, bl.vals, x2)
+        rids.append(b.row_ids)
+        yhs.append(yh)
+        yls.append(yl)
+    Shi = x2.new_zeros((nrow, x2.shape[1]))
+    Slo = x2.new_zeros((nrow, x2.shape[1]))
+    if rids:
+        r = torch.cat(rids).long()
+        Shi.index_add_(0, r, torch.cat(yhs))
+        Slo.index_add_(0, r, torch.cat(yls))
+    return Shi, Slo
+
+
+def _f64_operand(X, device):
+    """X as a float64 tensor: a tensor keeps its device, an array goes to
+    ``device`` (the layout's)."""
+    return torch.as_tensor(X, dtype=torch.float64,
+                           device=None if torch.is_tensor(X) else device)
+
+
+def _segments(A):
+    if isinstance(A, SegmentedEll):
+        return list(zip(A.col_offsets, A.segments))
+    return [(0, A)]
+
+
+def ell_spmm_dd(A, X):
+    """fp64-class ``Y = A @ X`` from f32 arithmetic: a float64 ``(nrow,
+    N)`` tensor on X's device.
+
+    ``A``: a unit-values EllMatrix / SegmentedEll (the `ell_bucket_spmm_dd`
+    kernel, TwoSum chains) or a `formats.ell.DdEll` (valued, the
+    `ell_bucket_spmm_dd_valued` kernel, Dekker TwoProd); ``X`` float64
+    ``(ncol, N)`` (a tensor, or an array put on A's device). X is split on
+    the device, ``xh = f32(X)``, ``xl = f32(X - xh)``; each segment's
+    (hi, lo) sums are merged in segment order by `_dd_add`, the first
+    taken as it is, and the result is ``f64(hi) + f64(lo)``: the
+    reference's arithmetic step for step as its compiled program runs it,
+    rel ~1e-13 against a true f64 product.
+
+    Interface difference: the reference returns numpy after one fetch;
+    this returns a tensor and leaves it on the device. The reference
+    chunks each bucket's launch to its SMEM index budget
+    (``_SMEM_IDX_BUDGET_DD``); a row's sum never crosses a chunk, so the
+    port launches once per bucket with the same result."""
+    from ..formats.ell import DdEll
+
+    valued = isinstance(A, DdEll)
+    src = A.hi if valued else A
+    X = _f64_operand(X, src.device)
+    nrow = A.shape[0]
+    if valued:
+        segs = [(off, list(zip(sh.buckets, sl.buckets)), sh)
+                for (off, sh), (_, sl) in zip(_segments(A.hi),
+                                              _segments(A.lo))]
+    else:
+        segs = []
+        for off, seg in _segments(A):
+            if not getattr(seg, "unit_vals", False):
+                raise ValueError(
+                    "ell_spmm_dd requires a binary (unit) matrix")
+            if seg.split_rows:
+                # exactness depends on one bucket row per matrix row per
+                # segment: split sub-row partials would merge through a
+                # plain f32 add and lose the compensated low words
+                raise ValueError(
+                    "ell_spmm_dd requires an unsplit layout: rebuild with "
+                    "build_ell(..., split_rows=0) (the fp64-class compile "
+                    "paths do this automatically)")
+            segs.append((off, [(b, None) for b in seg.buckets], seg))
+    xh = X.float()
+    xl = (X - xh.double()).float()
+    Yhi = Ylo = None
+    for i, (off, buckets, seg) in enumerate(segs):
+        x2 = _dd_panel(xh, xl, off, seg.shape[1])
+        Shi, Slo = _dd_segment(buckets, x2, nrow)
+        if Yhi is None:
+            Yhi, Ylo = Shi, Slo
+        else:
+            Yhi, Ylo = _dd_add(Yhi, Ylo, Shi, Slo, folded=i > 1)
+    if Yhi is None:
+        return X.new_zeros((nrow, X.shape[1]))
+    return Yhi.double() + Ylo.double()

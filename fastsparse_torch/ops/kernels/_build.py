@@ -44,6 +44,7 @@ _SIGNATURES = {
     "fs_bucket_spmm": (_P,) * 4 + (_I,) * 10 + (_P,),
     "fs_panel_spmm": (_P,) * 4 + (_I,) * 9 + (_P,),
     "fs_bucket_spmv": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "fs_ell_dd": (_P,) * 6 + (_I,) * 5 + (_P,),
 }
 
 _build_seconds = 0.0

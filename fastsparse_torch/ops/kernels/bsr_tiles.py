@@ -134,8 +134,6 @@ def bucket_spmm(slab_ids, tiles, x, *, n_block, planes):
                                  planes=planes)
     _check("bucket_spmm.tiles", tiles, tiles.dtype, 4, dev)
     _check("bucket_spmm.x", x, x.dtype, 2, dev)
-    if TK > 256:  # four groups' tile rows stay within 48 KB of shared memory
-        raise NotImplementedError("bucket_spmm CUDA kernel: tile_k <= 256")
     Npad = xc // planes
     out = torch.empty((ns * TM, Npad), dtype=torch.float32, device=dev)
     if ns and T:
@@ -208,8 +206,6 @@ def panel_spmm(start_slab, panels, x, *, tile_k, fold, row_base=0):
                                 fold=fold, row_base=row_base)
     _check("panel_spmm.panels", panels, panels.dtype, 3, dev)
     _check("panel_spmm.x", x, x.dtype, 2, dev)
-    if tile_k > 1024:
-        raise NotImplementedError("panel_spmm CUDA kernel: tile_k <= 1024")
     xc = x.shape[1]
     out = torch.empty((ns * TM, xc), dtype=torch.float32, device=dev)
     if ns:

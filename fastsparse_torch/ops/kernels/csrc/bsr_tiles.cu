@@ -24,9 +24,11 @@
 // no atomics. bucket_spmm splits the tile loop over four 128-thread groups
 // (tiles t ≡ g mod 4, each group with its own barrier) and adds the four
 // group sums in group order at the end: a bucket of a few strips gives
-// few CTAs, and one serial tile chain each left the card idle. Each thread owns one output column and keeps TM_CHUNK rows
-// × planes accumulators in registers; the current tile rows are staged in
-// shared memory as f32 and read as broadcasts. The k loops are unrolled so
+// few CTAs, and one serial tile chain each left the card idle. Each thread
+// owns one output column and keeps TM_CHUNK rows × planes accumulators in
+// registers; the current tile rows are staged in shared memory as f32, at
+// most K_CHUNK columns at a time (so any tile_k runs within 48 KB), and
+// read as broadcasts. The k loops are unrolled so
 // that several X loads are in flight per thread: a bucket of a few strips
 // gives few CTAs, and each k step waits on an L2 load otherwise. bucket_spmv gives one warp
 // to each (strip slot, row): lanes stride the tile's columns, and a
@@ -55,6 +57,9 @@ namespace {
 
 constexpr int COLS = 128;     // output columns per CTA (one per thread)
 constexpr int TM_CHUNK = 8;   // output rows per pass over the tiles
+// tile (or panel) columns staged in shared memory at a time: any tile_k
+// runs in chunks, and four groups' chunks stay within 48 KB
+constexpr int K_CHUNK = 256;
 
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
@@ -80,11 +85,12 @@ bucket_spmm_kernel(const int* __restrict__ slab_ids,  // [ns, T]
                    float* __restrict__ out,           // [ns·TM, Npad]
                    int T, int TM, int TK, int x_cols, int Npad, int NB,
                    int ncb) {
-  // per group a [TM_CHUNK][TK] tile buffer; reused for the group sums
+  // per group a [TM_CHUNK][min(TK, K_CHUNK)] tile buffer; reused for the
+  // group sums
   extern __shared__ float smem[];
   const int c = threadIdx.x % COLS;
   const int g = threadIdx.x / COLS;
-  float* tile_s = smem + (size_t)g * TM_CHUNK * TK;
+  float* tile_s = smem + (size_t)g * TM_CHUNK * min(TK, K_CHUNK);
   const int i = blockIdx.x / ncb;
   const int col = (blockIdx.x - i * ncb) * COLS + c;
   const bool live = col < Npad;
@@ -104,24 +110,30 @@ bucket_spmm_kernel(const int* __restrict__ slab_ids,  // [ns, T]
     for (int t = g; t < T; t += GROUPS) {  // group g: tiles t ≡ g mod 4
       const size_t tile0 = ((size_t)i * T + t) * TM * TK + (size_t)r0 * TK;
       const size_t xrow0 = (size_t)slab_ids[(size_t)i * T + t] * TK;
-      group_sync(g);  // the group's previous tile rows are consumed
-      for (int q = c; q < TM_CHUNK * TK; q += COLS) {
-        tile_s[q] = q < nr * TK ? ld(tiles, tile0 + q) : 0.f;
-      }
-      group_sync(g);
-      if (!live) continue;
+      // the tile's columns in chunks of at most K_CHUNK, in k order
+      for (int k0 = 0; k0 < TK; k0 += K_CHUNK) {
+        const int kc = min(K_CHUNK, TK - k0);
+        group_sync(g);  // the group's previous tile rows are consumed
+        for (int q = c; q < TM_CHUNK * kc; q += COLS) {
+          const int r = q / kc;
+          tile_s[q] =
+              r < nr ? ld(tiles, tile0 + (size_t)r * TK + k0 + (q - r * kc)) : 0.f;
+        }
+        group_sync(g);
+        if (!live) continue;
 #pragma unroll 8
-      for (int k = 0; k < TK; ++k) {
-        const size_t xr = (xrow0 + k) * x_cols;
-        float xv[PLANES];
+        for (int k = 0; k < kc; ++k) {
+          const size_t xr = (xrow0 + k0 + k) * x_cols;
+          float xv[PLANES];
 #pragma unroll
-        for (int p = 0; p < PLANES; ++p) xv[p] = ld(x, xr + xcol[p]);
+          for (int p = 0; p < PLANES; ++p) xv[p] = ld(x, xr + xcol[p]);
 #pragma unroll
-        for (int r = 0; r < TM_CHUNK; ++r) {
-          const float a = tile_s[r * TK + k];
+          for (int r = 0; r < TM_CHUNK; ++r) {
+            const float a = tile_s[r * kc + k];
 #pragma unroll
-          for (int p = 0; p < PLANES; ++p)
-            acc[p][r] = __fmaf_rn(a, xv[p], acc[p][r]);
+            for (int p = 0; p < PLANES; ++p)
+              acc[p][r] = __fmaf_rn(a, xv[p], acc[p][r]);
+          }
         }
       }
     }
@@ -164,8 +176,9 @@ panel_spmm_kernel(const int* __restrict__ start,   // [ns]
                   float* __restrict__ out,         // [ns·TM, x_cols]
                   int TM, int TK, int PK, int x_cols, int row_base,
                   int ncb) {
-  extern __shared__ float pan_s[];  // [TM_CHUNK][TK]
+  extern __shared__ float pan_s[];  // [TM_CHUNK][min(TK, K_CHUNK)]
   constexpr int NP = SPLIT ? 3 : 1;
+  const int kstep = min(TK, K_CHUNK);
   const int i = blockIdx.x / ncb;
   const int col = (blockIdx.x - i * ncb) * COLS + threadIdx.x;
   const bool live = col < x_cols;
@@ -178,18 +191,19 @@ panel_spmm_kernel(const int* __restrict__ start,   // [ns]
     for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int r = 0; r < TM_CHUNK; ++r) acc[p][r] = 0.f;
-    for (int k0 = 0; k0 < PK; k0 += TK) {
+    for (int k0 = 0; k0 < PK; k0 += kstep) {
+      const int kc = min(kstep, PK - k0);
       __syncthreads();
-      for (int q = threadIdx.x; q < TM_CHUNK * TK; q += COLS) {
-        const int r = q / TK;
+      for (int q = threadIdx.x; q < TM_CHUNK * kc; q += COLS) {
+        const int r = q / kc;
         pan_s[q] = r < nr ? ld(panels, ((size_t)i * TM + r0 + r) * PK + k0 +
-                                           (q - r * TK))
+                                           (q - r * kc))
                           : 0.f;
       }
       __syncthreads();
       if (!live) continue;
 #pragma unroll 8
-      for (int k = 0; k < TK; ++k) {
+      for (int k = 0; k < kc; ++k) {
         const float xf = ld(x, (xrow0 + k0 + k) * x_cols + col);
         float xv[NP];
         if constexpr (SPLIT) {
@@ -205,7 +219,7 @@ panel_spmm_kernel(const int* __restrict__ start,   // [ns]
         }
 #pragma unroll
         for (int r = 0; r < TM_CHUNK; ++r) {
-          const float a = pan_s[r * TK + k];
+          const float a = pan_s[r * kc + k];
 #pragma unroll
           for (int p = 0; p < NP; ++p)
             acc[p][r] = __fmaf_rn(a, xv[p], acc[p][r]);
@@ -254,7 +268,7 @@ void launch_bucket(const int* slab, const void* tiles, const void* x,
                    float* out, int ns, int T, int TM, int TK, int x_cols,
                    int Npad, int NB, cudaStream_t st) {
   const int ncb = (Npad + COLS - 1) / COLS;
-  const int tile_floats = GROUPS * TM_CHUNK * TK;
+  const int tile_floats = GROUPS * TM_CHUNK * (TK < K_CHUNK ? TK : K_CHUNK);
   const int sum_floats = (GROUPS - 1) * TM_CHUNK * COLS;
   const size_t smem =
       sizeof(float) * (tile_floats > sum_floats ? tile_floats : sum_floats);
@@ -270,7 +284,8 @@ void launch_panel(const int* start, const void* panels, const void* x,
                   int row_base, cudaStream_t st) {
   const int ncb = (x_cols + COLS - 1) / COLS;
   panel_spmm_kernel<PT, XT, SPLIT>
-      <<<(unsigned int)ns * ncb, COLS, TM_CHUNK * TK * sizeof(float), st>>>(
+      <<<(unsigned int)ns * ncb, COLS,
+         TM_CHUNK * (TK < K_CHUNK ? TK : K_CHUNK) * sizeof(float), st>>>(
           start, (const PT*)panels, (const XT*)x, out, TM, TK, PK, x_cols,
           row_base, ncb);
 }

@@ -2,12 +2,13 @@
 
 Ported: the BsrMatrix branch (mono, class panels, tile buckets), the
 ColSegmented branch (one cross-segment plan, else the sum of the segments'
-products, as the reference dispatches), the f32 EllMatrix / SegmentedEll
-branches (the gather engine) and the HybridMatrix branch with its dense
-tiles and its dense-column block (`dense_cols_spmm`, the `densecols_spmm`
-kernel). The reference's XLA engines (COO/CSR, the per-bucket scan for
-non-f32 ELL or an X panel past its residency budget) come with slice 4;
-they raise `NotImplementedError`.
+products, as the reference dispatches), the EllMatrix / SegmentedEll
+branches (the f32 gather engine; for other dtypes, or an unsegmented X
+panel past the engine's residency budget, the reference's per-bucket scan
+as torch ops), the HybridMatrix branch with its dense tiles and its
+dense-column block (`dense_cols_spmm`, the `densecols_spmm` kernel), and
+`spmm_dd`, the fp64-class product. The reference's COO/CSR scatter
+engines raise `NotImplementedError` (slice 4b).
 """
 from __future__ import annotations
 
@@ -18,11 +19,36 @@ from ..formats.ell import EllMatrix, SegmentedEll
 from ..formats.hybrid import HybridMatrix
 from ..formats.segmented import ColSegmented
 
-__all__ = ["spmm", "dense_cols_spmm", "densecols_planes"]
+__all__ = ["spmm", "spmm_dd", "dense_cols_spmm", "densecols_planes"]
 
 
 def _ell_dtype(A, X):
     return torch.promote_types(A.dtype, X.dtype)
+
+
+def _bucket_cols(b, ncol):
+    """A bucket's columns as gather indices: the binary sentinel ``ncol``
+    (zero values) clamped onto the last column, as XLA clamps an
+    out-of-range gather."""
+    return b.cols.long().clamp(max=max(ncol - 1, 0))
+
+
+def _ell_scan(A, X):
+    """The reference's per-bucket scan (`ops/spmm.py`, EllMatrix branch):
+    each bucket's rows summed slot by slot in slot order, the bucket's
+    rows then added into Y at their row ids."""
+    dt = _ell_dtype(A, X)
+    X = X.to(dt)
+    Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dt, device=X.device)
+    for b in A.buckets:
+        cols = _bucket_cols(b, A.shape[1])
+        vals = b.vals.to(dt)
+        acc = torch.zeros((cols.shape[0], X.shape[1]), dtype=dt,
+                          device=X.device)
+        for k in range(cols.shape[1]):
+            acc = acc + vals[:, k, None] * X[cols[:, k]]
+        Y.index_add_(0, b.row_ids.long(), acc)
+    return Y
 
 
 def densecols_planes(Xs):
@@ -58,7 +84,7 @@ def dense_cols_spmm(dc, X):
 
 
 def spmm(A, X):
-    """``Y = A @ X``. ``X``: f32[ncol, N] -> f32[nrow, N]."""
+    """``Y = A @ X``. ``X``: dtype[ncol, N] -> dtype[nrow, N]."""
     if isinstance(A, HybridMatrix):
         # the reference's order of adds: ((0 + dense) + sparse) + dense_cols
         Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype,
@@ -91,12 +117,38 @@ def spmm(A, X):
         fits = isinstance(A, SegmentedEll) or gather_engine_fits(
             A.shape[1], X.shape[1]
         )
-        if gather_engine_supported(_ell_dtype(A, X)) and fits:
+        dt = _ell_dtype(A, X)
+        if gather_engine_supported(dt) and fits:
             return ell_spmm(A, X)
-        raise NotImplementedError(
-            "ELL products off the f32 gather engine (the reference's XLA "
-            "engines: fp64 and wide unsegmented panels) are slice 4"
-        )
+        if isinstance(A, EllMatrix):
+            return _ell_scan(A, X)
+        Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dt, device=X.device)
+        for off, seg in zip(A.col_offsets, A.segments):
+            Y = Y + spmm(seg, X[off : off + seg.shape[1]])
+        return Y
     raise NotImplementedError(
-        f"spmm over {type(A).__name__} is not ported yet (slice 4)"
+        f"spmm over {type(A).__name__} is not ported yet (slice 4b)"
     )
+
+
+def spmm_dd(A, X):
+    """fp64-class ``Y = A @ X`` from f32 arithmetic (binary or valued): a
+    float64 tensor on X's device, rel ~1e-13 against an f64 product.
+
+    ``A``: a unit-values EllMatrix / SegmentedEll, a `formats.ell.DdEll`
+    (`build_ell_dd`), or a SparseOperator whose forward tiling is one
+    (``col_perm`` applied to X, ``row_inv`` to Y). See
+    `ops.ell_ops.ell_spmm_dd`; the reference returns numpy, this a
+    tensor."""
+    from ..linops import SparseOperator
+    from .ell_ops import _f64_operand, ell_spmm_dd
+
+    if isinstance(A, SparseOperator):
+        X = _f64_operand(X, A.fwd.device)
+        if A.col_perm is not None:
+            X = X[A.col_perm.long()]
+        Y = ell_spmm_dd(A.fwd, X)
+        if A.row_inv is not None:
+            Y = Y[A.row_inv.long()]
+        return Y
+    return ell_spmm_dd(A, X)

@@ -4,11 +4,13 @@ Ported: the BsrMatrix branch (the `bucket_spmv` kernel for tile buckets,
 a one-column product for panel layouts), the ColSegmented branch (the
 cross-segment product, else each segment's own SpMV, as the reference
 dispatches), the f32 EllMatrix / SegmentedEll branches and the
-HybridMatrix branch. The reference runs ELL SpMV through
+HybridMatrix branch. The reference runs f32 ELL SpMV through
 the gather SpMM kernel on its accelerator (one gathered row per nonzero
 costs the same at N=1); the port takes that dispatch on every device: the
-CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor. The
-other engines raise `NotImplementedError` (slice 4).
+CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor. ELL
+of other dtypes (f64), or past the engine's residency budget, runs the
+reference's per-bucket gather, row sum and ``index_add_`` as torch ops.
+The COO/CSR engines raise `NotImplementedError` (slice 4b).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ __all__ = ["spmv"]
 
 
 def spmv(A, x):
-    """``y = A @ x``. ``x``: f32[ncol] -> f32[nrow]."""
+    """``y = A @ x``. ``x``: dtype[ncol] -> dtype[nrow]."""
     if isinstance(A, HybridMatrix):
         y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
         if A.dense is not None:
@@ -51,17 +53,23 @@ def spmv(A, x):
         return bsr_spmv(A, x)
     if isinstance(A, (EllMatrix, SegmentedEll)):
         from .ell_ops import ell_spmm, gather_engine_fits, gather_engine_supported
-        from .spmm import _ell_dtype
+        from .spmm import _bucket_cols, _ell_dtype
 
         seg_ncol = A.seg_cols if isinstance(A, SegmentedEll) else A.shape[1]
-        if gather_engine_supported(_ell_dtype(A, x)) and gather_engine_fits(
-            seg_ncol, 1
-        ):
+        dt = _ell_dtype(A, x)
+        if gather_engine_supported(dt) and gather_engine_fits(seg_ncol, 1):
             return ell_spmm(A, x[:, None])[:, 0]
-        raise NotImplementedError(
-            "ELL SpMV off the f32 gather engine (the reference's XLA "
-            "engines) is slice 4"
-        )
+        if isinstance(A, SegmentedEll):
+            y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
+            for off, seg in zip(A.col_offsets, A.segments):
+                y = y + spmv(seg, x[off : off + seg.shape[1]])
+            return y
+        x = x.to(dt)
+        y = torch.zeros((A.shape[0],), dtype=dt, device=x.device)
+        for b in A.buckets:
+            contrib = (b.vals.to(dt) * x[_bucket_cols(b, A.shape[1])]).sum(1)
+            y.index_add_(0, b.row_ids.long(), contrib)
+        return y
     raise NotImplementedError(
-        f"spmv over {type(A).__name__} is not ported yet (slice 4)"
+        f"spmv over {type(A).__name__} is not ported yet (slice 4b)"
     )

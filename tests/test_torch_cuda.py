@@ -5,9 +5,11 @@ only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors (colmax, quant3, densecols and every ELL gather body bit-exact,
-the mono and tile-layout kernels at max|d|/max|ref| <= 1e-6), and
-operator products against scipy in float64.
+tensors (colmax, quant3, densecols, every ELL gather body and both
+double-word gathers bit-exact, the mono and tile-layout kernels at
+max|d|/max|ref| <= 1e-6, the tile kernels at tile_k up to 2048), and
+operator products against scipy in float64 (the fp64-class products at
+1e-10).
 """
 import numpy as np
 import pytest
@@ -438,3 +440,162 @@ def test_tile_operators_on_card_vs_scipy(card):
         y = ft.spmv(A, torch.from_numpy(x).cuda()).cpu()
         assert _rel(y, torch.from_numpy(md @ x)) <= 1e-6
     assert all(v > 0 for v in tt.launches.values()), tt.launches
+
+
+# ------------------------------------------------------ tile_k past 256
+def _scattered01(g, nrow, ncol, nnz):
+    r, c = g.integers(0, nrow, nnz), g.integers(0, ncol, nnz)
+    m = sp.coo_matrix((np.ones(nnz, np.float32), (r, c)), shape=(nrow, ncol))
+    m.sum_duplicates()
+    m.data[:] = 1.0
+    return m.tocsr()
+
+
+@pytest.mark.parametrize("panels", [False, True])
+@pytest.mark.parametrize("tile_k", [512, 2048])
+def test_tile_kernels_any_tile_k(card, tile_k, panels):
+    """bucket_spmm (tile buckets) and panel_spmm (class panels, forced by
+    build_bsr's ``panels=``) at tile_k 512 and 2048, against their plain
+    versions on the built layout's arrays."""
+    g = np.random.default_rng(tile_k)
+    m = _scattered01(g, 64, 4 * tile_k, 3000)
+    A = tbsr.build_bsr(ft.binary_coo_from_scipy(m, device=card),
+                       config=ft.Config(tile_m=8, tile_k=tile_k,
+                                        bsr_mono="off"),
+                       panels=panels, device=card)
+    assert A.is_panel == panels and A.tile_k == tile_k and A.buckets
+    X = torch.from_numpy(g.standard_normal(
+        (A.n_slabs * tile_k, 128)).astype(np.float32)).cuda()
+    tt.reset_launches()
+    for b in A.buckets:
+        if panels:
+            kw = dict(tile_k=tile_k, fold="f32")
+            yk = tt.panel_spmm(b.start_slab, b.panels, X, **kw)
+            yp = tt.panel_spmm_plain(b.start_slab, b.panels, X, **kw)
+        else:
+            kw = dict(n_block=128, planes=1)
+            yk = tt.bucket_spmm(b.slab_ids, b.tiles, X, **kw)
+            yp = tt.bucket_spmm_plain(b.slab_ids, b.tiles, X, **kw)
+        torch.cuda.synchronize()
+        assert yk.shape == yp.shape and _rel(yk, yp) <= 1e-6
+    name = "panel_spmm" if panels else "bucket_spmm"
+    assert tt.launches[name] == len(A.buckets)
+
+
+def test_operator_tile_k_512_on_card_vs_scipy(card):
+    g = np.random.default_rng(21)
+    m = _scattered01(g, 1600, 1600, 600)
+    op = ft.operator(m, format="bsr", config=ft.Config(tile_m=8, tile_k=512),
+                     device=card)
+    assert op.fwd.tile_k == 512 and not op.fwd.is_mono
+    md = m.astype(np.float64)
+    tt.reset_launches()
+    for N in (8, 130):
+        X = g.standard_normal((1600, N)).astype(np.float32)
+        Y = op.matmat(torch.from_numpy(X).cuda()).cpu()
+        assert _rel(Y, torch.from_numpy(md @ X)) <= 1e-6
+        Z = op.rmatmat(torch.from_numpy(X).cuda()).cpu()
+        assert _rel(Z, torch.from_numpy(md.T @ X)) <= 1e-6
+    x = g.standard_normal(1600).astype(np.float32)
+    assert _rel(op.matvec(torch.from_numpy(x).cuda()).cpu(),
+                torch.from_numpy(md @ x)) <= 1e-6
+    assert sum(tt.launches.values()) > 0
+
+
+# ------------------------------------------------- fp64-class gather (dd)
+def _dd_bucket(g, valued, nb=40, K=24, k_rows=48, n_pad=5):
+    """A bucket whose last ``n_pad`` rows are padding (the sentinel column
+    ``k_rows - 8`` for unit values, column 0 with zero values otherwise),
+    values and X spanning 10^±6."""
+    sentinel = k_rows - 8
+    cols = g.integers(0, sentinel, (nb, K)).astype(np.int32)
+    cols[-n_pad:] = 0 if valued else sentinel
+    v = g.standard_normal((nb, K)) * 10.0 ** g.integers(-6, 6, (nb, K))
+    v[-n_pad:] = 0.0
+    vh = v.astype(np.float32)
+    vl = (v - vh).astype(np.float32)
+    return cols, vh, vl, sentinel
+
+
+def _dd_x2(g, k_rows, N, sentinel):
+    X = g.standard_normal((sentinel, N)) * 10.0 ** g.integers(-6, 6, (sentinel, N))
+    x2 = np.zeros((2 * k_rows, N), np.float32)
+    x2[:sentinel] = X.astype(np.float32)
+    x2[k_rows : k_rows + sentinel] = (X - x2[:sentinel]).astype(np.float32)
+    return x2
+
+
+@pytest.mark.parametrize("N", [1, 8, 33])
+@pytest.mark.parametrize("valued", [False, True])
+def test_dd_kernels_match_plain(card, valued, N):
+    """ell_bucket_spmm_dd (#12) and ell_bucket_spmm_dd_valued (#13)
+    against their plain versions, bit for bit in hi and lo."""
+    from fastsparse_torch.ops.kernels import ell_dd as dk
+
+    g = np.random.default_rng(N + 100 * valued)
+    cols, vh, vl, sentinel = _dd_bucket(g, valued)
+    x2 = torch.from_numpy(_dd_x2(g, 48, N, sentinel)).cuda()
+    cols, vh, vl = (torch.from_numpy(a).cuda() for a in (cols, vh, vl))
+    dk.reset_launches()
+    if valued:
+        yk = dk.ell_bucket_spmm_dd_valued(cols, vh, vl, x2)
+        yp = dk.ell_bucket_spmm_dd_valued_plain(cols, vh, vl, x2)
+        name = "ell_bucket_dd_valued"
+    else:
+        yk = dk.ell_bucket_spmm_dd(cols, x2)
+        yp = dk.ell_bucket_spmm_dd_plain(cols, x2)
+        name = "ell_bucket_dd"
+    torch.cuda.synchronize()
+    assert dk.launches[name] == 1
+    for k, p in zip(yk, yp):
+        assert k.shape == (40, N) and torch.equal(k, p)
+    assert not yk[0][-5:].any() and not yk[1][-5:].any()
+
+
+def test_dd_kernels_raise_rather_than_fall_back(card):
+    from fastsparse_torch.ops.kernels import ell_dd as dk
+
+    g = np.random.default_rng(3)
+    cols, vh, vl, sentinel = _dd_bucket(g, True)
+    x2 = torch.from_numpy(_dd_x2(g, 48, 4, sentinel))
+    cols_c = torch.from_numpy(cols).cuda()
+    dk.reset_launches()
+    with pytest.raises(ValueError):  # indices on the card, X on the host
+        dk.ell_bucket_spmm_dd(cols_c, x2)
+    with pytest.raises(ValueError):  # a strided X
+        dk.ell_bucket_spmm_dd(cols_c, x2.cuda()[:, ::2])
+    with pytest.raises(ValueError):  # values on the host
+        dk.ell_bucket_spmm_dd_valued(cols_c, torch.from_numpy(vh),
+                                     torch.from_numpy(vl), x2.cuda())
+    assert sum(dk.launches.values()) == 0
+
+
+def test_spmm_dd_on_card_vs_scipy(card):
+    """spmm_dd through both kernels on the card: a segmented DdEll and a
+    unit ``format="ell"`` operator built unsplit, within 1e-10 of scipy
+    per column; and an f64 ``format="ell"`` operator's products."""
+    from fastsparse_torch.ops.kernels import ell_dd as dk
+
+    g = np.random.default_rng(9)
+    mv = sp.random(300, 500, density=0.04, format="csr", random_state=9)
+    mv.data[:] = g.standard_normal(mv.nnz) * 10.0 ** g.integers(-6, 6, mv.nnz)
+    mb = _scattered01(g, 300, 500, 6000).astype(np.float64)
+    X = g.standard_normal((500, 5)) * 10.0 ** g.integers(-6, 6, (500, 5))
+    dk.reset_launches()
+    Av = ft.build_ell_dd(mv, seg_cols=128, device=card)
+    opb = ft.operator(mb, format="ell", transpose=False,
+                      config=ft.Config(ell_split_rows=0), device=card)
+    for A, m in ((Av, mv), (opb, mb)):
+        Y = ft.spmm_dd(A, torch.from_numpy(X).cuda())
+        assert Y.is_cuda and Y.dtype == torch.float64
+        ref = m @ X
+        scale = np.abs(ref).max(axis=0, keepdims=True) + 1e-300
+        assert np.max(np.abs(Y.cpu().numpy() - ref) / scale) < 1e-10
+    assert all(v > 0 for v in dk.launches.values()), dk.launches
+    op64 = ft.operator(mv, format="ell", transpose=True, device=card)
+    x = g.standard_normal(500)
+    for got, ref in ((op64.matvec(torch.from_numpy(x).cuda()), mv @ x),
+                     (op64.rmatvec(torch.from_numpy(x[:300]).cuda()),
+                      mv.T @ x[:300])):
+        assert got.dtype == torch.float64
+        assert _rel(got.cpu(), torch.from_numpy(ref)) < 1e-10

@@ -372,8 +372,14 @@ def test_unported_ell_options_raise(monkeypatch):
         np.float32)
     assert _rel(op.matmat(torch.from_numpy(X)).numpy(),
                 m @ X.astype(np.float64)) <= TOL
-    with pytest.raises(NotImplementedError, match="fp64"):
-        ft.operator(m.astype(np.float64), device="cpu")  # auto -> ell, f64
+    # ported since: f64 values (auto -> an unsplit ELL, torch ops)
+    op64 = ft.operator(m.astype(np.float64), device="cpu")
+    assert type(op64.fwd).__name__ == "EllMatrix"
+    assert op64.fwd.split_rows == 0 and op64.fwd.dtype == torch.float64
+    X64 = X.astype(np.float64)
+    y64 = op64.matmat(torch.from_numpy(X64))
+    assert y64.dtype == torch.float64
+    assert _rel(y64.numpy(), m.astype(np.float64) @ X64) <= 1e-10
     op = ft.operator(m, device="cpu")
     monkeypatch.setattr(teo, "USE_SMEM_PATH", True)
     monkeypatch.setattr(teo, "_SMEM_IDX_BUDGET_VALUED", 64)

@@ -396,7 +396,8 @@ def test_hybrid_with_dense_tiles(no_dense_cols, monkeypatch, case):
     if case == "auto_tm":
         cfg_j, cfg_t = JConfig(), ft.Config()
     if case == "segmented":
-        # mono off: the reference's plans take no mono segment
+        # mono off: the reference's attach_plan raises on a mono segment
+        # (its fault; the port's repair is test_colseg_mono_segment...)
         cfg_j = JConfig(tile_m=8, bsr_mono="off")
         cfg_t = ft.Config(tile_m=8, bsr_mono="off")
         for mod in (jlinops, tlinops):
@@ -505,6 +506,41 @@ def test_operator_tilepack_hybrid(no_dense_cols, transpose):
 
 
 # --------------------------------------------------------------- repairs
+def test_colseg_mono_segment_sums_segments(no_dense_cols, monkeypatch):
+    """A hybrid whose dense tiles pass the 0/1 column cap while each
+    segment picks mono (`_blocky`, ``BSR_SEG_COLS_BINARY3`` shrunk to 768
+    in both packages, ``bsr_mono="auto"``): the reference's attach_plan
+    raises on it; the port attaches no cross-segment plan and sums the
+    segments' own products, within 1e-6 of scipy and of the sum of the
+    reference's per-segment products."""
+    for mod in (jlinops, tlinops):
+        monkeypatch.setattr(mod, "BSR_SEG_COLS_BINARY3", 768)
+    m = _blocky()
+    cj, ct = _coos(m)
+    Hj = jhyb.build_hybrid(cj, config=JConfig(tile_m=8), threshold=6)
+    with pytest.raises(AttributeError, match="slab_ids"):
+        jasm.attach_plan(Hj)
+    Ht = tasm.attach_plan(thyb.build_hybrid(ct, config=ft.Config(tile_m=8),
+                                            device="cpu", threshold=6))
+    Dj, Dt = Hj.dense, Ht.dense
+    assert type(Dt).__name__ == "ColSegmented" and Dt.plan is None
+    assert len(Dt.segments) == len(Dj.segments) > 1
+    assert all(s.is_mono for s in Dt.segments)
+    assert Dt.col_offsets == Dj.col_offsets and Ht.dense_nnz == Hj.dense_nnz
+    md = m.astype(np.float64)
+    for N in (130, 8):  # the reference's sum below at N = 8
+        X = np.random.default_rng(N).standard_normal(
+            (m.shape[1], N)).astype(np.float32)
+        assert _rel(ft.spmm(Ht, torch.from_numpy(X)).numpy(), md @ X) <= TOL
+    yd = ft.spmm(Dt, torch.from_numpy(X)).numpy()
+    ref = sum(np.asarray(fs.spmm(s, jnp.asarray(X[off : off + s.shape[1]])))
+              for off, s in zip(Dj.col_offsets, Dj.segments))
+    assert _rel(yd, ref) <= TOL
+    assert _rel(yd, Dt.todense().double().numpy() @ X) <= TOL
+    x = X[:, 0].copy()
+    assert _rel(ft.spmv(Ht, torch.from_numpy(x)).numpy(), md @ x) <= TOL
+
+
 def test_failed_tile_m_256_build_is_not_hidden(monkeypatch):
     """The tile_m=256 retry of operator(format="bsr") keeps the taller
     build only when it is mono (the reference's is_mono test); a build
