@@ -5,9 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the twelve CUDA kernels from the sources in
+It builds the thirteen CUDA kernels from the sources in
 ``fastsparse_torch/ops/kernels/csrc/`` (one nvcc per source, in parallel)
-and then:
+and then runs the phases below, phase 11 right after phase 4 (it reuses
+config A's and config B's operators) and phase 12 after phase 10:
 
 1. mono kernel phase: calls each mono-path kernel's wrapper on the card at
    the shapes the headline product gives it (banded 50,000 x 50,000,
@@ -91,6 +92,29 @@ and then:
    within max|d|/max|ref| 1e-10 of scipy f64; both dd kernels must
    launch. Then host build seconds, per-product times, launches, device
    busy time and idle share.
+11. SMEM-blocked gather phase: config A (``operator(mA)``) and config B
+   (``operator(mB, format="ell", transpose=False)``) built again with
+   ``ell_ops.USE_SMEM_PATH = True`` (their plans are keyed by the flag;
+   the flag is set inside try/finally and always reset).
+   ell_bucket_smem against its plain version, bit-exact, on config A's
+   widest valued whole bucket at N=1 and 128 and its width-40 bucket at
+   N=128, and on config B's width-32 and width-12 unit whole buckets at
+   N=128, each timed beside its bound and cuSPARSE's product of the same
+   rows. Then, with the counts set to 0, A's SpMV and matmat N=128 and B's
+   matmat N=128 under the flag: launches per product equal to the layout's
+   items (ell_bucket, ell_sweep, ell_bucket_smem; the smem kernel must
+   launch), the plans used, rel < 1e-6 (A) and 1e-5 (B) vs scipy f64; the
+   same products' times, busy time and idle share with the flag off and
+   on.
+12. scatter phase (``index_add_`` engines, no kernel of the port):
+   BASELINE config 1 as named, ``operator(m1, format="csr",
+   transpose=False).matvec(x)`` in f64 (rel <= 1e-10); config 2 as named,
+   ``spmv(sort_coo(coo_from_scipy(mA), "hilbert"), x)`` in f32 (< 1e-6)
+   and on the config 2 matrix in f64 (<= 1e-10); ``operator(mA,
+   format="coo")`` rmatvec and matmat N=128, ``operator(mA,
+   transpose=False).rmatvec`` (the ELL scatter) and ``ata_X(coo_A, X,
+   reg=50)`` at N=32 without the transpose tiling (< 1e-6). Host build
+   seconds, per-product times, device busy time and idle share.
 
 Every kernel is timed with CUDA events (min of batches) beside its plain
 version, the least time the card could take for the same work (bytes over
@@ -102,6 +126,7 @@ the script exits non-zero; without a CUDA device, or without the
 ``fastsparse_torch`` package beside it, it exits non-zero and prints no
 result. It imports nothing of JAX.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -122,6 +147,7 @@ SOURCES = {
     "bucket_spmv": CSRC + "bsr_tiles.cu",
     "ell_bucket_dd": CSRC + "ell_dd.cu",
     "ell_bucket_dd_valued": CSRC + "ell_dd.cu",
+    "ell_bucket_smem": CSRC + "ell_spmm.cu",
 }
 REPLACES = {
     "colmax": "fastsparse/ops/pallas/bsr_spmm.py:619",
@@ -136,6 +162,7 @@ REPLACES = {
     "bucket_spmv": "fastsparse/ops/pallas/bsr_spmm.py:1156",
     "ell_bucket_dd": "fastsparse/ops/pallas/ell_spmm.py:551",
     "ell_bucket_dd_valued": "fastsparse/ops/pallas/ell_spmm.py:501",
+    "ell_bucket_smem": "fastsparse/ops/pallas/ell_spmm.py:455",
 }
 MONO_KERNELS = ("colmax", "quant3_planes", "mono_panel", "mono_group")
 REL_TOL = 1e-6
@@ -1330,6 +1357,274 @@ def fp64_main_phase(ft, counters, DK, m1, m2d, mB, op1, A1, A2d, opBu,
     return counts
 
 
+@contextlib.contextmanager
+def smem_path():
+    """``ell_ops.USE_SMEM_PATH`` on for the block, reset whatever happens."""
+    from fastsparse_torch.ops import ell_ops
+
+    ell_ops.USE_SMEM_PATH = True
+    try:
+        yield
+    finally:
+        ell_ops.USE_SMEM_PATH = False
+
+
+def layout_launches(A):
+    """Kernel launches of one product over an ELL tiling, by kernel, from
+    the layout the dispatch walks (under the flag as it stands)."""
+    from fastsparse_torch.ops import ell_ops
+
+    kernel = {"chunk": "ell_bucket", "sweep": "ell_sweep",
+              "smem": "ell_bucket_smem"}
+    out = {}
+    for seg in (A.segments if hasattr(A, "segments") else [A]):
+        for _, mode, *_ in ell_ops._seg_layout(seg):
+            out[kernel[mode]] = out.get(kernel[mode], 0) + 1
+    return out
+
+
+def smem_builds(ft, mA, mB):
+    """Config A's and config B's ELL operators built under the flag."""
+    import torch
+
+    with smem_path():
+        t0 = time.perf_counter()
+        opA = ft.operator(mA, device="cuda")
+        opB = ft.operator(mB, format="ell", transpose=False, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        perA, perB = layout_launches(opA.fwd), layout_launches(opB.fwd)
+    print(f"USE_SMEM_PATH builds (A both tilings, B forward) {secs!r} s; "
+          f"launches per product A {perA} (transpose {layout_launches(opA.bwd)})"
+          f", B {perB}", flush=True)
+    check(perA.get("ell_bucket_smem", 0) > 0 and
+          perB.get("ell_bucket_smem", 0) > 0, "no whole-bucket item")
+    return opA, opB, perA, perB
+
+
+def smem_buckets(A):
+    """(segment, bucket) of every whole-bucket item of a tiling."""
+    from fastsparse_torch.ops import ell_ops
+
+    with smem_path():
+        return [(seg, b)
+                for seg in (A.segments if hasattr(A, "segments") else [A])
+                for b, mode, *_ in ell_ops._seg_layout(seg) if mode == "smem"]
+
+
+def smem_kernel_phase(EK, opA_s, opB_s, time_cuda):
+    """ell_bucket_smem against its plain version on config A's and config
+    B's whole buckets (bit-exact), timed beside its bound and cuSPARSE."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.ops import ell_ops
+
+    g = np.random.default_rng(37)
+    itemsA, itemsB = smem_buckets(opA_s.fwd), smem_buckets(opB_s.fwd)
+    print("whole buckets: A " + ", ".join(
+        f"{tuple(b.cols.shape)}" for _, b in itemsA) + "; B " + ", ".join(
+        f"{tuple(b.cols.shape)}" for _, b in itemsB), flush=True)
+
+    def widest(items, K=None):
+        pick = [(s, b) for s, b in items if K is None or b.width == K]
+        check(bool(pick), f"no whole bucket of width {K}")
+        return max(pick, key=lambda sb: (sb[1].width, sb[1].cols.shape[0]))
+
+    def panel(seg, N):
+        X = torch.from_numpy(g.standard_normal(
+            (seg.shape[1], N)).astype(np.float32)).cuda()
+        return x_panel(X, ell_ops._round_up(seg.shape[1] + 1, 8))
+
+    modes = {}
+    segA, bA = widest(itemsA)
+    cases = [("A", segA, bA, 128), ("A", segA, bA, 1),
+             ("A", *widest(itemsA, 40), 128),
+             ("B", *widest(itemsB, 32), 128), ("B", *widest(itemsB, 12), 128)]
+    for cname, seg, b, N in cases:
+        unit = seg.unit_vals
+        x = panel(seg, N)
+        nb, K = b.cols.shape
+        name = f"{cname} {nb}x{K} {'unit' if unit else 'valued'},N={N}"
+        r, _ = compare(f"ell_bucket_smem[{name}]", EK.ell_bucket_spmm_smem,
+                       EK.ell_bucket_spmm_smem_plain, True,
+                       (b.cols, b.vals, x), dict(unit=unit), time_cuda,
+                       quick=True)
+        r.update(ell_gather_bound(b.cols, 0 if unit else 4, 4, x, unit))
+        Acsr = gather_csr(b.cols, torch.ones_like(b.vals) if unit else b.vals,
+                          x.shape[0])
+        r["library_ms"] = library_ms(lambda: torch.sparse.mm(Acsr, x),
+                                     time_cuda)
+        r["shape"] = [nb, K, N]
+        print(f"  bound_ms={r['bound_ms']!r} ({r['bound_by']}) "
+              f"cuSPARSE {r['library_ms']!r}", flush=True)
+        modes[name] = r
+    row = dict(next(iter(modes.values())))
+    row["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
+    row["modes"] = modes
+    return {"ell_bucket_smem": row}
+
+
+def smem_main_phase(EK, opA, opB, opA_s, opB_s, perA, perB, mA, mB,
+                    time_cuda):
+    """Config A and B products under the flag through the public API,
+    counted, checked and timed beside the same products with it off."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.ops import assemble
+
+    g = np.random.default_rng(39)
+    XAn = g.standard_normal((mA.shape[1], 128)).astype(np.float32)
+    xAn = XAn[:, 0].copy()
+    XBn = g.standard_normal((mB.shape[1], 128)).astype(np.float32)
+    XA, xA = torch.from_numpy(XAn).cuda(), torch.from_numpy(xAn).cuda()
+    XB = torch.from_numpy(XBn).cuda()
+    torch.cuda.synchronize()
+    with smem_path():
+        for name, op in (("A", opA_s), ("B", opB_s)):
+            plan = op.fwd.plan
+            _, _, rows, _ = ell_layout_stats(op.fwd)
+            check(plan is not None and plan.layout_key == assemble.layout_key()
+                  and plan.n_slots == rows,
+                  f"config {name}: the flag's plan is not the one used")
+        EK.reset_launches()
+        ya = opA_s.matvec(xA)
+        Ya = opA_s.matmat(XA)
+        Yb = opB_s.matmat(XB)
+        torch.cuda.synchronize()
+        counts = dict(EK.launches)
+        print(f"USE_SMEM_PATH main-path launches: {counts}", flush=True)
+        want = {k: 2 * perA.get(k, 0) + perB.get(k, 0) for k in counts}
+        check(counts == want, f"launches {counts}, the layouts give {want}")
+        check(counts["ell_bucket_smem"] > 0,
+              "kernel ell_bucket_smem never launched on its path")
+        mA64, mB64 = mA.astype(np.float64), mB.astype(np.float64)
+        outs = {"A.matvec": (ya, mA64 @ xAn.astype(np.float64)),
+                "A.matmat": (Ya, mA64 @ XAn.astype(np.float64)),
+                "B.matmat": (Yb, mB64 @ XBn.astype(np.float64))}
+        rels = {}
+        for name, (out, ref) in outs.items():
+            check(tuple(out.shape) == ref.shape and out.dtype == torch.float32
+                  and out.is_cuda, f"{name}: {tuple(out.shape)} {out.dtype}")
+            check(bool(torch.isfinite(out).all()), f"{name}: non-finite")
+            rels[name] = rel_err(out.cpu().numpy(), ref)
+        print(f"USE_SMEM_PATH rel vs scipy f64: {rels}", flush=True)
+        for name, r in rels.items():
+            check(r < (1e-5 if name.startswith("B") else REL_TOL),
+                  f"flag on: {name} rel {r}")
+        time_products({"A.matvec [flag on]": (opA_s.matvec, xA),
+                       "A.matmat N=128 [flag on]": (opA_s.matmat, XA),
+                       "B.matmat N=128 [flag on]": (opB_s.matmat, XB)},
+                      time_cuda, (EK,))
+    time_products({"A.matvec [flag off]": (opA.matvec, xA),
+                   "A.matmat N=128 [flag off]": (opA.matmat, XA),
+                   "B.matmat N=128 [flag off]": (opB.matmat, XB)},
+                  time_cuda, (EK,))
+    return counts
+
+
+def scatter_phase(ft, counters, m1, m2d, mA, time_cuda):
+    """BASELINE configs 1 and 2 as their own words name them, and the
+    scatter engines on config A, through the public API, against scipy."""
+    import numpy as np
+    import torch
+
+    out, secs = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+
+    timed("op1_csr", lambda: ft.operator(m1, format="csr", transpose=False,
+                                         device="cuda"))
+    timed("cA_hilbert", lambda: ft.sort_coo(
+        ft.coo_from_scipy(mA, device="cuda"), "hilbert"))
+    timed("c2d_hilbert", lambda: ft.sort_coo(
+        ft.coo_from_scipy(m2d, device="cuda"), "hilbert"))
+    timed("opA_coo", lambda: ft.operator(mA, format="coo", device="cuda"))
+    timed("opA_ell_fwd", lambda: ft.operator(mA, transpose=False,
+                                             device="cuda"))
+    cooA = ft.coo_from_scipy(mA, device="cuda")
+    print("scatter host build s: " + ", ".join(
+        f"{k}={v!r}" for k, v in secs.items()), flush=True)
+    op1, cA, c2d = out["op1_csr"], out["cA_hilbert"], out["c2d_hilbert"]
+    opC, opE = out["opA_coo"], out["opA_ell_fwd"]
+    check(type(op1.fwd).__name__ == "CSR" and op1.fwd.dtype == torch.float64
+          and op1.fwd.n_valid == m1.nnz, "config 1: not an f64 CSR")
+    check(type(opC.fwd).__name__ == "COO" and type(opE.fwd).__name__ ==
+          "EllMatrix" and opE.bwd is None, "config A: unexpected tilings")
+    print(f"config 1 CSR capacity {op1.fwd.nnz_cap} ({m1.nnz} live); "
+          f"config 2 Hilbert COO {cA.nnz_cap} entries, first rows "
+          f"{cA.rows[:4].tolist()}", flush=True)
+
+    g = np.random.default_rng(41)
+    x1n = g.standard_normal(m1.shape[1])
+    xAn = g.standard_normal(mA.shape[1]).astype(np.float32)
+    x2n = g.standard_normal(m2d.shape[1])
+    yAn = g.standard_normal(mA.shape[0]).astype(np.float32)
+    XAn = g.standard_normal((mA.shape[1], 128)).astype(np.float32)
+    X32n = XAn[:, :32].copy()
+    x1, xA, x2, yA, XA, X32 = (torch.from_numpy(v).cuda() for v in
+                               (x1n, xAn, x2n, yAn, XAn, X32n))
+    torch.cuda.synchronize()
+    reg = 50.0
+    for c in counters:
+        c.reset_launches()
+    res = {
+        "config1.csr.matvec": op1.matvec(x1),
+        "config2.hilbert-coo.spmv": ft.spmv(cA, xA),
+        "config2-fp64.hilbert-coo.spmv": ft.spmv(c2d, x2),
+        "A.coo.rmatvec": opC.rmatvec(yA),
+        "A.coo.matmat N=128": opC.matmat(XA),
+        "A.ell.rmatvec (scatter)": opE.rmatvec(yA),
+        "A.ata_X N=32": ft.ata_X(cooA, X32, reg=reg),
+    }
+    torch.cuda.synchronize()
+    counts = {k: v for c in counters for k, v in c.launches.items() if v}
+    print(f"scatter phase kernel launches: {counts}", flush=True)
+    mA64 = mA.astype(np.float64)
+    X3264 = X32n.astype(np.float64)
+    refs = {
+        "config1.csr.matvec": (m1 @ x1n, torch.float64, DD_TOL),
+        "config2.hilbert-coo.spmv": (mA64 @ xAn.astype(np.float64),
+                                     torch.float32, REL_TOL),
+        "config2-fp64.hilbert-coo.spmv": (m2d @ x2n, torch.float64, DD_TOL),
+        "A.coo.rmatvec": (mA64.T @ yAn.astype(np.float64), torch.float32,
+                          REL_TOL),
+        "A.coo.matmat N=128": (mA64 @ XAn.astype(np.float64), torch.float32,
+                               REL_TOL),
+        "A.ell.rmatvec (scatter)": (mA64.T @ yAn.astype(np.float64),
+                                    torch.float32, REL_TOL),
+        "A.ata_X N=32": (mA64.T @ (mA64 @ X3264) + reg * X3264,
+                         torch.float32, REL_TOL),
+    }
+    rels = {}
+    for name, (ref, dt, tol) in refs.items():
+        y = res[name]
+        check(tuple(y.shape) == ref.shape and y.dtype == dt and y.is_cuda,
+              f"{name}: {tuple(y.shape)} {y.dtype}")
+        check(bool(torch.isfinite(y).all()), f"{name}: non-finite values")
+        rels[name] = rel_err(y.cpu().numpy(), ref)
+        check(rels[name] <= tol, f"{name} rel {rels[name]} > {tol}")
+    print(f"scatter rel vs scipy f64: {rels}", flush=True)
+    products = {
+        "config1.csr.matvec": (op1.matvec, x1),
+        "config2.hilbert-coo.spmv": (lambda v: ft.spmv(cA, v), xA),
+        "config2-fp64.hilbert-coo.spmv": (lambda v: ft.spmv(c2d, v), x2),
+        "A.coo.rmatvec": (opC.rmatvec, yA),
+        "A.coo.matmat N=128": (opC.matmat, XA),
+        "A.ell.rmatvec (scatter)": (opE.rmatvec, yA),
+        "A.ata_X N=32": (lambda V: ft.ata_X(cooA, V, reg=reg), X32),
+    }
+    time_products(products, time_cuda, counters)
+    t = time_cuda(lambda: ft.sort_coo(cooA, "hilbert"))
+    print(f"ms sort_coo(config A, 'hilbert') on the card: min={t['min_ms']!r} "
+          f"median={t['median_ms']!r}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1494,7 +1789,14 @@ def main() -> int:
     del A_unsplit, A_unsplit_bin, cooA
     ell_counts = ell_main_phase(ft, K, EK, opA, mA, opB, mB, time_cuda)
     counts.update({k: ell_counts[k] for k in ("ell_bucket", "ell_sweep")})
-    del opA, opB
+
+    # ---- phase 11: the SMEM-blocked gather (USE_SMEM_PATH) on A and B
+    opA_s, opB_s, perA, perB = smem_builds(ft, mA, mB)
+    kres.update(smem_kernel_phase(EK, opA_s, opB_s, time_cuda))
+    smem_counts = smem_main_phase(EK, opA, opB, opA_s, opB_s, perA, perB,
+                                  mA, mB, time_cuda)
+    counts["ell_bucket_smem"] = smem_counts["ell_bucket_smem"]
+    del opA, opB, opA_s, opB_s
 
     # ---- the hybrid path: the ECFP Macau side-information matrix
     t0 = time.perf_counter()
@@ -1533,6 +1835,10 @@ def main() -> int:
                                 A1, A2d, opBu, time_cuda)
     counts.update({k: dd_counts[k]
                    for k in ("ell_bucket_dd", "ell_bucket_dd_valued")})
+    del op1, A1, A2d, opBu
+
+    # ---- phase 12: the scatter engines, BASELINE configs 1 and 2 as named
+    scatter_phase(ft, (K, EK, TT, DK), m1, m2d, mA, time_cuda)
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(k == "fastsparse" or k.startswith("fastsparse.")

@@ -1,10 +1,11 @@
 """Format conversions (counterpart of ``fastsparse/formats/convert.py``).
 
-`to_csr` sorts on the matrix's device (a stable key sort: padding to the
-tail, then row, then column, as the reference's ``sort_coo(coo, "row")``)
-and builds ``row_ptr`` as a masked bincount and cumsum. `to_csr_host`
+`to_csr` sorts on the matrix's device (``sort_coo(coo, "row")``: padding
+to the tail, then row, then column, as the reference) and builds
+``row_ptr`` as a masked bincount and cumsum. `to_csr_host`
 gives the same CSR from a host lexsort; the builders use it, since format
-compilation is an offline step.
+compilation is an offline step. `transpose_coo` swaps the index arrays
+and sorts row-major on the device.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from .coo import COO, BinaryCOO
 from .csr import CSR, BinaryCSR
 
-__all__ = ["to_coo", "to_csr", "to_csr_host"]
+__all__ = ["to_coo", "to_csr", "to_csr_host", "transpose_coo"]
 
 
 def to_coo(mat):
@@ -38,19 +39,15 @@ def _csr_like(coo, row_ptr, rows, cols, vals):
 
 def to_csr(coo):
     """COO -> CSR (valued or binary) on the COO's device."""
+    from ..reorder.sort import sort_coo
+
     nrow = coo.shape[0]
-    valid = coo.valid_mask()
-    order = torch.arange(coo.nnz_cap, device=coo.rows.device)
-    # least significant key first; every sort is stable
-    for key in (coo.cols, coo.rows, (~valid).to(torch.int32)):
-        order = order[torch.sort(key[order], stable=True).indices]
-    rows, cols = coo.rows[order], coo.cols[order]
-    counts = torch.zeros(nrow, dtype=torch.int64, device=rows.device)
-    counts.index_add_(0, rows.long(), valid[order].long())
-    row_ptr = torch.zeros(nrow + 1, dtype=torch.int32, device=rows.device)
+    s = sort_coo(coo, "row")
+    counts = torch.zeros(nrow, dtype=torch.int64, device=s.rows.device)
+    counts.index_add_(0, s.rows.long(), s.valid_mask().long())
+    row_ptr = torch.zeros(nrow + 1, dtype=torch.int32, device=s.rows.device)
     row_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
-    vals = None if isinstance(coo, BinaryCOO) else coo.vals[order]
-    return _csr_like(coo, row_ptr, rows, cols, vals)
+    return _csr_like(coo, row_ptr, s.rows, s.cols, getattr(s, "vals", None))
 
 
 def to_csr_host(coo):
@@ -79,3 +76,15 @@ def to_csr_host(coo):
         t(rows[order].astype(np.int32)), t(cols[order].astype(np.int32)),
         vals,
     )
+
+
+def transpose_coo(coo):
+    """Transpose by swapping the index arrays, entries re-sorted row-major
+    (`reorder.sort.sort_coo`), padding last."""
+    import dataclasses
+
+    from ..reorder.sort import sort_coo
+
+    t = dataclasses.replace(coo, rows=coo.cols, cols=coo.rows,
+                            shape=(coo.shape[1], coo.shape[0]))
+    return sort_coo(t, "row")

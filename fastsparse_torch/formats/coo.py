@@ -2,7 +2,7 @@
 
 Counterpart of ``fastsparse/formats/coo.py``. ``n_valid`` is the live entry
 count; entries past it are padding (row = col = 0, value 0), as in the
-reference.
+reference, trailing (`pad_to`).
 """
 from __future__ import annotations
 
@@ -17,6 +17,12 @@ __all__ = ["COO", "BinaryCOO", "coo_from_scipy", "binary_coo_from_scipy"]
 
 def _index_tensor(a, device):
     return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+
+def _extra(cur: int, nnz_cap: int) -> int:
+    if nnz_cap < cur:
+        raise ValueError(f"cannot shrink capacity {cur} -> {nnz_cap}")
+    return nnz_cap - cur
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +59,18 @@ class COO:
             n_valid = int(rows.shape[0])
         return cls(rows=rows, cols=cols, vals=vals, shape=tuple(shape),
                    n_valid=n_valid, row_sorted=row_sorted)
+
+    def pad_to(self, nnz_cap: int) -> "COO":
+        """Grow capacity to ``nnz_cap`` with no-op padding entries (row =
+        col = 0, value 0), trailing."""
+        extra = _extra(self.nnz_cap, nnz_cap)
+        if not extra:
+            return self
+        zi = self.rows.new_zeros(extra)
+        return dataclasses.replace(
+            self, rows=torch.cat([self.rows, zi]),
+            cols=torch.cat([self.cols, zi]),
+            vals=torch.cat([self.vals, self.vals.new_zeros(extra)]))
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.nnz_cap, device=self.rows.device) < self.n_valid
@@ -104,6 +122,16 @@ class BinaryCOO:
             n_valid = int(rows.shape[0])
         return cls(rows=rows, cols=cols, shape=tuple(shape), n_valid=n_valid,
                    row_sorted=row_sorted)
+
+    def pad_to(self, nnz_cap: int) -> "BinaryCOO":
+        """Grow capacity to ``nnz_cap`` with padding entries (0, 0), which
+        `valid_mask` excludes: every consumer masks them."""
+        extra = _extra(self.nnz_cap, nnz_cap)
+        if not extra:
+            return self
+        zi = self.rows.new_zeros(extra)
+        return dataclasses.replace(self, rows=torch.cat([self.rows, zi]),
+                                   cols=torch.cat([self.cols, zi]))
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.nnz_cap, device=self.rows.device) < self.n_valid

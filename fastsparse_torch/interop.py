@@ -12,8 +12,10 @@ and ``n_real`` and the assembly plan (f32 or f64 values); for a `DdEll`
 its ``hi`` and ``lo`` planes, each an ELL tiling; for a HybridMatrix its
 dense tiles,
 its ELL part, its `DenseCols` block (``col_ids``, ``block``, ``shape``,
-``nnz``, ``n_cols``), ``threshold`` and ``dense_nnz``; and the operator's
-four permutations. It reads attributes only, so it
+``nnz``, ``n_cols``), ``threshold`` and ``dense_nnz``; for a COO or CSR
+tiling (valued or binary) its index arrays (``rows``, ``cols``, and
+``row_ptr`` for CSR), values, ``n_valid`` and, for COO, ``row_sorted``,
+padding included; and the operator's four permutations. It reads attributes only, so it
 takes an operator of either package (the JAX reference's or this port's)
 without importing the other. `operator_from_reference_arrays` rebuilds the
 port's `SparseOperator` from such a dict on a given device; the tests use
@@ -27,6 +29,8 @@ import torch
 from .formats.bsr import (
     BsrBucket, BsrMatrix, MonoGroupBucket, MonoPanelBucket, PanelBucket,
 )
+from .formats.coo import COO, BinaryCOO
+from .formats.csr import CSR, BinaryCSR
 from .formats.ell import DdEll, EllBucket, EllMatrix, SegmentedEll
 from .formats.hybrid import DenseCols, HybridMatrix
 from .formats.segmented import ColSegmented
@@ -43,6 +47,9 @@ _GROUP_INTS = ("width", "win_slabs", "n_windows", "group", "out_strips",
                "win_stride")
 _ELL_INTS = ("nnz", "padded_nnz", "split_rows")
 _BUCKET_ARRAYS = ("row_ids", "cols", "vals")
+# COO/CSR containers by class name (the same in both packages)
+_SCATTER = {"COO": COO, "BinaryCOO": BinaryCOO, "CSR": CSR,
+            "BinaryCSR": BinaryCSR}
 
 
 def _np(a):
@@ -156,7 +163,36 @@ def _hybrid_arrays(A, prefix, d):
         d[prefix + "dc.n_cols"] = int(dc.n_cols)
 
 
+def _scatter_arrays(A, prefix, d):
+    kind = type(A).__name__
+    d[prefix + "kind"] = kind
+    d[prefix + "shape"] = tuple(int(v) for v in A.shape)
+    d[prefix + "n_valid"] = int(A.n_valid)
+    for k in ("row_ptr", "rows", "cols"):
+        if hasattr(A, k):
+            d[prefix + k] = _np(getattr(A, k))
+    if kind in ("COO", "CSR"):
+        d[prefix + "vals"], d[prefix + "vals.dtype"] = _vals(A.vals)
+    if kind.endswith("COO"):
+        d[prefix + "row_sorted"] = bool(A.row_sorted)
+
+
+def _scatter_from(d, prefix, device):
+    kind = d[prefix + "kind"]
+    kw = {k: torch.as_tensor(np.array(d[prefix + k]), device=device)
+          for k in ("row_ptr", "rows", "cols") if prefix + k in d}
+    if kind in ("COO", "CSR"):
+        kw["vals"] = _vals_from(d, prefix + "vals", device)
+    if kind.endswith("COO"):
+        kw["row_sorted"] = d[prefix + "row_sorted"]
+    return _SCATTER[kind](shape=tuple(d[prefix + "shape"]),
+                          n_valid=d[prefix + "n_valid"], **kw)
+
+
 def _matrix_arrays(A, prefix, d):
+    if type(A).__name__ in _SCATTER:
+        _scatter_arrays(A, prefix, d)
+        return
     if hasattr(A, "hi") and hasattr(A, "lo"):  # DdEll
         d[prefix + "kind"] = "dd"
         d[prefix + "shape"] = tuple(int(v) for v in A.shape)
@@ -218,9 +254,10 @@ def _matrix_arrays(A, prefix, d):
 
 
 def reference_arrays(op) -> dict:
-    """Flatten a BSR, ELL, dd or hybrid operator (either package) into a
-    dict of numpy arrays and static ints, keyed ``fwd.*`` and ``bwd.*``,
-    with the permutations (None or int32 arrays) under their names."""
+    """Flatten a BSR, ELL, dd, hybrid, COO or CSR operator (either
+    package) into a dict of numpy arrays and static ints, keyed ``fwd.*``
+    and ``bwd.*``, with the permutations (None or int32 arrays) under their
+    names."""
     d = {"shape": tuple(int(v) for v in op.shape),
          "has_bwd": op.bwd is not None}
     for k in _PERMS:
@@ -295,6 +332,8 @@ def _hybrid_from(d, prefix, device) -> HybridMatrix:
 
 def _matrix_from(d, prefix, device):
     kind = d[prefix + "kind"]
+    if kind in _SCATTER:
+        return _scatter_from(d, prefix, device)
     if kind == "dd":
         return DdEll(hi=_matrix_from(d, prefix + "hi.", device),
                      lo=_matrix_from(d, prefix + "lo.", device),

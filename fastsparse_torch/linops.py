@@ -3,14 +3,16 @@
 
 `operator()` compiles a matrix and, with ``transpose=True``, its transpose
 into layouts on one device, so every product, the transpose and the
-normal equations included, is a forward pass through a kernel. Ported
-formats: ``"bsr"`` (the mono layout, class panels or tile buckets,
-column-segmented past the BSR column caps), ``"ell"`` and ``"ell-seg"``
-(the f32 gather engine, or torch ops for f64 values; column-segmented past
-``SEG_COLS``), ``"hybrid"``
-(dense tiles and a dense-column block beside the gather engine) and
-``"auto"``, which picks among them as the reference does; and the
-reference's ``reorder=`` orderings with their permutation boundary.
+normal equations included, is a forward pass through a kernel; without
+the transpose tiling, the transpose products of COO, CSR and ELL tilings
+run the scatter engine (`spmv_t`, `spmm_t`). Formats: ``"bsr"`` (the mono
+layout, class panels or tile buckets, column-segmented past the BSR column
+caps), ``"ell"`` and ``"ell-seg"`` (the f32 gather engine, or torch ops
+for f64 values; column-segmented past ``SEG_COLS``), ``"hybrid"`` (dense
+tiles and a dense-column block beside the gather engine), ``"coo"`` and
+``"csr"`` (the scatter engines) and ``"auto"``, which picks among the
+first four as the reference does; and the reference's ``reorder=``
+orderings with their permutation boundary.
 """
 from __future__ import annotations
 
@@ -36,15 +38,15 @@ from .config import (
     Config,
 )
 from .formats.bsr import build_bsr
-from .formats.convert import to_coo
+from .formats.convert import to_coo, to_csr
 from .formats.coo import BinaryCOO, binary_coo_from_scipy, coo_from_scipy
-from .formats.ell import EllMatrix, SegmentedEll, build_ell, build_ell_segmented
-from .formats.hybrid import HybridMatrix, build_hybrid
+from .formats.ell import build_ell, build_ell_segmented
+from .formats.hybrid import build_hybrid
 from .formats.segmented import build_bsr_segmented
 from .ops import spmm as _spmm_mod
 from .ops import spmv as _spmv_mod
 from .ops.assemble import attach_plan
-from .ops.bsr_ops import mono_chain
+from .ops.bsr_ops import mono_chain, pallas_supported
 from .reorder.cluster import invert_perm
 
 __all__ = ["SparseOperator", "operator"]
@@ -93,64 +95,57 @@ class SparseOperator:
     def _out_cols(self, y):
         return y if self.col_inv is None else y[self.col_inv]
 
-    def _bwd(self):
-        if self.bwd is None and isinstance(self.fwd, (EllMatrix, SegmentedEll,
-                                                      HybridMatrix)):
-            raise NotImplementedError(
-                "ELL transpose products without the dual tiling (the "
-                "reference's scatter engine) are slice 4b; build with "
-                "operator(..., transpose=True)"
-            )
-        if self.bwd is None:
-            raise TypeError(
-                "tiled formats have no transpose-scatter path; build the "
-                "dual tiling with operator(..., transpose=True)"
-            )
-        return self.bwd
-
     def matvec(self, x):
         """``A @ x``."""
         return self._out_rows(_spmv_mod.spmv(self.fwd, self._in_cols(x)))
 
     def rmatvec(self, x):
-        """``Aᵀ @ x`` through the dual tiling."""
-        return self._out_cols(_spmv_mod.spmv(self._bwd(), self._in_rows(x)))
+        """``Aᵀ @ x``: a forward product over the dual tiling when there is
+        one, else the scatter engine over ``fwd`` (tiled formats raise
+        `TypeError` there)."""
+        if self.bwd is not None:
+            return self._out_cols(_spmv_mod.spmv(self.bwd, self._in_rows(x)))
+        return self._out_cols(_spmv_mod.spmv_t(self.fwd, self._in_rows(x)))
 
     def matmat(self, X):
         """``A @ X``."""
         return self._out_rows(_spmm_mod.spmm(self.fwd, self._in_cols(X)))
 
     def rmatmat(self, X):
-        """``Aᵀ @ X`` through the dual tiling."""
-        return self._out_cols(_spmm_mod.spmm(self._bwd(), self._in_rows(X)))
+        """``Aᵀ @ X``, as `rmatvec`."""
+        if self.bwd is not None:
+            return self._out_cols(_spmm_mod.spmm(self.bwd, self._in_rows(X)))
+        return self._out_cols(_spmm_mod.spmm_t(self.fwd, self._in_rows(X)))
 
-    def _mono_chainable(self) -> bool:
-        """Both tilings mono: normal and gram products then run as two
-        back-to-back launches (`ops.bsr_ops.mono_chain`; the inner
-        ``row_inv∘row_perm`` gather pair cancels exactly)."""
+    def _mono_chainable(self, X) -> bool:
+        """Both tilings mono and an operand dtype with a kernel: normal and
+        gram products then run as two back-to-back launches
+        (`ops.bsr_ops.mono_chain`; the inner ``row_inv∘row_perm`` gather
+        pair cancels exactly)."""
         return (
             self.bwd is not None
             and getattr(self.fwd, "is_mono", False)
             and getattr(self.bwd, "is_mono", False)
+            and pallas_supported(X.dtype)
         )
 
     def normal_matvec(self, x, reg=0.0):
         """``(AᵀA + reg·I) @ x``, the Macau/SMURFF CG inner product."""
-        if self._mono_chainable():
+        if self._mono_chainable(x):
             y = mono_chain(self.fwd, self.bwd, self._in_cols(x)[:, None])
             return self._out_cols(y[:, 0]) + reg * x
         return self.rmatvec(self.matvec(x)) + reg * x
 
     def normal_matmat(self, X, reg=0.0):
         """``(AᵀA + reg·I) @ X``."""
-        if self._mono_chainable():
+        if self._mono_chainable(X):
             Y = mono_chain(self.fwd, self.bwd, self._in_cols(X))
             return self._out_cols(Y) + reg * X
         return self.rmatmat(self.matmat(X)) + reg * X
 
     def gram_matvec(self, x, reg=0.0):
         """``(AAᵀ + reg·I) @ x``."""
-        if self._mono_chainable():
+        if self._mono_chainable(x):
             y = mono_chain(self.bwd, self.fwd, self._in_rows(x)[:, None])
             return self._out_rows(y[:, 0]) + reg * x
         return self.matvec(self.rmatvec(x)) + reg * x
@@ -384,24 +379,22 @@ def operator(
     gather as torch ops. `spmm_dd` takes an ``"ell"`` operator of a 0/1
     matrix built with ``Config(ell_split_rows=0)``. ``"ell-seg"`` forces
     column segments.
-    ``reorder`` (``"degree"``, ``"minhash"``, ``"tilepack"``, ``"hilbert"``
-    or ``"auto"``) permutes rows and columns before tiling; products permute
+    ``"coo"`` keeps the (padded) COO and ``"csr"`` converts it on the
+    device (`to_csr`); their products run the scatter engines (`spmv`,
+    `spmm`; the transpose tiling is the swapped COO). ``reorder``
+    (``"degree"``, ``"minhash"``, ``"tilepack"``, ``"hilbert"`` or
+    ``"auto"``) permutes rows and columns before tiling; products permute
     operands at the boundary, which the gather-engine formats elide without
-    the dual tiling where the reference does. ``"coo"``/``"csr"`` (the XLA
-    scatter engines) are slice 4b and ``tune=True`` and bitmask tiles slice
-    3b: they raise
-    `NotImplementedError`. ``dtype``: a torch dtype or None. With
-    ``config.tile_m=None`` the BSR tile height is the modeled best
-    (`bench.model.best_tile_m`), raised from 128 to 256 when the taller
-    build is still mono.
+    the dual tiling where the reference does. ``tune=True`` and bitmask
+    tiles are slice 3b: they raise `NotImplementedError`. ``dtype``: a
+    torch dtype or None. The COO's capacity is padded to a power of two,
+    as the reference pads it (the layouts are built from its ``n_valid``
+    live entries only). With ``config.tile_m=None`` the BSR tile height is the modeled
+    best (`bench.model.best_tile_m`), raised from 128 to 256 when the
+    taller build is still mono.
     """
     if format not in _FORMATS:
         raise ValueError(f"format must be one of {_FORMATS}")
-    if format in ("coo", "csr"):
-        raise NotImplementedError(
-            f"format={format!r} (the reference's XLA scatter engines) is "
-            "slice 4b"
-        )
     if tune:
         raise NotImplementedError(
             "tune=True (per-matrix bucket edges) is slice 3b"
@@ -416,18 +409,27 @@ def operator(
             coo = coo_from_scipy(m, device=device)
     else:
         coo = to_coo(mat)
+    cap = coo.nnz_cap
+    pow2 = 1 if cap <= 1 else 1 << (cap - 1).bit_length()
+    if cap != pow2:
+        coo = coo.pad_to(pow2)
 
     # reorder before the format decision: the model must see the layout
     # the tilings are built from
     coo, row_perm, col_perm = _reorder(coo, reorder)
     if format == "auto":
         format = _auto_format(coo, config, dtype)
-    if (format != "bsr" and not transpose
+    if (format in ("ell", "ell-seg", "hybrid") and not transpose
             and (row_perm is not None or col_perm is not None)):
         coo, row_perm, col_perm = _elide_perms(coo, format, config,
                                                row_perm, col_perm)
     if format == "bsr":
         fwd, bwd = _compile_bsr_pair(coo, config, dtype, device, transpose)
+    elif format in ("coo", "csr"):
+        if dtype is not None and not isinstance(coo, BinaryCOO):
+            coo = dataclasses.replace(coo, vals=coo.vals.to(dtype))
+        fwd = _compile_scatter(coo, format)
+        bwd = _compile_scatter(_transpose(coo), format) if transpose else None
     else:
         if config.tile_m is None:
             config = config.resolve()
@@ -440,6 +442,12 @@ def operator(
         row_inv=None if row_perm is None else invert_perm(row_perm),
         col_inv=None if col_perm is None else invert_perm(col_perm),
     )
+
+
+def _compile_scatter(coo, fmt):
+    """The reference's ``_compile_one(..., "coo" | "csr")``: the COO as it
+    is, or its CSR."""
+    return to_csr(coo) if fmt == "csr" else coo
 
 
 def _transpose(coo):

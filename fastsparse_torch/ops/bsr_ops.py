@@ -25,11 +25,14 @@ TPU residency budgets (``_SMEM_IDX_BUDGET``, ``RESIDENT_VMEM_BUDGET``, the
 ``n_block`` cap, `pick_strategy`) are kept as layout parameters for
 parity: they decide the part count, the plans and the arithmetic.
 
-Only the f32 operand at ``precision="highest"`` is ported. Other X dtypes
-and precisions raise `NotImplementedError`, as do the bodies off this
-path (the streamed tile body and the bitmask modes, slice 3b; the
-reference's pre-split panel fold, off by its default, is not ported);
-there is no silent fallback to a COO engine.
+The kernels take the f32 operand at ``precision="highest"``. An operand
+dtype the reference has no kernel for (`pallas_supported` false: f64)
+runs, as in the reference, through the COO scatter engine over the
+layout's entries (`_as_coo`, bucket by bucket, never densified). bf16
+operands and other precisions raise `NotImplementedError`, as do the
+bodies off this path (the streamed tile body and the bitmask modes, slice
+3b; the reference's pre-split panel fold, off by its default, is not
+ported).
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ from .kernels.bsr_spmm import (
 )
 from .kernels.bsr_tiles import bucket_spmm, bucket_spmv, panel_spmm
 
-__all__ = ["bsr_spmm", "bsr_spmv", "colseg_spmm", "halo_nq", "mono_chain"]
+__all__ = ["bsr_spmm", "bsr_spmv", "colseg_spmm", "halo_nq", "mono_chain",
+           "pallas_supported"]
 
 LANES = 128
 # Layout parameters of the reference's TPU budgets, kept for parity: index
@@ -60,6 +64,53 @@ HALO_NQ_MAX = 8
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def pallas_supported(dtype) -> bool:
+    """The reference's gate: operand dtypes its tile kernels take (f32, and
+    bf16, whose products are slice 3b). Others run the COO engine."""
+    return dtype in (torch.float32, torch.bfloat16)
+
+
+def _as_coo(A: BsrMatrix, device=None):
+    """The layout's entries as a COO on its device, bucket by bucket, in
+    the reference's order (``bsr_ops._as_coo``): padding items and entries
+    past the matrix dropped, values in the layout's dtype."""
+    from ..formats.bsr import BsrBucket
+    from ..formats.coo import COO
+
+    if A.binary:
+        raise NotImplementedError("bitmask tiles and panels are slice 3b")
+    TM, TK, nsp = A.tile_m, A.tile_k, A.n_strips
+    rows_l, cols_l, vals_l = [], [], []
+    for b in A.buckets:
+        sids = b.strip_ids.long()
+        if isinstance(b, BsrBucket):
+            i, t, r, c = torch.nonzero(b.tiles, as_tuple=True)
+            col = b.slab_ids.long()[i, t] * TK + c
+            v = b.tiles[i, t, r, c]
+        elif isinstance(b, (PanelBucket, MonoPanelBucket)):
+            i, r, c = torch.nonzero(b.panels, as_tuple=True)
+            starts = (b.start_slab.long() if isinstance(b, PanelBucket)
+                      else b.window.long() * b.win_slabs + b.start_rel.long())
+            col = starts[i] * TK + c
+            v = b.panels[i, r, c]
+        else:
+            raise NotImplementedError("the grouped mono layout is slice 3b")
+        keep = sids[i] < nsp
+        rows_l.append((sids[i] * TM + r)[keep])
+        cols_l.append(col[keep])
+        vals_l.append(v[keep])
+    dev = A.device if A.buckets else device
+    if rows_l:
+        rows, cols, vals = (torch.cat(x) for x in (rows_l, cols_l, vals_l))
+    else:
+        rows = cols = torch.zeros(0, dtype=torch.int64, device=dev)
+        vals = torch.zeros(0, dtype=torch.float32, device=dev)
+    keep = (rows < A.shape[0]) & (cols < A.shape[1])
+    return COO(rows=rows[keep].to(torch.int32), cols=cols[keep].to(torch.int32),
+               vals=vals[keep], shape=tuple(A.shape),
+               n_valid=int(keep.sum()))
 
 
 def _narrow_nq(N: int) -> int:
@@ -77,8 +128,8 @@ def _require_int8_path(A, x_dtype, precision):
         )
     if x_dtype != torch.float32:
         raise NotImplementedError(
-            f"X dtype {x_dtype}: only float32 operands are ported (bf16 and "
-            "fp64 products are slices 3 and 4)"
+            f"X dtype {x_dtype}: only float32 operands are ported (bf16 "
+            "products are slice 3b)"
         )
     if A.binary or A.dtype != torch.int8:
         raise NotImplementedError(
@@ -262,8 +313,8 @@ def _require_parity(x_dtype, precision):
         )
     if x_dtype != torch.float32:
         raise NotImplementedError(
-            f"X dtype {x_dtype}: only float32 operands are ported (bf16 and "
-            "fp64 products are slices 3b and 4)"
+            f"X dtype {x_dtype}: only float32 operands are ported (bf16 "
+            "products are slice 3b)"
         )
 
 
@@ -494,7 +545,14 @@ def bsr_spmm(A: BsrMatrix, X, *, n_block=None, precision: str = "highest",
     """``Y = A @ X`` for a BsrMatrix. X: f32 (ncol, N) on the matrix's
     device. ``n_block`` pins the tile path's column block (`bsr_spmv`'s
     one-column fallback). ``_parts=True`` (`colseg_spmm`) returns the raw
-    ``(sids, parts, Npad, nq)`` part panels instead of Y."""
+    ``(sids, parts, Npad, nq)`` part panels instead of Y. An f64 X runs
+    the COO engine over the layout's entries, as in the reference."""
+    if not pallas_supported(X.dtype):
+        if _parts:
+            raise TypeError("_parts requires an operand dtype with a kernel")
+        from .spmm import spmm as coo_spmm
+
+        return coo_spmm(_as_coo(A, X.device), X)
     _require_parity(X.dtype, precision)
     if A.is_mono:
         if _parts:
@@ -570,7 +628,8 @@ def colseg_spmm(A, X, *, precision: str = "highest"):
     segs = A.segments
     plan = A.plan
     if (plan is None or not segs or plan.layout_key != colseg_layout_key()
-            or not all(isinstance(s, BsrMatrix) for s in segs)):
+            or not all(isinstance(s, BsrMatrix) for s in segs)
+            or not pallas_supported(X.dtype)):
         return None
     _require_parity(X.dtype, precision)
     N = X.shape[1]
@@ -618,7 +677,12 @@ def colseg_spmm(A, X, *, precision: str = "highest"):
 def bsr_spmv(A: BsrMatrix, x):
     """``y = A @ x``: `bucket_spmv` per part for tile buckets (TM <= 32, x
     within the reference's residency budget); otherwise a one-column
-    product (panel layouts, the halo engine for mono)."""
+    product (panel layouts, the halo engine for mono). An f64 x runs the
+    COO engine over the layout's entries, as in the reference."""
+    if not pallas_supported(x.dtype):
+        from .spmv import spmv as coo_spmv
+
+        return coo_spmv(_as_coo(A, x.device), x)
     _require_parity(x.dtype, "highest")
     nrow, ncol = A.shape
     TM, TK, nsp, nsl = A.tile_m, A.tile_k, A.n_strips, A.n_slabs

@@ -2,16 +2,18 @@
 
 Bridges `formats.ell` to the gather kernels (`ops.kernels.ell_spmm`): pads
 each column segment's X panel (a zero sentinel row past its columns),
-walks the part-slot layout `_seg_layout` (bucket chunks and merged packed
-sweeps), launches one kernel per part, and assembles Y through the
-build-time gather plan (`ops.assemble`) or, without one, a row
-``index_add_``.
+walks the part-slot layout `_seg_layout` (bucket chunks, merged packed
+sweeps and, with ``USE_SMEM_PATH``, whole buckets), launches one kernel
+per part, and assembles Y through the build-time gather plan
+(`ops.assemble`) or, without one, a row ``index_add_``.
 
 The budgets and flags below are the reference's layout parameters, kept
 as module attributes of the same names so tests can monkeypatch them in
 both packages: they fix which slots share a launch, and so the plan, not
-anything of this card (one bucket row's sum never crosses a chunk). The
-SMEM-blocked kernel behind ``USE_SMEM_PATH`` is not ported.
+anything of this card (one bucket row's sum never crosses a chunk).
+``USE_SMEM_PATH`` (off by default, as in the reference) sends every
+bucket past its chunk budget, up to ``SMEM_BLOCK_K_*`` wide, to the
+one-launch kernel `ell_bucket_spmm_smem`.
 
 `ell_spmm_dd` is the fp64-class product (unit ELL or `DdEll`) through the
 double-word gather kernels (`ops.kernels.ell_dd`).
@@ -27,6 +29,7 @@ from .kernels.ell_spmm import (
     SMEM_BLOCK_K_UNIT,
     SMEM_BLOCK_K_VALUED,
     ell_bucket_spmm,
+    ell_bucket_spmm_smem,
     ell_sweep_spmm,
     packed_pair_ok,
 )
@@ -38,7 +41,7 @@ LANES = 128
 # flat entries per launch in the reference (its SMEM scalar-prefetch budget)
 _SMEM_IDX_BUDGET_UNIT = 128 * 1024
 _SMEM_IDX_BUDGET_VALUED = 64 * 1024
-# one launch per bucket through the SMEM-blocked kernel (not ported)
+# one launch per whole bucket past the chunk budget (`ell_bucket_spmm_smem`)
 USE_SMEM_PATH = False
 # merge packed width-class chunks into multi-part sweep launches
 USE_SWEEP = True
@@ -165,10 +168,11 @@ def _seg_parts(ell: EllMatrix, Xseg, rids, parts):
             rids.append(torch.cat(rid_l))
             continue
         if mode == "smem":
-            raise NotImplementedError(
-                "USE_SMEM_PATH: the SMEM-blocked gather kernel "
-                "(ell_bucket_spmm_smem) is not ported yet"
-            )
+            # the whole bucket in one launch, over plain columns
+            parts.append(ell_bucket_spmm_smem(b.cols, b.vals, Xseg,
+                                              unit=unit))
+            rids.append(b.row_ids)
+            continue
         row_ids, cols, vals, packed = _slice_chunk(b, ell, s0, s1, n_pad)
         parts.append(ell_bucket_spmm(cols, vals, Xseg, unit=unit,
                                      packed=packed))

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "fs_mono_group": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     "fs_ell_bucket": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     "fs_ell_sweep": (_P,) * 6 + (_I, _I, _P),
+    "fs_ell_smem": (_P,) * 4 + (_I,) * 5 + (_P,),
     "fs_densecols": (_P,) * 4 + (_I,) * 4 + (_P,),
     "fs_bucket_spmm": (_P,) * 4 + (_I,) * 10 + (_P,),
     "fs_panel_spmm": (_P,) * 4 + (_I,) * 9 + (_P,),

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the f32 ELL gather engine.
 //
-// Two kernels, each the CUDA counterpart of one Pallas TPU kernel in
+// Three kernels, each the CUDA counterpart of one Pallas TPU kernel in
 // fastsparse/ops/pallas/ell_spmm.py:
 //
 //   fs_ell_bucket  <- ell_bucket_spmm   one ELL bucket:
@@ -11,6 +11,11 @@
 //   fs_ell_sweep   <- ell_sweep_spmm    packed unit gather over several
 //                                       width classes in one launch, rows
 //                                       in sub-part order
+//   fs_ell_smem    <- ell_bucket_spmm_smem  one whole bucket in one launch
+//                                       (_body_smem): the chunked order at
+//                                       any width, each row group's
+//                                       indices (and values) staged in
+//                                       shared memory
 //
 // Every launcher takes raw device pointers, sizes and a cudaStream_t, runs
 // on that stream, allocates nothing and returns cudaGetLastError() so the
@@ -48,6 +53,20 @@
 // the add (explicit _rn intrinsics, and the library is built with
 // --fmad=false). The accumulators start at +0, which gives the reference's
 // values up to the sign of a zero result.
+//
+// fs_ell_smem (the TPU kernel's (1, G, K) SMEM index blocks): one block
+// owns R = 256 / TPR bucket rows (a multiple of the TPU's 8-row group) and
+// one lane range. It walks K in slices of KS entries (a multiple of KB, so
+// slices end on chunk boundaries): the block copies the R rows' slice of
+// indices, and of values in valued mode, into shared memory with
+// coalesced loads, then every thread adds the slice's chunk sums into its
+// running output in chunk order, exactly _body_smem's order (which is the
+// chunked body's: the output starts at +0 and every chunk's sum is added,
+// so a zero result is +0 as in the reference). Whole-K staging would not
+// fit: K = 4096 valued or 8192 unit is 256 KB for 8 rows, over the 227 KB
+// a block may hold. Row stride in shared memory is KS + 1 words, so at
+// N = 1 (a thread per row) a warp's 32 rows read 32 different banks.
+// Bound: bytes, as fs_ell_bucket.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +75,8 @@ namespace {
 
 constexpr int ELL_THREADS = 256;
 constexpr int SWEEP_MAX_PARTS = 128;
+// staged index words (and value words) per fs_ell_smem block: 20 KB each
+constexpr int SMEM_STAGE_WORDS = 5120;
 
 // the sweep's static part table, passed by value as a grid constant
 struct SweepParts {
@@ -103,28 +124,75 @@ __device__ __forceinline__ void add_entry(float (&acc)[V],
 
 // column of entry e of a row: plain int32, or half of a packed pair
 // (c0 = p & 0xFFFF, c1 = p >> 16 logical)
-template <bool PACKED>
+// (GLOBAL: read through the read-only cache; else a shared-memory copy)
+template <bool PACKED, bool GLOBAL>
 __device__ __forceinline__ int col_at(const int32_t* __restrict__ idx, int e) {
   if constexpr (PACKED) {
-    const uint32_t p = (uint32_t)__ldg(idx + (e >> 1));
+    const uint32_t p = (uint32_t)(GLOBAL ? __ldg(idx + (e >> 1)) : idx[e >> 1]);
     return (e & 1) ? (int)(p >> 16) : (int)(p & 0xFFFFu);
   } else {
-    return __ldg(idx + e);
+    return GLOBAL ? __ldg(idx + e) : idx[e];
   }
 }
 
-template <bool UNIT>
+template <bool UNIT, bool GLOBAL>
 __device__ __forceinline__ float val_at(const float* __restrict__ vals, int e) {
   if constexpr (UNIT) {
     return 1.0f;
   } else {
-    return __ldg(vals + e);
+    return GLOBAL ? __ldg(vals + e) : vals[e];
+  }
+}
+
+// The sum of one KB-entry chunk starting at entry t0, for lanes [col0,
+// col0 + V): entry u into accumulator u % 4, ((a0 + a1) + a2) + a3.
+template <int V, bool UNIT, bool PACKED, bool GLOBAL>
+__device__ __forceinline__ void chunk_sum(const int32_t* __restrict__ idx,
+                                          const float* __restrict__ vals,
+                                          const float* __restrict__ x, int ldx,
+                                          int col0, int t0, int KB,
+                                          float (&s)[V]) {
+  float a0[V], a1[V], a2[V], a3[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) a0[i] = a1[i] = a2[i] = a3[i] = 0.0f;
+  int u = 0;
+  for (; u + 4 <= KB; u += 4) {
+    const int e = t0 + u;
+    const int c0 = col_at<PACKED, GLOBAL>(idx, e);
+    const int c1 = col_at<PACKED, GLOBAL>(idx, e + 1);
+    const int c2 = col_at<PACKED, GLOBAL>(idx, e + 2);
+    const int c3 = col_at<PACKED, GLOBAL>(idx, e + 3);
+    const float v0 = val_at<UNIT, GLOBAL>(vals, e);
+    const float v1 = val_at<UNIT, GLOBAL>(vals, e + 1);
+    const float v2 = val_at<UNIT, GLOBAL>(vals, e + 2);
+    const float v3 = val_at<UNIT, GLOBAL>(vals, e + 3);
+    add_entry<V, UNIT>(a0, x, c0, v0, ldx, col0);
+    add_entry<V, UNIT>(a1, x, c1, v1, ldx, col0);
+    add_entry<V, UNIT>(a2, x, c2, v2, ldx, col0);
+    add_entry<V, UNIT>(a3, x, c3, v3, ldx, col0);
+  }
+  // a chunk length that is not a multiple of 4 keeps its tail
+  if (u < KB) {
+    add_entry<V, UNIT>(a0, x, col_at<PACKED, GLOBAL>(idx, t0 + u),
+                       val_at<UNIT, GLOBAL>(vals, t0 + u), ldx, col0);
+  }
+  if (u + 1 < KB) {
+    add_entry<V, UNIT>(a1, x, col_at<PACKED, GLOBAL>(idx, t0 + u + 1),
+                       val_at<UNIT, GLOBAL>(vals, t0 + u + 1), ldx, col0);
+  }
+  if (u + 2 < KB) {
+    add_entry<V, UNIT>(a2, x, col_at<PACKED, GLOBAL>(idx, t0 + u + 2),
+                       val_at<UNIT, GLOBAL>(vals, t0 + u + 2), ldx, col0);
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    s[i] = __fadd_rn(__fadd_rn(__fadd_rn(a0[i], a1[i]), a2[i]), a3[i]);
   }
 }
 
 // One bucket row's K entries for lanes [col0, col0 + V): chunks of KB
-// entries, four accumulators per chunk. full: store the single chunk's
-// sum; else add each chunk's sum into a zeroed output in order.
+// entries. full: store the single chunk's sum; else add each chunk's sum
+// into a zeroed output in order.
 template <int V, bool UNIT, bool PACKED>
 __device__ __forceinline__ void row_sum(const int32_t* __restrict__ idx,
                                         const float* __restrict__ vals,
@@ -134,43 +202,10 @@ __device__ __forceinline__ void row_sum(const int32_t* __restrict__ idx,
 #pragma unroll
   for (int i = 0; i < V; ++i) o[i] = 0.0f;
   for (int t0 = 0; t0 < K; t0 += KB) {
-    float a0[V], a1[V], a2[V], a3[V];
+    float s[V];
+    chunk_sum<V, UNIT, PACKED, true>(idx, vals, x, ldx, col0, t0, KB, s);
 #pragma unroll
-    for (int i = 0; i < V; ++i) a0[i] = a1[i] = a2[i] = a3[i] = 0.0f;
-    int u = 0;
-    for (; u + 4 <= KB; u += 4) {
-      const int e = t0 + u;
-      const int c0 = col_at<PACKED>(idx, e);
-      const int c1 = col_at<PACKED>(idx, e + 1);
-      const int c2 = col_at<PACKED>(idx, e + 2);
-      const int c3 = col_at<PACKED>(idx, e + 3);
-      const float v0 = val_at<UNIT>(vals, e);
-      const float v1 = val_at<UNIT>(vals, e + 1);
-      const float v2 = val_at<UNIT>(vals, e + 2);
-      const float v3 = val_at<UNIT>(vals, e + 3);
-      add_entry<V, UNIT>(a0, x, c0, v0, ldx, col0);
-      add_entry<V, UNIT>(a1, x, c1, v1, ldx, col0);
-      add_entry<V, UNIT>(a2, x, c2, v2, ldx, col0);
-      add_entry<V, UNIT>(a3, x, c3, v3, ldx, col0);
-    }
-    // a chunk length that is not a multiple of 4 keeps its tail
-    if (u < KB) {
-      add_entry<V, UNIT>(a0, x, col_at<PACKED>(idx, t0 + u),
-                         val_at<UNIT>(vals, t0 + u), ldx, col0);
-    }
-    if (u + 1 < KB) {
-      add_entry<V, UNIT>(a1, x, col_at<PACKED>(idx, t0 + u + 1),
-                         val_at<UNIT>(vals, t0 + u + 1), ldx, col0);
-    }
-    if (u + 2 < KB) {
-      add_entry<V, UNIT>(a2, x, col_at<PACKED>(idx, t0 + u + 2),
-                         val_at<UNIT>(vals, t0 + u + 2), ldx, col0);
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float s = __fadd_rn(__fadd_rn(__fadd_rn(a0[i], a1[i]), a2[i]), a3[i]);
-      o[i] = full ? s : __fadd_rn(o[i], s);
-    }
+    for (int i = 0; i < V; ++i) o[i] = full ? s[i] : __fadd_rn(o[i], s[i]);
   }
 }
 
@@ -208,6 +243,52 @@ ell_sweep_kernel(const int32_t* __restrict__ words, const float* __restrict__ x,
   row_sum<V, true, true>(words + parts.wbase[p] + (size_t)(r - parts.row0[p]) * K2,
                          nullptr, x, ldx, col0, 2 * K2, 2 * K2, true, o);
   store_out<V>(out, (size_t)r * ldx + col0, o);
+}
+
+// One whole bucket (fs_ell_smem): R = ELL_THREADS >> tpr_log2 rows per
+// block, K walked in slices of ks entries staged in shared memory.
+template <int V, bool UNIT>
+__global__ void __launch_bounds__(ELL_THREADS)
+ell_smem_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
+                const float* __restrict__ x, float* __restrict__ out, int nb,
+                int K, int KB, int ks, int ldx, int tpr_log2) {
+  __shared__ int32_t s_idx[SMEM_STAGE_WORDS];
+  __shared__ float s_val[UNIT ? 1 : SMEM_STAGE_WORDS];
+  const int tpr = 1 << tpr_log2;
+  const int rows_blk = ELL_THREADS >> tpr_log2;
+  const int row0 = blockIdx.x * rows_blk;
+  const int lr = threadIdx.x >> tpr_log2;
+  const int r = row0 + lr;
+  const int col0 = (blockIdx.y * tpr + (threadIdx.x & (tpr - 1))) * V;
+  const bool active = r < nb && col0 < ldx;
+  const int nrows = min(rows_blk, nb - row0);
+  float o[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += ks) {
+    const int kw = min(ks, K - k0);  // a multiple of KB
+    const int stride = kw + 1;
+    __syncthreads();  // the previous slice is consumed
+    for (int i = threadIdx.x; i < nrows * kw; i += ELL_THREADS) {
+      const int rr = i / kw;
+      const int kk = i - rr * kw;
+      const size_t g = (size_t)(row0 + rr) * K + k0 + kk;
+      s_idx[rr * stride + kk] = __ldg(idx + g);
+      if constexpr (!UNIT) s_val[rr * stride + kk] = __ldg(vals + g);
+    }
+    __syncthreads();
+    if (active) {
+      const int32_t* ri = s_idx + lr * stride;
+      const float* rv = UNIT ? nullptr : s_val + lr * stride;
+      for (int t0 = 0; t0 < kw; t0 += KB) {
+        float s[V];
+        chunk_sum<V, UNIT, false, false>(ri, rv, x, ldx, col0, t0, KB, s);
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] = __fadd_rn(o[i], s[i]);
+      }
+    }
+  }
+  if (active) store_out<V>(out, (size_t)r * ldx + col0, o);
 }
 
 // lane split: V lanes per thread, TPR = 2^tpr_log2 threads per row
@@ -301,6 +382,38 @@ int fs_ell_sweep(const int32_t* words, const float* x, float* out,
     } else {
       ell_sweep_kernel<1><<<grid, ELL_THREADS, 0, st>>>(words, x, out, parts, ldx,
                                                         s.tpr_log2);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// One whole bucket: idx cols int32 (nb, K); vals f32 (nb, K), unused (may
+// be null) when unit = 1; x f32 (x_rows, ldx); out f32 (nb, ldx). KB
+// divides K; nb is a multiple of 8.
+int fs_ell_smem(const int32_t* idx, const float* vals, const float* x,
+                float* out, int nb, int K, int KB, int unit, int ldx,
+                void* stream) {
+  if (nb > 0 && ldx > 0 && K > 0) {
+    if (KB <= 0 || K % KB) return (int)cudaErrorInvalidValue;
+    const LaneSplit s = lane_split(x, out, ldx);
+    const int rows_per_block = ELL_THREADS >> s.tpr_log2;
+    // slice: the most whole chunks whose rows (stride ks + 1) fit the stage
+    const int ks = ((SMEM_STAGE_WORDS / rows_per_block - 1) / KB) * KB;
+    if (ks <= 0) return (int)cudaErrorInvalidValue;
+    dim3 grid((nb + rows_per_block - 1) / rows_per_block, s.n_col_blocks);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (s.vec4 && unit) {
+      ell_smem_kernel<4, true><<<grid, ELL_THREADS, 0, st>>>(
+          idx, vals, x, out, nb, K, KB, ks, ldx, s.tpr_log2);
+    } else if (s.vec4) {
+      ell_smem_kernel<4, false><<<grid, ELL_THREADS, 0, st>>>(
+          idx, vals, x, out, nb, K, KB, ks, ldx, s.tpr_log2);
+    } else if (unit) {
+      ell_smem_kernel<1, true><<<grid, ELL_THREADS, 0, st>>>(
+          idx, vals, x, out, nb, K, KB, ks, ldx, s.tpr_log2);
+    } else {
+      ell_smem_kernel<1, false><<<grid, ELL_THREADS, 0, st>>>(
+          idx, vals, x, out, nb, K, KB, ks, ldx, s.tpr_log2);
     }
   }
   return (int)cudaGetLastError();

@@ -1,4 +1,5 @@
-"""The two ELL gather kernels: CUDA wrappers and their plain PyTorch twins.
+"""The three f32 ELL gather kernels: CUDA wrappers and their plain PyTorch
+twins.
 
 Counterpart of ``fastsparse/ops/pallas/ell_spmm.py`` (f32 path). On a CUDA
 tensor each public function launches the hand-written sm_90a kernel from
@@ -12,6 +13,8 @@ unroll for ``K <= _FULL_K_MAX`` (over packed column pairs for unit buckets
 that pass `packed_pair_ok`), else chunks of ``_pick_kb(K)`` entries (of
 ``2·KB2`` entries over packed pairs). The constants are the reference's
 layout parameters, kept for parity; they are not limits of this card.
+`ell_bucket_spmm_smem` (one launch per whole bucket) always runs the
+chunked order over plain columns, at every width.
 
 Interface differences from the reference kernels: no ``n_block``. The CUDA
 kernel covers all of X's lanes in one launch, so ``x`` may have any lane
@@ -38,6 +41,8 @@ __all__ = [
     "ell_bucket_spmm_plain",
     "ell_sweep_spmm",
     "ell_sweep_spmm_plain",
+    "ell_bucket_spmm_smem",
+    "ell_bucket_spmm_smem_plain",
 ]
 
 ELL_GROUP = 8  # bucket rows per TPU grid step; bucket heights are multiples
@@ -45,14 +50,15 @@ _N_ACC = 4  # accumulators per row; entry u of a chunk goes to u % 4
 _KB_MAX = 16  # entries per chunk of the chunked bodies
 _FULL_K_MAX = 64  # widths up to this run the whole-row body
 _PACKED_KB_MAX = 32  # packed pairs per chunk of the chunked packed body
-# widths the reference's SMEM-blocked kernel takes (layout parameter of
-# `ops.ell_ops._seg_layout`; that kernel is not ported)
+# widest buckets the reference's SMEM-blocked kernel takes (a layout
+# parameter of `ops.ell_ops._seg_layout`; `ell_bucket_spmm_smem` itself
+# takes any width)
 SMEM_BLOCK_K_UNIT = 8192
 SMEM_BLOCK_K_VALUED = 4096
 _SWEEP_MAX_PARTS = 128  # SWEEP_MAX_PARTS in csrc/ell_spmm.cu
 
 # kernel launches per wrapper (CUDA path only; the plain versions never count)
-launches = {"ell_bucket": 0, "ell_sweep": 0}
+launches = {"ell_bucket": 0, "ell_sweep": 0, "ell_bucket_smem": 0}
 
 
 def reset_launches() -> None:
@@ -237,5 +243,45 @@ def ell_sweep_spmm(flat_words, x, *, parts):
         "ell_sweep", lib.fs_ell_sweep, _ptr(flat_words), _ptr(x), _ptr(out),
         row0.ctypes.data, k2.ctypes.data, wbase.ctypes.data, len(parts),
         x.shape[1], counts=launches,
+    )
+    return out
+
+
+def ell_bucket_spmm_smem_plain(cols, vals, x, *, unit: bool = False):
+    K = cols.shape[1]
+    return _gather_rows(cols, None if unit else vals, x, _pick_kb(K), False)
+
+
+def ell_bucket_spmm_smem(cols, vals, x, *, unit: bool = False):
+    """One whole ELL bucket's ``Y_b = A_b @ X`` in one launch: f32 ``(nb,
+    x.shape[1])``.
+
+    Replaces ``ell_spmm.py:ell_bucket_spmm_smem``. ``cols`` int32 ``(nb,
+    K)`` (plain columns, also in unit mode; padding columns of a unit
+    bucket point at a zero row of ``x``); ``vals`` f32 ``(nb, K)``
+    (ignored when ``unit``); ``x`` f32 ``(nx_rows, N)``. The summation is
+    the reference's ``_body_smem``: chunks of ``_pick_kb(K)`` entries,
+    entry u into accumulator u % 4, each chunk's sum added in order into a
+    zeroed row. For ``K <= 64`` that is not `ell_bucket_spmm`'s whole-row
+    order, so the two differ in their last bits there."""
+    dev = x.device
+    _check("ell_bucket_smem.cols", cols, torch.int32, 2, dev)
+    _check("ell_bucket_smem.x", x, torch.float32, 2)
+    nb, K = cols.shape
+    if nb % ELL_GROUP:
+        raise ValueError(f"ell_bucket_smem: nb={nb} not a multiple of "
+                         f"{ELL_GROUP}")
+    if not unit:
+        _check("ell_bucket_smem.vals", vals, torch.float32, 2, dev)
+        if tuple(vals.shape) != (nb, K):
+            raise ValueError("ell_bucket_smem: vals and cols disagree")
+    lib = _library_for(x)
+    if lib is None:
+        return ell_bucket_spmm_smem_plain(cols, vals, x, unit=unit)
+    out = torch.empty((nb, x.shape[1]), dtype=torch.float32, device=dev)
+    _launch(
+        "ell_bucket_smem", lib.fs_ell_smem, _ptr(cols),
+        None if unit else _ptr(vals), _ptr(x), _ptr(out), nb, K, _pick_kb(K),
+        int(unit), x.shape[1], counts=launches,
     )
     return out

@@ -1,4 +1,5 @@
-"""Multi-RHS SpMM ``Y = A @ X`` (counterpart of ``fastsparse/ops/spmm.py``).
+"""Multi-RHS SpMM ``Y = A @ X`` and ``Y = A.T @ X`` (counterpart of
+``fastsparse/ops/spmm.py``).
 
 Ported: the BsrMatrix branch (mono, class panels, tile buckets), the
 ColSegmented branch (one cross-segment plan, else the sum of the segments'
@@ -6,20 +7,80 @@ products, as the reference dispatches), the EllMatrix / SegmentedEll
 branches (the f32 gather engine; for other dtypes, or an unsegmented X
 panel past the engine's residency budget, the reference's per-bucket scan
 as torch ops), the HybridMatrix branch with its dense tiles and its
-dense-column block (`dense_cols_spmm`, the `densecols_spmm` kernel), and
-`spmm_dd`, the fp64-class product. The reference's COO/CSR scatter
-engines raise `NotImplementedError` (slice 4b).
+dense-column block (`dense_cols_spmm`, the `densecols_spmm` kernel),
+`spmm_dd`, the fp64-class product, and the reference's streaming scatter
+engine for COO/CSR (`_stream_scatter`), which `spmm_t` also runs down the
+columns of COO/CSR and ELL (`ops.spmv` runs both on one column). The
+scatter adds with ``index_add_``: on a CUDA tensor, atomics in no fixed
+order, so those products match the reference within tolerance, not bit
+for bit. Sums of f32 products accumulate in float64 (`_acc_dtype`) and
+round once: an f32 sum in arbitrary order over the ~1,900 entries of
+BASELINE config 2's longest row or column drifts to about 1e-6 of
+max|y|, the bar itself (a numpy replay of that matrix's heaviest rows).
 """
 from __future__ import annotations
 
 import torch
 
 from ..formats.bsr import BsrMatrix
+from ..formats.coo import COO, BinaryCOO
+from ..formats.csr import CSR, BinaryCSR
 from ..formats.ell import EllMatrix, SegmentedEll
 from ..formats.hybrid import HybridMatrix
 from ..formats.segmented import ColSegmented
 
-__all__ = ["spmm", "spmm_dd", "dense_cols_spmm", "densecols_planes"]
+__all__ = ["spmm", "spmm_t", "spmm_dd", "dense_cols_spmm",
+           "densecols_planes"]
+
+# bytes of the gathered (chunk, N) intermediate per scatter step: at N=128
+# an f32 product on 4M nonzeros would otherwise gather 2 GB at once
+_CHUNK_BYTES = 256 * 1024 * 1024
+
+
+def _acc_dtype(dt):
+    """The scatter's accumulation dtype for products of dtype ``dt``."""
+    return torch.float64 if dt in (torch.float32, torch.bfloat16,
+                                   torch.float16) else dt
+
+
+def _coo_like(mat):
+    """(rows, cols, vals) of a COO/CSR's live entries, vals None for binary
+    matrices. Padding is trailing by definition (``valid_mask`` is ``k <
+    n_valid``), so the engines skip it where the reference masks it: the
+    same sums, without the padding's atomics on row 0."""
+    n = mat.n_valid
+    if isinstance(mat, (COO, CSR)):
+        return mat.rows[:n], mat.cols[:n], mat.vals[:n]
+    if isinstance(mat, (BinaryCOO, BinaryCSR)):
+        return mat.rows[:n], mat.cols[:n], None
+    raise TypeError(f"unsupported format {type(mat).__name__}")
+
+
+def _scatter_add(acc, tgt, src, vals, X):
+    """``acc[tgt[k]] += vals[k]·X[src[k]]`` (unit values when None; each
+    product in X's dtype, added in acc's), in chunks whose gathered rows
+    stay within ``_CHUNK_BYTES`` (the reference scans fixed chunks of
+    32,768 entries, a static shape for ``lax.scan``; the sum is the
+    same)."""
+    n = int(tgt.shape[0])
+    step = max(1, _CHUNK_BYTES // max(X.shape[1] * 8, 1))
+    for k0 in range(0, n, step):
+        k1 = min(k0 + step, n)
+        g = X[src[k0:k1].long()]
+        if vals is not None:
+            g = vals[k0:k1, None] * g
+        acc.index_add_(0, tgt[k0:k1].long(), g.to(acc.dtype))
+    return acc
+
+
+def _stream_scatter(rows, cols, vals, X, n_out):
+    """``Y[n_out, N]``, ``Y[rows[k]] += vals[k]·X[cols[k]]`` (binary: vals
+    None), in the promoted dtype of the values and ``X``."""
+    dt = X.dtype if vals is None else torch.promote_types(vals.dtype, X.dtype)
+    acc = torch.zeros((n_out, X.shape[1]), dtype=_acc_dtype(dt),
+                      device=X.device)
+    return _scatter_add(acc, rows, cols, None if vals is None else vals.to(dt),
+                        X.to(dt)).to(dt)
 
 
 def _ell_dtype(A, X):
@@ -126,9 +187,42 @@ def spmm(A, X):
         for off, seg in zip(A.col_offsets, A.segments):
             Y = Y + spmm(seg, X[off : off + seg.shape[1]])
         return Y
-    raise NotImplementedError(
-        f"spmm over {type(A).__name__} is not ported yet (slice 4b)"
-    )
+    rows, cols, vals = _coo_like(A)
+    return _stream_scatter(rows, cols, vals, X, A.shape[0])
+
+
+def spmm_t(A, X):
+    """``Y = A.T @ X``. ``X``: dtype[nrow, N] -> dtype[ncol, N]. The
+    scatter engine: prefer the transpose tiling on a hot path."""
+    if isinstance(A, (BsrMatrix, ColSegmented, HybridMatrix)):
+        raise TypeError(
+            "tiled formats have no transpose-scatter path; build the dual "
+            "tiling via fastsparse_torch.operator(..., transpose=True) "
+            "instead"
+        )
+    if isinstance(A, SegmentedEll):
+        Y = torch.zeros((A.shape[1], X.shape[1]), dtype=X.dtype,
+                        device=X.device)
+        for off, seg in zip(A.col_offsets, A.segments):
+            Y[off : off + seg.shape[1]] += spmm_t(seg, X)
+        return Y
+    if isinstance(A, EllMatrix):
+        # every bucket slot scatters its row of X to its column; one spare
+        # row takes the binary sentinel column (ncol), which the
+        # reference's scatter drops as out of range
+        ncol = A.shape[1]
+        dt = _ell_dtype(A, X)
+        X = X.to(dt)
+        acc = torch.zeros((ncol + 1, X.shape[1]), dtype=_acc_dtype(dt),
+                          device=X.device)
+        for b in A.buckets:
+            K = b.cols.shape[1]
+            _scatter_add(acc, b.cols.reshape(-1),
+                         b.row_ids.repeat_interleave(K),
+                         b.vals.to(dt).reshape(-1), X)
+        return acc[:ncol].to(dt)
+    rows, cols, vals = _coo_like(A)
+    return _stream_scatter(cols, rows, vals, X, A.shape[1])
 
 
 def spmm_dd(A, X):

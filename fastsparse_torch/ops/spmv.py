@@ -1,4 +1,5 @@
-"""SpMV ``y = A @ x`` (counterpart of ``fastsparse/ops/spmv.py``).
+"""SpMV ``y = A @ x`` and ``y = A.T @ x`` (counterpart of
+``fastsparse/ops/spmv.py``).
 
 Ported: the BsrMatrix branch (the `bucket_spmv` kernel for tile buckets,
 a one-column product for panel layouts), the ColSegmented branch (the
@@ -10,7 +11,9 @@ costs the same at N=1); the port takes that dispatch on every device: the
 CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor. ELL
 of other dtypes (f64), or past the engine's residency budget, runs the
 reference's per-bucket gather, row sum and ``index_add_`` as torch ops.
-The COO/CSR engines raise `NotImplementedError` (slice 4b).
+COO/CSR (valued or binary) and `spmv_t` (COO/CSR, EllMatrix,
+SegmentedEll; the tiled formats refuse it, as in the reference) run the
+scatter engine of `ops.spmm` on one column.
 """
 from __future__ import annotations
 
@@ -20,8 +23,12 @@ from ..formats.bsr import BsrMatrix
 from ..formats.ell import EllMatrix, SegmentedEll
 from ..formats.hybrid import HybridMatrix
 from ..formats.segmented import ColSegmented
+from .spmm import (
+    _bucket_cols, _coo_like, _ell_dtype, _stream_scatter, dense_cols_spmm,
+    spmm_t,
+)
 
-__all__ = ["spmv"]
+__all__ = ["spmv", "spmv_t"]
 
 
 def spmv(A, x):
@@ -33,8 +40,6 @@ def spmv(A, x):
         if A.sparse is not None:
             y = y + spmv(A.sparse, x)
         if A.dense_cols is not None:
-            from .spmm import dense_cols_spmm
-
             y = y + dense_cols_spmm(A.dense_cols, x[:, None])[:, 0]
         return y
     if isinstance(A, ColSegmented):
@@ -53,7 +58,6 @@ def spmv(A, x):
         return bsr_spmv(A, x)
     if isinstance(A, (EllMatrix, SegmentedEll)):
         from .ell_ops import ell_spmm, gather_engine_fits, gather_engine_supported
-        from .spmm import _bucket_cols, _ell_dtype
 
         seg_ncol = A.seg_cols if isinstance(A, SegmentedEll) else A.shape[1]
         dt = _ell_dtype(A, x)
@@ -70,6 +74,12 @@ def spmv(A, x):
             contrib = (b.vals.to(dt) * x[_bucket_cols(b, A.shape[1])]).sum(1)
             y.index_add_(0, b.row_ids.long(), contrib)
         return y
-    raise NotImplementedError(
-        f"spmv over {type(A).__name__} is not ported yet (slice 4b)"
-    )
+    rows, cols, vals = _coo_like(A)
+    return _stream_scatter(rows, cols, vals, x[:, None], A.shape[0])[:, 0]
+
+
+def spmv_t(A, x):
+    """``y = A.T @ x``. ``x``: dtype[nrow] -> dtype[ncol]: `spmm_t` on one
+    column (the scatter engine; prefer the transpose tiling,
+    `operator(..., transpose=True)`, on a hot path)."""
+    return spmm_t(A, x[:, None])[:, 0]

@@ -190,8 +190,8 @@ def tilepack_perms(coo, base: str = "minhash", rounds: int = 2,
 
 def _hilbert_host(rows, cols, shape):
     nrow, ncol = shape
-    hi, lo = hilbert_key64(rows, cols)
-    key = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    hi, lo = (k.numpy().astype(np.uint64) for k in hilbert_key64(rows, cols))
+    key = (hi << np.uint64(32)) | lo
     order = np.argsort(key, kind="stable")
 
     def first_appear(stream, n):

@@ -5,11 +5,13 @@ only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors (colmax, quant3, densecols, every ELL gather body and both
-double-word gathers bit-exact, the mono and tile-layout kernels at
-max|d|/max|ref| <= 1e-6, the tile kernels at tile_k up to 2048), and
-operator products against scipy in float64 (the fp64-class products at
-1e-10).
+tensors (colmax, quant3, densecols, every ELL gather body, the
+one-launch-per-bucket gather and both double-word gathers bit-exact, the
+mono and tile-layout kernels at max|d|/max|ref| <= 1e-6, the tile kernels
+at tile_k up to 2048), and operator products against scipy in float64
+(the fp64-class products at 1e-10). The scatter engines (``index_add_``:
+atomics in no fixed order) are held to 1e-6 (f32) and 1e-10 (f64), and
+`sort_coo` on the card to its CPU result.
 """
 import numpy as np
 import pytest
@@ -233,6 +235,82 @@ def test_ell_operator_on_card_vs_scipy(card, fmt):
     assert np.abs(z - ref).max() <= 1e-6 * np.abs(ref).max()
     # the valued layout runs bucket chunks, the binary one packed sweeps
     assert ek.launches["ell_bucket" if fmt == "auto" else "ell_sweep"] > 0
+
+
+# (K, unit) of the one-launch gather #11: chunks of 12, 10 and 16 entries,
+# and the SMEM_BLOCK_K caps (valued 4096, unit 8192)
+SMEM_WIDTHS = [(12, False), (12, True), (40, False), (40, True),
+               (64, False), (64, True), (4096, False), (8192, True)]
+
+
+@pytest.mark.parametrize("N", [1, 8, 33, 128])
+@pytest.mark.parametrize("K,unit", SMEM_WIDTHS)
+def test_ell_smem_kernel_matches_plain(card, K, unit, N):
+    # 2,056 rows: not a multiple of the 256 (N=1) or 128 (N=8) rows a block
+    # takes; 33 lanes take the one-lane path
+    nb = 2056 if K <= 64 else 40
+    cols, vals, x = _ell_inputs(K, N, seed=K + N, nb=nb)
+    ek.reset_launches()
+    yk = ek.ell_bucket_spmm_smem(cols, vals, x, unit=unit)
+    torch.cuda.synchronize()
+    assert ek.launches["ell_bucket_smem"] == 1
+    yp = ek.ell_bucket_spmm_smem_plain(cols, vals, x, unit=unit)
+    assert yk.shape == (nb, N) and torch.equal(yk, yp)
+
+
+def test_ell_smem_operator_on_card_vs_scipy(card, monkeypatch):
+    """USE_SMEM_PATH on: an operator built under the flag (its plan keyed
+    by it) launches #11 for every bucket past the budget."""
+    from fastsparse_torch.ops import ell_ops
+
+    monkeypatch.setattr(ell_ops, "USE_SMEM_PATH", True)
+    monkeypatch.setattr(ell_ops, "_SMEM_IDX_BUDGET_VALUED", 4096)
+    m = ft.bench.matrices.powerlaw(3000, 3000, 60_000, seed=1)
+    op = ft.operator(m, format="ell", device=card)
+    assert "smem" in {mo for _, mo, *_ in ell_ops._seg_layout(op.fwd)}
+    md = m.astype(np.float64)
+    ek.reset_launches()
+    for N in (1, 16, 128):
+        X = np.random.default_rng(N).standard_normal(
+            (m.shape[1], N)).astype(np.float32)
+        Y = op.matmat(torch.from_numpy(X).cuda()).cpu().numpy()
+        ref = md @ X.astype(np.float64)
+        assert np.abs(Y - ref).max() <= 1e-6 * np.abs(ref).max()
+    assert ek.launches["ell_bucket_smem"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("binary", [False, True])
+def test_scatter_products_on_card_vs_scipy(card, binary, dtype):
+    """spmv/spmv_t/spmm/spmm_t over a padded COO, its CSR and an ELL on
+    CUDA tensors; `sort_coo` on the card equals its CPU result."""
+    m = ft.bench.matrices.powerlaw(3000, 2500, 40_000, seed=3,
+                                   binary=binary)
+    m = m.astype(np.float32 if dtype == torch.float32 else np.float64)
+    mk = ft.binary_coo_from_scipy if binary else ft.coo_from_scipy
+    coo = mk(m, device=card).pad_to(1 << 16)
+    tol = 1e-6 if dtype == torch.float32 else 1e-10
+    md = m.astype(np.float64)
+    g = np.random.default_rng(4)
+    x, y = g.standard_normal(m.shape[1]), g.standard_normal(m.shape[0])
+    X, Y = (g.standard_normal((m.shape[1], 16)),
+            g.standard_normal((m.shape[0], 16)))
+    cases = {"spmv": (x, md @ x), "spmv_t": (y, md.T @ y),
+             "spmm": (X, md @ X), "spmm_t": (Y, md.T @ Y)}
+    ell = ft.build_ell(coo, device=card)
+    for A in (coo, ft.to_csr(coo), ell):
+        for name, (v, ref) in cases.items():
+            if A is ell and not name.endswith("_t"):
+                continue  # the gather engine's products are held above
+            got = getattr(ft, name)(A, torch.from_numpy(v).to(card, dtype))
+            assert got.is_cuda and got.dtype == dtype, name
+            got = got.cpu().numpy()
+            assert np.abs(got - ref).max() <= tol * np.abs(ref).max(), name
+    cpu = mk(m, device="cpu").pad_to(1 << 16)
+    for order in ("hilbert", "row"):
+        a, b = ft.sort_coo(coo, order), ft.sort_coo(cpu, order)
+        assert torch.equal(a.rows.cpu(), b.rows)
+        assert torch.equal(a.cols.cpu(), b.cols)
 
 
 @pytest.mark.parametrize("N", [1, 3, 32, 128, 256])

@@ -172,8 +172,11 @@ def test_unported_options_raise():
         ft.operator(m, format="bsr", device="cpu",
                     config=ft.Config(binary_tiles="bitmask"))
     op = ft.operator(m, format="bsr", device="cpu")
-    with pytest.raises(NotImplementedError):
-        op.matmat(X.double())
+    # ported since: an f64 operand runs the COO engine, as in the reference
+    Y = op.matmat(X.double())
+    assert Y.dtype == torch.float64
+    ref = m.astype(np.float64) @ X.double().numpy()
+    assert np.abs(Y.numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
     with pytest.raises(NotImplementedError):
         op.matmat(X.bfloat16())
     # valued matrices build f32 panels, whose products are not ported

@@ -106,7 +106,7 @@ def test_normal_and_gram_chains(ops, N):
     rng = np.random.default_rng(10 + N)
     X = rng.standard_normal((m.shape[1], N)).astype(np.float32)
     Xt = torch.from_numpy(X)
-    assert op_t._mono_chainable()
+    assert op_t._mono_chainable(Xt)
     if N == 1:
         got = op_t.normal_matvec(Xt[:, 0], reg=0.5).numpy()
         ref_j = np.asarray(op_j.normal_matvec(jnp.asarray(X[:, 0]), reg=0.5))

@@ -596,8 +596,15 @@ def test_unported_tile_modes_raise():
     with pytest.raises(NotImplementedError, match="slice 3b"):
         tt.bucket_spmm(A.buckets[0].slab_ids, A.buckets[0].tiles,
                        torch.zeros((768, 256)), n_block=128, planes=2)
+    # ported since: an f64 operand runs the COO engine, as in the reference
+    Xd = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (m.shape[1], 4)))
+    ref = m.astype(np.float64) @ Xd.numpy()
+    Y = ft.spmm(A, Xd)
+    assert Y.dtype == torch.float64
+    assert np.abs(Y.numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
     with pytest.raises(NotImplementedError):
-        ft.spmm(A, X.double())
+        ft.spmm(A, X.bfloat16())
     b = tbsr.build_bsr(ct, panels=True, device="cpu").buckets[0]
     with pytest.raises(NotImplementedError, match="slice 3b"):
         tt.panel_spmm(b.start_slab, b.panels, torch.zeros((768, 384),
