@@ -63,7 +63,16 @@ config A's and config B's operators) and phase 12 after phase 10:
    bucket_spmm on the transpose tiling's largest segment (narrow N=32,
    planes N=128), bucket_spmv on that segment and on config B's tile
    segment, each at max|d|/max|ref| <= 1e-6, timed beside its plain
-   version, its bound and cuSPARSE's product of the same segment. Then a
+   version, its bound and cuSPARSE's product of the same segment; first a
+   line with the card's L2 read rate (a ~10 MB L2-resident buffer read by
+   torch.sum and a GEMV, by device time) and one with the host cost of
+   reading the stream handle (the public Stream object against the raw
+   handle the launchers read). For #5 and #6 each set is also timed with
+   its outputs concatenated (the span the first tile-kernel runs timed),
+   cuSPARSE is timed on the device clock too, and a diagnostic line gives
+   the ratios on each clock and the X bytes the tensor-core body requests
+   (the live columns' rows; every column's beside them; worked out from
+   the tiles, not counted by the card) over its device time. Then a
    ``tile_k=512`` tile-BSR product (a scattered 0/1 matrix through
    ``operator(m, format="bsr", config=Config(tile_m=8, tile_k=512))``)
    on the card against the same layout's product by the plain versions
@@ -205,9 +214,11 @@ def bound(nbytes, ops, ops_per_s):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def compare(name, kern, plain, exact, args, kwargs, time_cuda, quick=False):
+def compare(name, kern, plain, exact, args, kwargs, time_cuda, quick=False,
+            timed=None):
     """A kernel against its plain version on the same card tensors, both
-    timed with CUDA events; returns (result dict, kernel output)."""
+    timed with CUDA events (``timed``: the (kernel, plain) callables to
+    time in their place); returns (result dict, kernel output)."""
     import torch
 
     yk = kern(*args, **kwargs)
@@ -224,10 +235,12 @@ def compare(name, kern, plain, exact, args, kwargs, time_cuda, quick=False):
         check(torch.equal(yk, yp), f"{name}: not bit-exact (max|d|={d})")
     else:
         check(rel <= REL_TOL, f"{name}: rel {rel} > {REL_TOL}")
-    tk = time_cuda(lambda: kern(*args, **kwargs))
+    tkern, tplain = timed or (lambda: kern(*args, **kwargs),
+                              lambda: plain(*args, **kwargs))
+    tk = time_cuda(tkern)
     # the plain versions loop in Python over entries: fewer repetitions
     slow = dict(reps=2, batches=3, warmup=1) if quick else {}
-    tp = time_cuda(lambda: plain(*args, **kwargs), **slow)
+    tp = time_cuda(tplain, **slow)
     print(f"kernel {name}: max_abs_err={d!r} rel={rel!r} "
           f"ms={tk['min_ms']!r} plain_ms={tp['min_ms']!r}", flush=True)
     return {"max_abs_err": d, "rel": rel, "ms": tk["min_ms"],
@@ -868,28 +881,132 @@ def tile_builds(ft, mE, mB):
     return opF, opT, opB
 
 
+def l2_read_rate():
+    """The card's L2 read rate in TB/s: a ~10 MB buffer, resident in L2,
+    read by torch.sum and by a cuBLAS GEMV; bytes over each one's device
+    time (torch.profiler), the faster of the two."""
+    import torch
+
+    buf = torch.randn(2560, 1024, device="cuda")
+    v = torch.randn(1024, device="cuda")
+    nbytes = buf.numel() * buf.element_size()
+    rates = {}
+    for name, fn in (("sum", lambda _: buf.sum()),
+                     ("gemv", lambda _: torch.mv(buf, v))):
+        busy, _ = device_busy_ms(fn, None, n=50)
+        rates[name] = None if not busy else nbytes / (busy * 1e-3) / 1e12
+    best = max((r for r in rates.values() if r), default=None)
+    print(f"L2 read rate: {best!r} TB/s (reads of a {nbytes} B L2-resident "
+          f"buffer by device time: {rates})", flush=True)
+    return best
+
+
+def live_x_rows(blocks, row_chunk=8, col_chunk=128):
+    """X rows the tensor-core body reads for tiles or panels ``blocks``
+    (..., TM, KW): per 8-row chunk and 128-column chunk, the columns
+    nonzero in some row (a chunk's dropped columns are zero in all)."""
+    import torch.nn.functional as F
+
+    TM, KW = blocks.shape[-2:]
+    b = (blocks != 0).reshape(-1, TM, KW)
+    b = F.pad(b, (0, -KW % col_chunk, 0, -TM % row_chunk))
+    b = b.reshape(b.shape[0], -1, row_chunk, b.shape[2] // col_chunk,
+                  col_chunk)
+    return int(b.any(dim=2).sum())
+
+
+def stream_handle_us(n=20_000):
+    """Host µs per read of the current stream's handle: through the public
+    Stream object, and raw as the kernel launchers read it."""
+    import torch
+
+    dev = torch.cuda.current_device()
+    out = {}
+    for name, fn in (
+            ("public", lambda: torch.cuda.current_stream().cuda_stream),
+            ("raw", lambda: torch._C._cuda_getCurrentRawStream(dev))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+    print(f"stream handle host us per read: public {out['public']!r}, raw "
+          f"{out['raw']!r}", flush=True)
+    return out
+
+
+def tile_set_diag(name, r, n_launch, stream_us, live_rows, all_rows,
+                  row_bytes):
+    """A diagnostic line for a #5/#6 set: its ratio to cuSPARSE by event
+    time, by event time with the concatenation (PR 5's span), that plus
+    the public stream reads PR 5's launches made (host µs per read from
+    `stream_handle_us` times the launches), and by device time against
+    cuSPARSE's device time; and the X bytes the tensor-core body requests
+    (worked out from the tiles: not L2 traffic, which no counter read
+    here) over its device time."""
+    lib, lib_dev, dev = r["library_ms"], r["library_device_ms"], r["device_ms"]
+    trim_ms = n_launch * (stream_us["public"] - stream_us["raw"]) * 1e-3
+    x_bytes = live_rows * row_bytes
+    rate = None if not dev else x_bytes / (dev * 1e-3) / 1e12
+    print(f"  {name}: event ms {r['ms']!r}, with cat {r['ms_with_cat']!r}; "
+          f"vs cuSPARSE: event {r['ms'] / lib!r}x, event with cat "
+          f"{r['ms_with_cat'] / lib!r}x, with cat and public stream reads "
+          f"{(r['ms_with_cat'] + trim_ms) / lib!r}x, device "
+          f"{None if not (dev and lib_dev) else dev / lib_dev!r}x "
+          f"(cuSPARSE device_ms {lib_dev!r}); X bytes requested {x_bytes} "
+          f"(all columns {all_rows * row_bytes}) over device time "
+          f"{rate!r} TB/s", flush=True)
+
+
 def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
     """The three tile kernels against their plain versions at the main
-    path's shapes, each timed beside its bound and cuSPARSE."""
+    path's shapes, each timed beside its bound and cuSPARSE; for #5 and #6
+    also on the device clock against cuSPARSE's, with the X bytes they
+    request beside the card's L2 read rate."""
     import numpy as np
     import torch
 
     from fastsparse_torch.ops import bsr_ops as bo
 
     g = np.random.default_rng(17)
+    l2_read_rate()
+    stream_us = stream_handle_us()
     res = {}
 
-    def run_set(name, fn, plain_fn, calls, quick=True):
-        """One product's launches of a kernel against the plain version;
-        beside the event time (which includes the wrappers' host work),
-        the device time of the launches under torch.profiler."""
-        kern = lambda *_: torch.cat([fn(*c) for c in calls])  # noqa: E731
-        r = compare(name, kern,
-                    lambda: torch.cat([plain_fn(*c) for c in calls]),
-                    False, (), {}, time_cuda, quick)[0]
-        busy, top = device_busy_ms(kern, None)
-        r["device_ms"] = None if busy is None else sum(
-            t for t, key in top if "_kernel" in key and "spm" in key)
+    def run_set(name, fn, plain_fn, calls, library=None):
+        """One product's launches of a kernel against the plain version
+        (their outputs concatenated to compare, not while timed); beside
+        the event time (which includes the wrappers' host work), the
+        device time of the launches under torch.profiler (profiled up to
+        twice more if the profiler saw no device time). With ``library`` (a
+        callable): cuSPARSE's event and device times, and the set timed
+        with and without the concatenation in three alternating rounds
+        (the host's pace drifts between calls), each the least of its
+        rounds."""
+        kern = lambda *_: [fn(*c) for c in calls]  # noqa: E731
+        plain = lambda: [plain_fn(*c) for c in calls]  # noqa: E731
+        cat = lambda: torch.cat(kern())  # noqa: E731
+        r = compare(name, cat, lambda: torch.cat(plain()), False, (), {},
+                    time_cuda, True, timed=(kern, plain))[0]
+
+        def busy_of(f, keys=None):
+            for _ in range(3):
+                busy, top = device_busy_ms(f, None)
+                if busy is not None:
+                    return busy if keys is None else sum(
+                        t for t, key in top if any(k in key for k in keys))
+            return None
+
+        r["device_ms"] = busy_of(kern, ("spmv_kernel", "tile_mma_kernel",
+                                        "_scalar_kernel"))
+        if library is not None:
+            r["library_ms"] = library_ms(library, time_cuda)
+            r["library_device_ms"] = busy_of(lambda _: library())
+            with_cat = []
+            for _ in range(3):
+                r["ms"] = min(r["ms"], time_cuda(kern)["min_ms"])
+                with_cat.append(time_cuda(cat)["min_ms"])
+            r["ms_with_cat"] = min(with_cat)
         return r
 
     # panel_spmm on the ECFP forward segments: one global X, windowed
@@ -902,6 +1019,9 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
            for b, s0, s1, _ in bo._bsr_layout(S)]
     pan_bytes = sum(p.numel() for _, p, _ in pan)
     pan_rows = sum(p.shape[0] * p.shape[1] for _, p, _ in pan)
+    pan_live = sum(live_x_rows(p) for _, p, _ in pan)
+    pan_all = sum(p.shape[0] * -(-p.shape[1] // 8) * p.shape[2]
+                  for _, p, _ in pan)
     modes = {}
     for N in (32, 128, 256):
         X = torch.from_numpy(g.standard_normal(
@@ -917,16 +1037,17 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
             return f(st, pn, Xg, tile_k=128, fold=fold, row_base=rb)
 
         r = run_set(f"panel_spmm[N={N}]", fn,
-                    lambda *c: fn(*c, plain=True), pan)
+                    lambda *c: fn(*c, plain=True), pan,
+                    library=lambda: torch.sparse.mm(D_csr, X))
         r.update(bound(pan_bytes + Xg.numel() * Xg.element_size()
                        + pan_rows * Xg.shape[1] * 4, 6 * D.nnz * N,
                        BF16_OPS_PER_S))
-        r["library_ms"] = library_ms(lambda: torch.sparse.mm(D_csr, X),
-                                     time_cuda)
         r["shape"] = [len(pan), pan_rows, N]
         print(f"  panel_spmm N={N}: {len(pan)} launches, device_ms="
               f"{r['device_ms']!r} bound_ms={r['bound_ms']!r} "
               f"({r['bound_by']}) cuSPARSE {r['library_ms']!r}", flush=True)
+        tile_set_diag(f"panel_spmm N={N}", r, len(pan), stream_us, pan_live,
+                      pan_all, Xg.shape[1] * Xg.element_size())
         modes[f"N={N}"] = r
     row = dict(modes["N=128"])
     row["max_abs_err"] = max(v["max_abs_err"] for v in modes.values())
@@ -941,6 +1062,9 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
              for b, s0, s1, _ in bo._bsr_layout(S)]
     t_bytes = sum(t.numel() * 2 for _, t in tiles)
     t_rows = sum(t.shape[0] * t.shape[2] for _, t in tiles)
+    t_live = sum(live_x_rows(t) for _, t in tiles)
+    t_all = sum(t.shape[0] * t.shape[1] * -(-t.shape[2] // 8) * t.shape[3]
+                for _, t in tiles)
     modes = {}
     for N in (32, 128):
         X = torch.from_numpy(g.standard_normal(
@@ -956,16 +1080,18 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
             lambda sl, t: TT.bucket_spmm(sl, t, Xp, n_block=128,
                                          planes=planes),
             lambda sl, t: TT.bucket_spmm_plain(sl, t, Xp, n_block=128,
-                                               planes=planes), tiles)
+                                               planes=planes), tiles,
+            library=lambda: torch.sparse.mm(S_csr, X))
         r.update(bound(t_bytes + Xp.numel() * 2 + t_rows * 128 * 4,
                        6 * S.nnz * N, BF16_OPS_PER_S))
-        r["library_ms"] = library_ms(lambda: torch.sparse.mm(S_csr, X),
-                                     time_cuda)
         r["shape"] = [len(tiles), S.padded_tiles, N]
         print(f"  bucket_spmm N={N}: {len(tiles)} launches over "
-              f"{S.padded_tiles} padded tiles, device_ms={r['device_ms']!r} "
-              f"bound_ms={r['bound_ms']!r} ({r['bound_by']}) cuSPARSE "
-              f"{r['library_ms']!r}", flush=True)
+              f"{S.padded_tiles} padded tiles "
+              f"({[tuple(t.shape[:2]) for _, t in tiles]}), device_ms="
+              f"{r['device_ms']!r} bound_ms={r['bound_ms']!r} "
+              f"({r['bound_by']}) cuSPARSE {r['library_ms']!r}", flush=True)
+        tile_set_diag(f"bucket_spmm N={N}", r, len(tiles), stream_us, t_live,
+                      t_all, Xp.shape[1] * 2)
         modes[f"N={N}"] = r
     row = dict(modes["N=128"])
     row["max_abs_err"] = max(v["max_abs_err"] for v in modes.values())

@@ -78,9 +78,17 @@ def _check(name, t, dtype, ndim, device=None):
 def _launch(name, fn, *args, counts=launches):
     """Call one C launcher on the current stream; raise on a refused
     launch (a refused launch never runs, and a synchronize would not
-    report it). Counts the launch in ``counts[name]``."""
-    stream = torch.cuda.current_stream().cuda_stream
+    report it). Counts the launch in ``counts[name]``. The stream handle
+    is read raw (``current_stream().cuda_stream`` without the Stream
+    object): a few µs of host time per launch that the tile kernels' short
+    launches feel. A launcher returns -1 for a shape its body does not
+    take, before any launch: that raises `NotImplementedError`."""
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = fn(*args, stream)
+    if rc == -1:
+        raise NotImplementedError(
+            f"{name}: the kernel's body does not take this shape (see its "
+            "launcher's shape rules)")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     counts[name] += 1

@@ -11,6 +11,19 @@ tensor it runs the ``*_plain`` version: the same plane arithmetic in eager
 torch ops (dots in float64, each plane's dot rounded to f32, the planes
 summed in the kernels' order), which is also the on-card oracle.
 
+`bucket_spmm` and `panel_spmm` have two bodies on the card, and each mode
+goes to exactly one of them:
+
+* the tensor-core body (bf16 ``mma.sync``, live tile columns only) takes
+  the exact-bf16 modes: bucket ``planes=3`` and ``planes=1`` with bf16 X,
+  panel ``fold="f32"`` (int8 or bf16 panels, f32 X split in the kernel)
+  and the narrow panels (int8 or bf16 panels, bf16 X). Its launcher
+  (``launch_mma`` in ``csrc/bsr_tiles.cu``) holds its shape rules and
+  refuses other shapes before any launch, which raises
+  `NotImplementedError`;
+* the scalar f32 body takes the f32-valued modes: f32 tiles or panels × f32
+  X and bf16 tiles × f32 X.
+
 The kernels sum in another order than the TPU's MXU and the plain
 versions; their bar against the plain versions is max|d|/max|ref| <= 1e-6.
 
@@ -44,6 +57,16 @@ launches = {"bucket_spmm": 0, "panel_spmm": 0, "bucket_spmv": 0}
 # f64 working set per chunk of the plain versions
 _PLAIN_CHUNK_BYTES = 256 * 2**20
 _DTYPE_CODE = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# (tile, x dtype, planes) and (panel, x dtype, fold) modes with a body
+_BUCKET_MODES = frozenset({(torch.bfloat16, torch.bfloat16, 3),
+                           (torch.bfloat16, torch.bfloat16, 1),
+                           (torch.float32, torch.float32, 1),
+                           (torch.bfloat16, torch.float32, 1)})
+_PANEL_MODES = frozenset({(torch.int8, torch.float32, "f32"),
+                          (torch.bfloat16, torch.float32, "f32"),
+                          (torch.int8, torch.bfloat16, False),
+                          (torch.bfloat16, torch.bfloat16, False),
+                          (torch.float32, torch.float32, False)})
 
 
 def reset_launches() -> None:
@@ -102,10 +125,10 @@ def bucket_spmm(slab_ids, tiles, x, *, n_block, planes):
       and bf16 ``x`` ``(K, 3·Npad)`` holding the three mantissa-split X
       planes per ``n_block``-wide block, ``[x0_j | x1_j | x2_j]``. Each
       plane's sum over all the strip's tiles is kept apart and the three
-      are added after the tile loop, (p0 + p1) + p2.
+      are added after the tile loop, (p0 + p1) + p2. Tensor-core body.
     * ``planes=1`` (`_spmm_resident_body`): ``Σ_t tile_t @ x[slab_t]``,
-      bf16 tiles × bf16 narrow planes, or f32 tiles (or bf16 ones promoted)
-      × f32 ``x``.
+      bf16 tiles × bf16 narrow planes (tensor-core body), or f32 tiles (or
+      bf16 ones promoted) × f32 ``x`` (scalar body).
 
     Strip slot ``i``'s tile ``t`` reads ``x`` rows ``slab_ids[i, t]·TK``
     on. Every product of bf16 operands is exact in f32."""
@@ -115,11 +138,7 @@ def bucket_spmm(slab_ids, tiles, x, *, n_block, planes):
         raise TypeError("bucket_spmm.tiles: expected (ns, T, TM, TK) tiles")
     ns, T, TM, TK = tiles.shape
     xc = x.shape[1]
-    combos = {(torch.bfloat16, torch.bfloat16, 3),
-              (torch.bfloat16, torch.bfloat16, 1),
-              (torch.float32, torch.float32, 1),
-              (torch.bfloat16, torch.float32, 1)}
-    if (tiles.dtype, x.dtype, planes) not in combos:
+    if (tiles.dtype, x.dtype, planes) not in _BUCKET_MODES:
         raise NotImplementedError(
             f"bucket_spmm over {tiles.dtype} tiles, {x.dtype} X, "
             f"planes={planes}: the bitmask and planes_k bodies are slice 3b"
@@ -177,9 +196,9 @@ def panel_spmm(start_slab, panels, x, *, tile_k, fold, row_base=0):
 
     * ``fold="f32"``: int8 (or bf16) panels, f32 ``x``; each X value is
       split in-kernel into three bf16 planes by round-to-nearest casts, and
-      the three dots are added (d0 + d1) + d2.
-    * ``fold=False``: int8/bf16 panels × bf16 narrow planes, or f32 panels
-      × f32 ``x``: one dot.
+      the three dots are added (d0 + d1) + d2. Tensor-core body.
+    * ``fold=False``: int8/bf16 panels × bf16 narrow planes (tensor-core
+      body), or f32 panels × f32 ``x`` (scalar body): one dot.
 
     The pre-split fold (``fold=True``) and bitmask panels are slice 3b."""
     dev = x.device
@@ -187,12 +206,7 @@ def panel_spmm(start_slab, panels, x, *, tile_k, fold, row_base=0):
     if not isinstance(panels, torch.Tensor) or panels.ndim != 3:
         raise TypeError("panel_spmm.panels: expected (ns, TM, PK) panels")
     ns, TM, PK = panels.shape
-    combos = {(torch.int8, torch.float32, "f32"),
-              (torch.bfloat16, torch.float32, "f32"),
-              (torch.int8, torch.bfloat16, False),
-              (torch.bfloat16, torch.bfloat16, False),
-              (torch.float32, torch.float32, False)}
-    if (panels.dtype, x.dtype, fold) not in combos:
+    if (panels.dtype, x.dtype, fold) not in _PANEL_MODES:
         raise NotImplementedError(
             f"panel_spmm over {panels.dtype} panels, {x.dtype} X, "
             f"fold={fold!r}: the pre-split fold and bitmask panels are "

@@ -8,7 +8,8 @@ Each kernel is held against its plain PyTorch version on the same card
 tensors (colmax, quant3, densecols, every ELL gather body, the
 one-launch-per-bucket gather and both double-word gathers bit-exact, the
 mono and tile-layout kernels at max|d|/max|ref| <= 1e-6, the tile kernels
-at tile_k up to 2048), and operator products against scipy in float64
+at tile_k up to 2048 and on strips of up to 70 tiles, each tile mode on
+the body it belongs to), and operator products against scipy in float64
 (the fp64-class products at 1e-10). The scatter engines (``index_add_``:
 atomics in no fixed order) are held to 1e-6 (f32) and 1e-10 (f64), and
 `sort_coo` on the card to its CPU result.
@@ -389,26 +390,39 @@ BUCKET_MODES = {
 }
 
 
-def _tile_bucket(g, ns, T, TM, TK=128, n_slabs=20, dtype=torch.bfloat16):
-    """A ragged bucket: random 0/1 (or f32) tiles, the last slots all-zero
-    padding at slab 0, as the builder pads."""
+def _tile_bucket(g, ns, T, TM, TK=128, n_slabs=20, dtype=torch.bfloat16,
+                 n_pad=2):
+    """A ragged bucket: random 0/1 (or f32) tiles with about half their
+    columns empty (the tensor-core body skips those), the last ``n_pad``
+    slots all-zero padding at slab 0, as `build_bsr` pads."""
     slab = g.integers(0, n_slabs, (ns, T)).astype(np.int32)
     tiles = (g.random((ns, T, TM, TK)) < 0.3).astype(np.float32)
+    tiles *= g.random((ns, T, 1, TK)) < 0.5
     if dtype == torch.float32:
         tiles *= g.standard_normal(tiles.shape).astype(np.float32)
-    slab[-2:] = 0
-    tiles[-2:] = 0.0
+    slab[-n_pad:] = 0
+    tiles[-n_pad:] = 0.0
     return (torch.from_numpy(slab).cuda(),
             torch.from_numpy(tiles).to(dtype).cuda())
 
 
+# (ns, T, Npad): a ragged bucket two column blocks wide; a strip of 70
+# tiles (the summation length); a bucket of three strips (the CTA's warps
+# split each strip's tile loop)
+BUCKET_SHAPES = {"ragged": (13, 3, 256), "long": (2, 70, 128),
+                 "few": (3, 5, 128)}
+
+
+@pytest.mark.parametrize("shape", sorted(BUCKET_SHAPES))
 @pytest.mark.parametrize("TM", [8, 20])
 @pytest.mark.parametrize("mode", sorted(BUCKET_MODES))
-def test_bucket_spmm_kernel_matches_plain(card, mode, TM):
+def test_bucket_spmm_kernel_matches_plain(card, mode, TM, shape):
     tdt, xdt, planes = BUCKET_MODES[mode]
-    g = np.random.default_rng(TM)
-    slab, tiles = _tile_bucket(g, ns=13, T=3, TM=TM, dtype=tdt)
-    nb, Npad = 128, 256
+    ns, T, Npad = BUCKET_SHAPES[shape]
+    n_pad = 2 if ns > 4 else 1
+    g = np.random.default_rng(TM + T)
+    slab, tiles = _tile_bucket(g, ns=ns, T=T, TM=TM, dtype=tdt, n_pad=n_pad)
+    nb = 128
     x = torch.from_numpy(g.standard_normal(
         (20 * 128, planes * Npad)).astype(np.float32)).to(xdt).cuda()
     tt.reset_launches()
@@ -416,8 +430,9 @@ def test_bucket_spmm_kernel_matches_plain(card, mode, TM):
     torch.cuda.synchronize()
     assert tt.launches["bucket_spmm"] == 1
     yp = tt.bucket_spmm_plain(slab, tiles, x, n_block=nb, planes=planes)
-    assert yk.shape == (13 * TM, Npad) and _rel(yk, yp) <= 1e-6
-    assert torch.equal(yk[-2 * TM:], torch.zeros_like(yk[-2 * TM:]))
+    assert yk.shape == (ns * TM, Npad) and _rel(yk, yp) <= 1e-6
+    pad = yk[-n_pad * TM:]
+    assert torch.equal(pad, torch.zeros_like(pad))
 
 
 # (panel dtype, x dtype, fold)
@@ -430,19 +445,24 @@ PANEL_MODES = {
 }
 
 
+@pytest.mark.parametrize("TM", [8, 20])
 @pytest.mark.parametrize("row_base", [0, 1280])
 @pytest.mark.parametrize("mode", sorted(PANEL_MODES))
-def test_panel_spmm_kernel_matches_plain(card, mode, row_base):
+def test_panel_spmm_kernel_matches_plain(card, mode, row_base, TM):
+    """Windowed X (``row_base``); fold "f32" at 256 f32 lanes (two column
+    blocks) for TM 8 and 384 for TM 20; the last panel all zero."""
     pdt, xdt, fold = PANEL_MODES[mode]
-    g = np.random.default_rng(7)
-    ns, TM, W = 11, 8, 3
+    g = np.random.default_rng(7 + TM)
+    ns, W = 11, 3
     start = torch.from_numpy(
         g.integers(0, 10 - W + 1, ns).astype(np.int32)).cuda()
     pan = (g.random((ns, TM, W * 128)) < 0.3).astype(np.float32)
+    pan *= g.random((ns, 1, W * 128)) < 0.5
+    pan[-1] = 0.0
     if pdt == torch.float32:
         pan *= g.standard_normal(pan.shape).astype(np.float32)
     pan = torch.from_numpy(pan).to(pdt).cuda()
-    lanes = 384 if fold == "f32" else 128
+    lanes = (256 if TM == 8 else 384) if fold == "f32" else 128
     x = torch.from_numpy(g.standard_normal(
         (2560, lanes)).astype(np.float32)).to(xdt).cuda()
     kw = dict(tile_k=128, fold=fold, row_base=row_base)
@@ -452,6 +472,57 @@ def test_panel_spmm_kernel_matches_plain(card, mode, row_base):
     assert tt.launches["panel_spmm"] == 1
     yp = tt.panel_spmm_plain(start, pan, x, **kw)
     assert yk.shape == (ns * TM, lanes) and _rel(yk, yp) <= 1e-6
+    assert torch.equal(yk[-TM:], torch.zeros_like(yk[-TM:]))
+
+
+def _kernel_names(fn, tries=3):
+    """Names of the CUDA kernels ``fn`` launches (torch.profiler). The
+    profiler now and then delivers a run's launch calls without their
+    device activity records: then it profiles ``fn`` again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        names = [e.key for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if names:
+            return " ".join(names)
+    return " ".join(e.key for e in events)
+
+
+def test_tile_kernels_pick_one_body(card):
+    """Each exact-bf16 mode runs the tensor-core body and each f32-valued
+    mode the scalar body, and each matches its plain version."""
+    g = np.random.default_rng(11)
+    for mode, (tdt, xdt, planes) in BUCKET_MODES.items():
+        slab, tiles = _tile_bucket(g, ns=9, T=4, TM=8, dtype=tdt)
+        x = torch.from_numpy(g.standard_normal(
+            (20 * 128, planes * 128)).astype(np.float32)).to(xdt).cuda()
+        kw = dict(n_block=128, planes=planes)
+        names = _kernel_names(lambda: tt.bucket_spmm(slab, tiles, x, **kw))
+        want = "tile_mma_kernel" if xdt == torch.bfloat16 else "bucket_scalar"
+        assert want in names and ("scalar" in names) == (
+            want == "bucket_scalar"), (mode, names)
+        assert _rel(tt.bucket_spmm(slab, tiles, x, **kw),
+                    tt.bucket_spmm_plain(slab, tiles, x, **kw)) <= 1e-6
+    start = torch.from_numpy(g.integers(0, 8, 9).astype(np.int32)).cuda()
+    for mode, (pdt, xdt, fold) in PANEL_MODES.items():
+        pan = (g.random((9, 8, 256)) < 0.3).astype(np.float32)
+        if pdt == torch.float32:
+            pan *= g.standard_normal(pan.shape).astype(np.float32)
+        pan = torch.from_numpy(pan).to(pdt).cuda()
+        x = torch.from_numpy(g.standard_normal(
+            (1280, 128)).astype(np.float32)).to(xdt).cuda()
+        kw = dict(tile_k=128, fold=fold)
+        names = _kernel_names(lambda: tt.panel_spmm(start, pan, x, **kw))
+        want = "tile_mma_kernel" if pdt != torch.float32 else "panel_scalar"
+        assert want in names and ("scalar" in names) == (
+            want == "panel_scalar"), (mode, names)
+        assert _rel(tt.panel_spmm(start, pan, x, **kw),
+                    tt.panel_spmm_plain(start, pan, x, **kw)) <= 1e-6
 
 
 @pytest.mark.parametrize("TM", [8, 20])
@@ -480,6 +551,9 @@ def test_tile_kernels_raise_rather_than_fall_back(card):
     with pytest.raises(NotImplementedError):  # no such body
         tt.bucket_spmm(slab, tiles, x[:, :128].contiguous().float(),
                        n_block=128, planes=3)
+    with pytest.raises(NotImplementedError):  # plane blocks of 32 lanes
+        tt.bucket_spmm(slab, tiles, x[:, :96].contiguous(), n_block=32,
+                       planes=3)
     assert tt.launches["bucket_spmm"] == 0
 
 
@@ -529,12 +603,16 @@ def _scattered01(g, nrow, ncol, nnz):
     return m.tocsr()
 
 
-@pytest.mark.parametrize("panels", [False, True])
+@pytest.mark.parametrize("kind", ["bucket_planes", "bucket_narrow",
+                                  "bucket_f32x", "panel_f32",
+                                  "panel_narrow"])
 @pytest.mark.parametrize("tile_k", [512, 2048])
-def test_tile_kernels_any_tile_k(card, tile_k, panels):
+def test_tile_kernels_any_tile_k(card, tile_k, kind):
     """bucket_spmm (tile buckets) and panel_spmm (class panels, forced by
-    build_bsr's ``panels=``) at tile_k 512 and 2048, against their plain
-    versions on the built layout's arrays."""
+    build_bsr's ``panels=``) at tile_k 512 and 2048 in each tensor-core
+    mode and in the scalar body's bf16 tiles × f32 X (its K-chunk loop),
+    against their plain versions on the built layout's arrays."""
+    panels = kind.startswith("panel")
     g = np.random.default_rng(tile_k)
     m = _scattered01(g, 64, 4 * tile_k, 3000)
     A = tbsr.build_bsr(ft.binary_coo_from_scipy(m, device=card),
@@ -542,16 +620,24 @@ def test_tile_kernels_any_tile_k(card, tile_k, panels):
                                         bsr_mono="off"),
                        panels=panels, device=card)
     assert A.is_panel == panels and A.tile_k == tile_k and A.buckets
-    X = torch.from_numpy(g.standard_normal(
-        (A.n_slabs * tile_k, 128)).astype(np.float32)).cuda()
+    K = A.n_slabs * tile_k
+    X = torch.from_numpy(g.standard_normal((K, 128)).astype(np.float32)).cuda()
+    if kind == "bucket_planes":
+        X, kw = bsr_ops._stack_planes(X, 128, 128), dict(n_block=128, planes=3)
+    elif kind == "panel_f32":
+        kw = dict(tile_k=tile_k, fold="f32")
+    elif kind == "bucket_f32x":
+        kw = dict(n_block=128, planes=1)
+    else:
+        X = bsr_ops._pack_narrow_planes(X[:, :32], K, 32)
+        kw = (dict(tile_k=tile_k, fold=False) if panels
+              else dict(n_block=128, planes=1))
     tt.reset_launches()
     for b in A.buckets:
         if panels:
-            kw = dict(tile_k=tile_k, fold="f32")
             yk = tt.panel_spmm(b.start_slab, b.panels, X, **kw)
             yp = tt.panel_spmm_plain(b.start_slab, b.panels, X, **kw)
         else:
-            kw = dict(n_block=128, planes=1)
             yk = tt.bucket_spmm(b.slab_ids, b.tiles, X, **kw)
             yp = tt.bucket_spmm_plain(b.slab_ids, b.tiles, X, **kw)
         torch.cuda.synchronize()
