@@ -13,8 +13,11 @@ config A's and config B's operators) and phase 12 after phase 10:
 1. mono kernel phase: calls each mono-path kernel's wrapper on the card at
    the shapes the headline product gives it (banded 50,000 x 50,000,
    bandwidth 512, density 0.39, 0/1 values, N=128; SpMV; N=32) and holds it
-   against its plain PyTorch version on the same tensors: colmax and quant3
-   exactly, the mono kernels at max|d|/max|ref| <= 1e-6.
+   against its plain PyTorch version on the same tensors: colmax, quant3
+   (K-major planes) and mono_panel (i8w N=128, narrow N=32) exactly,
+   mono_group at max|d|/max|ref| <= 1e-6. mono_panel must run the s8
+   tensor-core engine in both modes (by kernel name, torch.profiler);
+   cuSPARSE's product is timed at N=128 and N=32.
 2. mono main-path phase: with every launch count set to 0, ``operator(m,
    format="bsr", transpose=True, device="cuda")`` products through the
    public API: matmat at N=128 and matvec on the headline matrix,
@@ -23,6 +26,8 @@ config A's and config B's operators) and phase 12 after phase 10:
    product within max|d|/max|ref| < 1e-6 of scipy in float64; the CG
    residual, recomputed in float64, must fall below the initial one and
    agree with the reported one to 1e-3. Every mono kernel must launch.
+   Then matmat N=128, SpMV, matmat N=32 and normal_matmat timed by CUDA
+   events and by device busy time (torch.profiler), with the top kernels.
 3. ELL kernel phase: each mode of the two gather kernels against its
    plain version, bit-exact, at the main path's shapes: ell_bucket valued
    whole-row on config A's largest bucket at N=128 and at N=1, packed unit
@@ -42,7 +47,11 @@ config A's and config B's operators) and phase 12 after phase 10:
    (``ecfp_like(50_000, 20_000, 64, 400, seed=2)``) through ``operator(m)``
    (format="auto" -> hybrid: a dense-column block beside the gather
    engine, both tilings); the densecols kernel against its plain version
-   on the forward block at N = 1, 32, 128, 256, bit-exact.
+   on the forward block at N = 1, 32, 128, 256, bit-exact;
+   ``torch._int_mm`` timed beside it (at N=1 on planes zero-padded to 8
+   columns). Which body runs is checked by kernel name before phase 1
+   (the s8 engine at N >= 32, the mma.sync body at N=1, on a block of the
+   same shape and density, bit-exact too).
 6. hybrid main-path phase: with the counts set to 0, ECFP matmat at N =
    32, 128, 256, matvec and rmatmat N=32, each within 1e-6 of scipy f64;
    the Macau inner step (``rhs = op.rmatmat(R)``, ``cg_normal(op, rhs,
@@ -63,7 +72,8 @@ config A's and config B's operators) and phase 12 after phase 10:
    bucket_spmm on the transpose tiling's largest segment (narrow N=32,
    planes N=128), bucket_spmv on that segment and on config B's tile
    segment, each at max|d|/max|ref| <= 1e-6, timed beside its plain
-   version, its bound and cuSPARSE's product of the same segment; first a
+   version, its bound and cuSPARSE's product of the same segment (on the
+   device clock too, for all three); first a
    line with the card's L2 read rate (a ~10 MB L2-resident buffer read by
    torch.sum and a GEMV, by device time) and one with the host cost of
    reading the stream handle (the public Stream object against the raw
@@ -129,8 +139,9 @@ Every kernel is timed with CUDA events (min of batches) beside its plain
 version, the least time the card could take for the same work (bytes over
 3.35 TB/s or operations over the type's peak, whichever is larger) and,
 where one PyTorch call computes the same function, that call's time. It
-prints the card's name and power limit, a JSON line of per-kernel results
-and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
+prints the card's name and power limit, the ptxas report (registers,
+spills) and dynamic shared memory of the s8 engine's bodies, a JSON line
+of per-kernel results and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without a CUDA device, or without the
 ``fastsparse_torch`` package beside it, it exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -247,6 +258,79 @@ def compare(name, kern, plain, exact, args, kwargs, time_cuda, quick=False,
             "plain_ms": tp["min_ms"]}, yk
 
 
+def kernel_names(fn, tries=3):
+    """Names of the CUDA kernels ``fn()`` launches (torch.profiler, host and
+    device activities, as `device_busy_ms` traces; the profiler now and
+    then gives launch calls without device records: then it profiles
+    again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):  # records of a lone launch can be lost
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if names:
+            return " ".join(names)
+    return ""
+
+
+def check_body(name, fn, want, other):
+    """``fn`` must run the kernel named ``want`` and not ``other``."""
+    names = kernel_names(fn)
+    check(want in names and other not in names,
+          f"{name}: expected body {want}, profiler saw: {names[:300]}")
+    print(f"  {name}: body {want}", flush=True)
+
+
+def engine_report(lib, ptxas_report):
+    """ptxas's registers and spills of each s8 engine body and the dynamic
+    shared memory its launch asks for."""
+    import ctypes
+
+    for kern, lines in ptxas_report("s8_engine_kernel").items():
+        tmpl = kern.split("s8_engine_kernel", 1)[1].split("EEEv", 1)[0]
+        src = "densecols_spmm.cu" if "densecols" in kern else "bsr_spmm.cu"
+        print(f"ptxas s8_engine_kernel{tmpl} ({src}): {' | '.join(lines)}",
+              flush=True)
+    for bn, planes, nwg in ((64, 3, 2), (64, 3, 1), (128, 1, 2), (96, 1, 2),
+                            (64, 1, 2), (32, 1, 2)):
+        st = ctypes.c_int(0)
+        smem = lib.fs_s8_engine_smem(bn, planes, nwg, ctypes.byref(st))
+        print(f"s8 engine B {planes}x{bn} rows, {nwg} consumer warpgroups: "
+              f"{st.value} stages, {smem} B dynamic shared memory",
+              flush=True)
+
+
+def engine_body_phase(K):
+    """Before the other phases (the profiler has dropped device records
+    late in a run): densecols on a 0/1 block of the ECFP forward block's
+    shape and density (50,176 x 5,376, 0.57 %) runs the s8 engine at N =
+    32, 128, 256 and the mma.sync body at N=1, each bit-exact."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    block = (torch.rand((50_176, 5_376), device="cuda", generator=gen)
+             < 0.0057).to(torch.int8)
+    for N in (1, 32, 128, 256):
+        q3t = torch.randint(-128, 128, (3 * N, 5_376), device="cuda",
+                            generator=gen, dtype=torch.int8)
+        s = torch.rand((1, N), device="cuda", generator=gen) * 1e-5 + 1e-7
+        bodies = ("s8_engine_kernel", "densecols_kernel")
+        check_body(f"densecols[N={N}]",
+                   lambda: K.densecols_spmm(block, q3t, s),
+                   *(bodies if N >= 9 else bodies[::-1]))
+        check(torch.equal(K.densecols_spmm(block, q3t, s),
+                          K.densecols_spmm_plain(block, q3t, s)),
+              f"densecols[N={N}] on the ECFP-shaped block: not bit-exact")
+
+
 def library_ms(fn, time_cuda):
     """Time of one PyTorch call computing the same function (a yardstick
     only: the port never calls it)."""
@@ -294,10 +378,13 @@ def mono_kernel_phase(op, mb, X, K, time_cuda):
     panel_kw = dict(tile_m=A.tile_m, tile_k=TK, width=b.width,
                     win_slabs=b.win_slabs, out_rows=out_rows)
     args = (b.window, b.strip_ptr, b.start_rel, b.panels)
+    i8w_kw = dict(panel_kw, n_block=128, fold="i8w", scale=s)
+    check_body("mono_panel[i8w,N=128]",
+               lambda: K.mono_panel_spmm(*args, planes, **i8w_kw),
+               "s8_engine_kernel", "mono_kernel")
     res["mono_panel"], _ = compare(
         "mono_panel[i8w,N=128]", K.mono_panel_spmm, K.mono_panel_spmm_plain,
-        False, args + (planes,),
-        dict(panel_kw, n_block=128, fold="i8w", scale=s), time_cuda,
+        True, args + (planes,), i8w_kw, time_cuda,
     )
     ni, TM, PK = b.panels.shape
     res["mono_panel"].update(bound(
@@ -306,15 +393,30 @@ def mono_kernel_phase(op, mb, X, K, time_cuda):
     # the f32 product the kernel serves, through cuSPARSE
     res["mono_panel"]["library_ms"] = library_ms(
         lambda: torch.sparse.mm(A_csr, X), time_cuda)
+    print(f"  mono_panel i8w N=128: bound_ms={res['mono_panel']['bound_ms']!r}"
+          f" ({res['mono_panel']['bound_by']}) cuSPARSE "
+          f"{res['mono_panel']['library_ms']!r}", flush=True)
     # narrow per-item mode at N=32 (the CG operand width)
     nq = 32
     nb = bsr_ops._round_up(3 * nq, 32)
-    qn, _ = bsr_ops._quant3_narrow(X[:, :nq], K_pad, nq, nb)
+    qn, _ = bsr_ops._quant3_narrow(X[:, :nq], K_pad, nq, nb, kmajor=True)
+    narrow_kw = dict(panel_kw, n_block=nb, fold=False)
+    check_body("mono_panel[narrow,N=32]",
+               lambda: K.mono_panel_spmm(*args, qn, **narrow_kw),
+               "s8_engine_kernel", "mono_kernel")
     narrow, _ = compare(
         "mono_panel[narrow,N=32]", K.mono_panel_spmm,
-        K.mono_panel_spmm_plain, False, args + (qn,),
-        dict(panel_kw, n_block=nb, fold=False), time_cuda,
+        K.mono_panel_spmm_plain, True, args + (qn,), narrow_kw, time_cuda,
     )
+    narrow.update(bound(
+        b.panels.numel() + qn.numel() + out_rows * nb * 4 + 3 * 4 * ni,
+        2 * ni * TM * PK * nb, INT8_OPS_PER_S))
+    X32 = X[:, :nq].contiguous()
+    narrow["library_ms"] = library_ms(lambda: torch.sparse.mm(A_csr, X32),
+                                      time_cuda)
+    print(f"  mono_panel narrow N=32: bound_ms={narrow['bound_ms']!r} "
+          f"({narrow['bound_by']}) cuSPARSE {narrow['library_ms']!r}",
+          flush=True)
     res["mono_panel"].update({f"narrow_{k}": v for k, v in narrow.items()})
     # halo engine at SpMV width (nq=8)
     h = A.narrow
@@ -649,13 +751,16 @@ def densecols_kernel_phase(K, opE, time_cuda):
         nrow, D = block.shape
         r.update(bound(block.numel() + q3t.numel() + N * 4 + nrow * N * 4,
                        2 * nrow * D * 3 * N, INT8_OPS_PER_S))
-        if (3 * N) % 8 == 0:
-            q3_cm = q3t.t()  # (D, 3N) column-major: cuBLASLt's B layout
-            r["library_ms"] = library_ms(lambda: torch._int_mm(block, q3_cm),
-                                         time_cuda)
-            r["library"] = "torch._int_mm (s8 GEMM, no fold)"
-        else:
-            r["library_ms"] = None
+        q3p = q3t
+        if (3 * N) % 8:  # cuBLASLt's s8 GEMM wants 8-column multiples
+            q3p = torch.zeros((-(-3 * N // 8) * 8, q3t.shape[1]),
+                              dtype=torch.int8, device=q3t.device)
+            q3p[: 3 * N] = q3t
+        q3_cm = q3p.t()  # (D, 3N) column-major: cuBLASLt's B layout
+        r["library_ms"] = library_ms(lambda: torch._int_mm(block, q3_cm),
+                                     time_cuda)
+        r["library"] = (f"torch._int_mm (s8 GEMM, no fold, {q3p.shape[0]} "
+                        "plane columns)")
         r["shape"] = [nrow, D, N]
         print(f"  densecols N={N}: bound_ms={r['bound_ms']!r} "
               f"({r['bound_by']}) library_ms={r['library_ms']!r}", flush=True)
@@ -1108,19 +1213,21 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
             S.n_slabs, S.tile_k)
         parts = [(b.slab_ids[s0:s1], b.tiles[s0:s1], xp)
                  for b, s0, s1, _ in bo._bsr_layout(S)]
+        x1 = x[:, None].contiguous()
         r = run_set(f"bucket_spmv[{name}]", TT.bucket_spmv,
-                    TT.bucket_spmv_plain, parts)
+                    TT.bucket_spmv_plain, parts,
+                    library=lambda: torch.sparse.mm(S_csr, x1))
         nb = sum(t.numel() * t.element_size() for _, t, _ in parts)
         out = sum(t.shape[0] * t.shape[2] for _, t, _ in parts)
         r.update(bound(nb + xp.numel() * 4 + out * 4, 2 * S.nnz,
                        F32_OPS_PER_S))
-        x1 = x[:, None].contiguous()
-        r["library_ms"] = library_ms(lambda: torch.sparse.mm(S_csr, x1),
-                                     time_cuda)
         r["shape"] = [len(parts), S.padded_tiles]
+        dev, lib_dev = r["device_ms"], r["library_device_ms"]
         print(f"  bucket_spmv {name}: {len(parts)} launches, device_ms="
-              f"{r['device_ms']!r} bound_ms={r['bound_ms']!r} "
-              f"({r['bound_by']}) cuSPARSE {r['library_ms']!r}", flush=True)
+              f"{dev!r} bound_ms={r['bound_ms']!r} ({r['bound_by']}) "
+              f"cuSPARSE {r['library_ms']!r}, device_ms {lib_dev!r}; device "
+              f"ratio {None if not (dev and lib_dev) else dev / lib_dev!r}x",
+              flush=True)
         modes[name] = r
     row = dict(modes["ecfp bwd"])
     row["max_abs_err"] = max(v["max_abs_err"] for v in modes.values())
@@ -1772,7 +1879,11 @@ def main() -> int:
     from fastsparse_torch.ops.kernels import bsr_tiles as TT
     from fastsparse_torch.ops.kernels import ell_dd as DK
     from fastsparse_torch.ops.kernels import ell_spmm as EK
-    from fastsparse_torch.ops.kernels._build import build_seconds, load_library
+    from fastsparse_torch.ops.kernels._build import (
+        build_seconds,
+        load_library,
+        ptxas_report,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1780,9 +1891,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    load_library()
+    lib = load_library()
     print(f"kernel build: {build_seconds()!r} s (load {time.perf_counter() - t0!r} s)",
           flush=True)
+    engine_report(lib, ptxas_report)
+    engine_body_phase(K)
 
     # headline operator (bench.py's matrix), dual tilings on the card
     t0 = time.perf_counter()
@@ -1867,15 +1980,16 @@ def main() -> int:
 
     # ---- per-product times (after the counted run)
     t_mm = time_cuda(op.matmat, X)
-    t_mv = time_cuda(op.matvec, x)
-    t_nm = time_cuda(lambda Z: op2.normal_matmat(Z, reg=0.1), X2)
     print(f"ms/product matmat N=128 (headline): min={t_mm['min_ms']!r} "
           f"median={t_mm['median_ms']!r}  Gnnz/s={mb.nnz / t_mm['min_ms'] / 1e6!r}",
           flush=True)
-    print(f"ms/product SpMV (headline): min={t_mv['min_ms']!r} "
-          f"median={t_mv['median_ms']!r}", flush=True)
-    print(f"ms/product normal_matmat N=128 (entry 12288): "
-          f"min={t_nm['min_ms']!r} median={t_nm['median_ms']!r}", flush=True)
+    time_products({
+        "headline matmat N=128": (op.matmat, X),
+        "headline SpMV": (op.matvec, x),
+        "headline matmat N=32": (op.matmat, X[:, :32].contiguous()),
+        "normal_matmat N=128 (entry 12288)": (
+            lambda Z: op2.normal_matmat(Z, reg=0.1), X2),
+    }, time_cuda, (K,))
     del op2, X2, Y2, B, sol
 
     # ---- the ELL gather engine: config A (BASELINE config 2), config B

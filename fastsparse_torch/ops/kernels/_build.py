@@ -5,7 +5,9 @@ process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds, not minutes, and needs no ``ninja``). The library lands in ``fastsparse_torch/_build/`` under a name
 keyed on a hash of the sources and flags, so an edited source is rebuilt
-and a stale library is never loaded. A failed build raises.
+and a stale library is never loaded. A failed build raises. ptxas reports
+each kernel's registers, spills and static shared memory (``-Xptxas -v``);
+`ptxas_report` returns what this process's build printed.
 """
 from __future__ import annotations
 
@@ -18,13 +20,13 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_seconds"]
+__all__ = ["load_library", "build_seconds", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "--fmad=false",
+    "-O3", "-std=c++17", "--fmad=false", "-Xptxas=-v",
     "-Xcompiler", "-fPIC",
 )
 
@@ -35,13 +37,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fs_colmax": (_P, _I, _I, _P, _P),
     "fs_quant3": (_P, _P, _I, _I, _I, _P, _P),
-    "fs_mono_panel": (_P, _P, _P, _P, _P, _P, _P)
-    + (_I,) * 9 + (_P,),
+    "fs_mono_panel": (_P,) * 7 + (_I,) * 11 + (_P,),
     "fs_mono_group": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     "fs_ell_bucket": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     "fs_ell_sweep": (_P,) * 6 + (_I, _I, _P),
     "fs_ell_smem": (_P,) * 4 + (_I,) * 5 + (_P,),
     "fs_densecols": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "fs_s8_engine_smem": (_I, _I, _I, _P),
     "fs_bucket_spmm": (_P,) * 4 + (_I,) * 10 + (_P,),
     "fs_panel_spmm": (_P,) * 4 + (_I,) * 9 + (_P,),
     "fs_bucket_spmv": (_P,) * 4 + (_I,) * 5 + (_P,),
@@ -49,6 +51,7 @@ _SIGNATURES = {
 }
 
 _build_seconds = 0.0
+_ptxas = {}
 
 
 def _nvcc() -> str:
@@ -87,7 +90,7 @@ def _library_path() -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raise on failure."""
-    global _build_seconds
+    global _build_seconds, _ptxas
     out = _library_path()
     if not out.exists():
         t0 = time.perf_counter()
@@ -106,6 +109,8 @@ def load_library() -> ctypes.CDLL:
         for p, so, se in results:
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({p.returncode}):\n{so}\n{se}")
+        _ptxas = {obj.stem.rsplit(".", 1)[-1]: se
+                  for obj, (_, _, se) in zip(objs, results)}
         _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
         for obj in objs:
             obj.unlink()
@@ -122,3 +127,20 @@ def load_library() -> ctypes.CDLL:
 def build_seconds() -> float:
     """Seconds the nvcc build took in this process (0 if it was cached)."""
     return _build_seconds
+
+
+def ptxas_report(pattern: str = ""):
+    """``{kernel: ptxas lines}`` from this process's build (empty if the
+    library was cached) for the kernels whose mangled name holds
+    ``pattern``: registers, spills, stack and static shared memory."""
+    out = {}
+    for text in _ptxas.values():
+        name = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1] if "'" in line else line
+                continue
+            if name and pattern in name and (
+                    "Used" in line or "spill" in line or "smem" in line):
+                out.setdefault(name, []).append(line.strip())
+    return out

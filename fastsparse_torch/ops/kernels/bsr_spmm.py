@@ -13,6 +13,10 @@ Interface differences from the reference kernels:
 
 * `colmax` returns ``(1, Npad)``; the Pallas kernel returns ``(8, Npad)``
   with eight equal rows (a TPU sublane tile).
+* `quant3_planes` writes its planes K-major, ``(nj·3·NB, K)``: the
+  transpose of the reference's ``(K, nj·3·NB)``, and `mono_panel_spmm`
+  takes X planes in that layout (the narrow planes too, transposed by the
+  X prep): s8 ``wgmma`` reads B only K-major.
 * `mono_panel_spmm` takes ``strip_ptr`` (item range of each output strip,
   derived from the ascending ``strip_ids``) in place of ``strip_ids`` and
   ``first``: a strip's first item is the one at ``strip_ptr[s]``. The TPU
@@ -81,14 +85,20 @@ def _launch(name, fn, *args, counts=launches):
     report it). Counts the launch in ``counts[name]``. The stream handle
     is read raw (``current_stream().cuda_stream`` without the Stream
     object): a few µs of host time per launch that the tile kernels' short
-    launches feel. A launcher returns -1 for a shape its body does not
-    take, before any launch: that raises `NotImplementedError`."""
+    launches feel. A launcher returns, before any launch, -1 for a shape
+    its body does not take (`NotImplementedError`), and the s8 engine -2
+    for a TMA map `cuTensorMapEncodeTiled` refused and -3 for a ring the
+    card's shared memory cannot hold (`RuntimeError`)."""
     stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = fn(*args, stream)
     if rc == -1:
         raise NotImplementedError(
             f"{name}: the kernel's body does not take this shape (see its "
             "launcher's shape rules)")
+    if rc == -2:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a map")
+    if rc == -3:
+        raise RuntimeError(f"{name}: the TMA ring does not fit shared memory")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     counts[name] += 1
@@ -135,17 +145,20 @@ def quant3_planes_plain(x, sinv, *, n_block: int):
     planes = torch.stack(
         [q.reshape(K, nj, n_block) for q in (q0, q1, q2)], dim=2
     )
-    return planes.reshape(K, nj * 3 * n_block).to(torch.int8)
+    return planes.reshape(K, nj * 3 * n_block).to(torch.int8).t().contiguous()
 
 
 def quant3_planes(x, sinv, *, n_block: int):
     """f32 ``(K, Npad)`` and per-column ``1/scale`` f32 ``(1, Npad)`` ->
-    int8 ``(K, nj·3·NB)`` radix-256 planes, lanes ``[q0_j | q1_j | q2_j]``
-    per ``n_block``-wide block ``j``.
+    int8 ``(nj·3·NB, K)`` radix-256 planes, K-major: row
+    ``j·3·NB + p·NB + c`` is plane ``p`` of column ``j·NB + c`` (the
+    reference's lanes ``[q0_j | q1_j | q2_j]`` per ``n_block``-wide block
+    ``j``, transposed).
 
     Replaces ``bsr_spmm.py:quant3_planes_pallas``: ``i = round(x·sinv)``
     (half to even), ``q2 = ((i+128)&255)-128``, ``i1 = (i-q2)>>8``, and the
-    same carry again for q1 and q0. Bit-exact with the reference."""
+    same carry again for q1 and q0. Bit-exact with the reference's planes
+    transposed."""
     _check("quant3.x", x, torch.float32, 2)
     _check("quant3.sinv", sinv, torch.float32, 2, x.device)
     K, Npad = x.shape
@@ -157,7 +170,7 @@ def quant3_planes(x, sinv, *, n_block: int):
     lib = _library_for(x)
     if lib is None:
         return quant3_planes_plain(x, sinv, n_block=n_block)
-    out = torch.empty((K, 3 * Npad), dtype=torch.int8, device=x.device)
+    out = torch.empty((3 * Npad, K), dtype=torch.int8, device=x.device)
     _launch(
         "quant3_planes", lib.fs_quant3, _ptr(x), _ptr(sinv), K, Npad,
         n_block, _ptr(out),
@@ -203,7 +216,7 @@ def mono_panel_spmm_plain(
         torch.arange(n_strips, device=x.device), counts.long()
     )
     row0 = (window.long() * win_slabs + start_rel.long()) * tile_k
-    d = _item_dots(panels, x, row0)
+    d = _item_dots(panels, x.t(), row0)
     if fold == "i8w":
         d = _fold_i8w(d, scale, n_block)
     n_out = d.shape[2]
@@ -227,15 +240,20 @@ def mono_panel_spmm(
 
     Replaces ``bsr_spmm.py:mono_panel_spmm`` in its two int8 modes:
 
-    * ``fold="i8w"``: ``x`` int8 ``(K, nj·3·NB)`` radix planes and
-      ``scale`` f32 ``(1, Npad)``; one s32 dot per item over all 3·NB
-      lanes of a block, folded ``((d0·65536 + d1·256) + d2)·s``.
-    * ``fold=False``: narrow int8 ``x`` ``(K, nb)``; the raw s32 dot as f32
-      (the radix fold runs outside, `bsr_ops._fold_narrow_q`).
+    * ``fold="i8w"``: ``x`` int8 ``(nj·3·NB, K)`` K-major radix planes (as
+      `quant3_planes` writes them) and ``scale`` f32 ``(1, Npad)``; one s32
+      dot per item over all 3·NB lanes of a block, folded
+      ``((d0·65536 + d1·256) + d2)·s``.
+    * ``fold=False``: narrow int8 ``x`` ``(nb, K)``, K-major; the raw s32
+      dot as f32 (the radix fold runs outside, `bsr_ops._fold_narrow_q`).
 
     Item ``i`` reads X rows from ``(window[i]·win_slabs + start_rel[i])·TK``
     for ``width·TK`` rows; strip ``s`` owns items
-    ``[strip_ptr[s], strip_ptr[s+1])`` and sums them in that order."""
+    ``[strip_ptr[s], strip_ptr[s+1])`` and sums them in that order. On the
+    card, TM >= 64 with ``width·tile_k`` a multiple of 128 runs the s8
+    tensor-core engine (TMA ring + ``wgmma``; narrow lanes of 32, 64, 96 or
+    128, K a multiple of 16 rows, 16-byte aligned operands), other shapes
+    the dp4a body; both are bit-exact with the plain version."""
     if fold not in ("i8w", False):
         raise NotImplementedError(
             f"mono_panel_spmm fold={fold!r}: only 'i8w' and the narrow int8 "
@@ -252,12 +270,13 @@ def mono_panel_spmm(
         raise ValueError("mono_panel: panels/out_rows disagree with tile sizes")
     if strip_ptr.numel() != out_rows // TM + 1 or window.numel() != ni:
         raise ValueError("mono_panel: item arrays disagree with panels")
-    if x.shape[0] % (win_slabs * tile_k):
-        raise ValueError("mono_panel: x rows must be whole X windows")
+    L, K_rows = x.shape  # K-major planes
+    if K_rows % (win_slabs * tile_k):
+        raise ValueError("mono_panel: x must hold whole X windows of rows")
     if fold == "i8w":
         _check("mono_panel.scale", scale, torch.float32, 2, dev)
-        Npad = x.shape[1] // 3
-        if x.shape[1] != 3 * Npad or Npad % n_block or scale.numel() != Npad:
+        Npad = L // 3
+        if L != 3 * Npad or Npad % n_block or scale.numel() != Npad:
             raise ValueError("mono_panel: i8w planes/scale disagree")
     lib = _library_for(x)
     if lib is None:
@@ -266,19 +285,19 @@ def mono_panel_spmm(
             tile_k=tile_k, width=width, win_slabs=win_slabs,
             n_block=n_block, fold=fold, out_rows=out_rows, scale=scale,
         )
-    if PK % 64 or (fold == "i8w" and n_block % 64):
+    if PK % 64 or (fold == "i8w" and n_block % 64) or tile_k % 4:
         raise NotImplementedError(
             "mono_panel CUDA kernel needs width·tile_k and n_block "
-            "multiples of 64"
+            "multiples of 64 and tile_k a multiple of 4"
         )
-    if panels.data_ptr() % 4:
-        raise ValueError("mono_panel: panels must be 4-byte aligned")
-    n_out = x.shape[1] // 3 if fold == "i8w" else x.shape[1]
+    if panels.data_ptr() % 4 or x.data_ptr() % 4:
+        raise ValueError("mono_panel: panels and x must be 4-byte aligned")
+    n_out = L // 3 if fold == "i8w" else L
     out = torch.empty((out_rows, n_out), dtype=torch.float32, device=dev)
     _launch(
         "mono_panel", lib.fs_mono_panel, _ptr(window), _ptr(strip_ptr),
         _ptr(start_rel), _ptr(panels), _ptr(x), _ptr(scale), _ptr(out),
-        out_rows // TM, TM, tile_k, PK, win_slabs, x.shape[1], n_out,
+        ni, out_rows // TM, TM, tile_k, PK, win_slabs, L, K_rows, n_out,
         n_block, 1 if fold == "i8w" else 0,
     )
     return out
@@ -366,7 +385,9 @@ def densecols_spmm(block, q3t, s):
     (bit-exact with the reference). Differences from the Pallas kernel: any
     ``nrow``, ``D`` and ``N`` (it wants 128-multiples and a row count its
     row panel divides), the transposed planes, and ``s`` is ``(1, N)``, not
-    eight equal rows."""
+    eight equal rows. On the card, N >= 9 with ``D % 16 == 0`` and 16-byte
+    aligned operands runs the s8 tensor-core engine (TMA ring +
+    ``wgmma``), N <= 8 and ragged D the ``mma.sync`` body."""
     dev = block.device
     _check("densecols.block", block, torch.int8, 2)
     _check("densecols.q3t", q3t, torch.int8, 2, dev)

@@ -4,10 +4,11 @@
 // fastsparse/ops/pallas/bsr_spmm.py:
 //
 //   fs_colmax      <- colmax_pallas         per-column max|x| of f32 X
-//   fs_quant3      <- quant3_planes_pallas  radix-256 int8 planes of X
+//   fs_quant3      <- quant3_planes_pallas  radix-256 int8 planes of X,
+//                                           written K-major
 //   fs_mono_panel  <- mono_panel_spmm       Y = A·X over the mono item list
 //                                           (fold "i8w" and the narrow raw
-//                                           int8 mode)
+//                                           int8 mode; K-major X planes)
 //   fs_mono_group  <- mono_group_spmm       one item per strip, write-once
 //                                           (the narrow halo engine)
 //
@@ -17,22 +18,33 @@
 //
 // Bounds on this card:
 // * colmax and quant3 are elementwise/reduction passes over X: bound by
-//   device-memory bytes (read 4 B, write 0 or 3 B per element). One thread
-//   per element (quant3) or per column stripe (colmax), coalesced along X's
-//   contiguous lane dimension.
-// * the mono kernels are bound by int8 multiply-adds at N=128 (each panel
-//   byte meets 3·128 X lanes). This first version issues them as dp4a
-//   (4 int8 MACs per instruction, no tensor cores): panels are k-contiguous
-//   so 4 consecutive k load as one int32; X planes are lane-contiguous, so
-//   each CTA stages its X chunk through shared memory transposed into
-//   k-packed int32 words. wgmma/TMA pipelining is later work.
+//   device-memory bytes (read 4 B, write 0 or 3 B per element). colmax: one
+//   thread per column stripe, coalesced along X's lanes. quant3 writes its
+//   planes K-major, [3·Npad, K] (the transpose of the reference's lane
+//   layout, which s8 wgmma needs for B): a block quantizes a 128 k x 32
+//   column tile with loads coalesced along the lanes, packs each column's
+//   4 consecutive k of a plane into a word in shared memory and writes each
+//   plane row's 128 bytes as one warp's coalesced words.
+// * mono_panel is bound by int8 multiply-adds at N=128 (each panel byte
+//   meets 3·128 X lanes) and, at the headline's 6 chunks an item, by the
+//   panel bytes. TM >= 64 with width·TK a multiple of 128 (the shapes
+//   build_bsr makes at its default tile sizes) runs the s8 tensor-core
+//   engine (s8_engine.cuh): output tiles of (strip, 64 or 128 rows, 64
+//   output columns = 192 plane lanes; narrow: all nb lanes), walked by a
+//   persistent grid, the strip's items through one TMA ring, wgmma
+//   m64n192k32 (narrow m64n{32..128}k32), the fold per item in registers.
+//   Other shapes (TM of 8 or 32) keep the dp4a body below (4 int8 MACs per
+//   instruction, no tensor cores): panels and the K-major planes are
+//   k-contiguous, so 4 consecutive k load as one int32.
+// * mono_group keeps the dp4a body over lane-major narrow planes (X
+//   staged through shared memory transposed into k-packed words).
 //
 // Ordering: the TPU kernel walks its item grid in order and sets the
 // output block on a strip's first item, adding the others. CUDA blocks run
-// concurrently, so here each CTA owns one (strip, row block, column block)
-// output tile and loops over that strip's items in ascending order
-// (strip_ptr). Every output element is written by exactly one CTA, with no
-// atomics, and the f32 accumulation order equals the reference's.
+// concurrently, so here each (strip, row block, column block) output tile
+// belongs to one CTA, which loops over that strip's items in ascending
+// order (strip_ptr). Every output element is written by exactly one CTA,
+// with no atomics, and the f32 accumulation order equals the reference's.
 //
 // Arithmetic: quant3 uses __fmul_rn + __float2int_rn (round half to even,
 // as jnp.round/torch.round), integer carries with arithmetic shifts. The
@@ -41,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "s8_engine.cuh"
 
 namespace {
 
@@ -72,32 +86,77 @@ __global__ void colmax_kernel(const float* __restrict__ x, int K, int N,
 }
 
 // ---------------------------------------------------------------- quant3
+constexpr int Q3_K = 128;        // k rows per block
+constexpr int Q3_W = Q3_K / 4;   // k words per plane row of a block
+constexpr int Q3_C = 32;         // columns per block (one warp wide)
+constexpr int Q3_ROWS = 8;       // word phases per block (threadIdx.y)
+static_assert(Q3_W == Q3_C, "a warp writes one plane row's words");
+
+__device__ __forceinline__ void quant3_one(float v, float si, int& q0,
+                                           int& q1, int& q2) {
+  const int i = __float2int_rn(__fmul_rn(v, si));
+  q2 = ((i + 128) & 255) - 128;
+  const int i1 = (i - q2) >> 8;
+  q1 = ((i1 + 128) & 255) - 128;
+  q0 = (i1 - q1) >> 8;
+}
+
 __global__ void quant3_kernel(const float* __restrict__ x,
                               const float* __restrict__ sinv, int K, int N,
                               int NB, int8_t* __restrict__ out) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)K * N) return;
-  const int r = (int)(idx / N);
-  const int c = (int)(idx - (size_t)r * N);
-  const int i = __float2int_rn(__fmul_rn(x[idx], sinv[c]));
-  const int q2 = ((i + 128) & 255) - 128;
-  const int i1 = (i - q2) >> 8;
-  const int q1 = ((i1 + 128) & 255) - 128;
-  const int q0 = (i1 - q1) >> 8;
-  const int j = c / NB;
-  const int cc = c - j * NB;
-  // lanes [q0_j | q1_j | q2_j] per NB-wide block j
-  int8_t* o = out + (size_t)r * (3 * (size_t)N) + (size_t)j * 3 * NB + cc;
-  o[0] = (int8_t)q0;
-  o[NB] = (int8_t)q1;
-  o[2 * NB] = (int8_t)q2;
+  // [plane][column][4 k bytes]; +1 word a row: conflict-free column writes
+  __shared__ uint32_t sq[3][Q3_C][Q3_W + 1];
+  const int k0 = blockIdx.x * Q3_K;
+  const int c0 = blockIdx.y * Q3_C;
+  const int c = c0 + threadIdx.x;
+  const float si = c < N ? sinv[c] : 0.0f;
+  for (int w = threadIdx.y; w < Q3_W; w += Q3_ROWS) {
+    uint32_t p0 = 0, p1 = 0, p2 = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 4 * w + j;
+      int q0 = 0, q1 = 0, q2 = 0;
+      if (k < K && c < N) quant3_one(x[(size_t)k * N + c], si, q0, q1, q2);
+      p0 |= (uint32_t)(uint8_t)q0 << (8 * j);
+      p1 |= (uint32_t)(uint8_t)q1 << (8 * j);
+      p2 |= (uint32_t)(uint8_t)q2 << (8 * j);
+    }
+    sq[0][threadIdx.x][w] = p0;
+    sq[1][threadIdx.x][w] = p1;
+    sq[2][threadIdx.x][w] = p2;
+  }
+  __syncthreads();
+  // plane p of column c = j·NB + cc is row j·3·NB + p·NB + cc of out. Warp
+  // y writes columns y, y+8, ...: one plane row's 128 bytes per store, as
+  // 32 words when K keeps them aligned, else byte by byte.
+  for (int cl = threadIdx.y; cl < Q3_C; cl += Q3_ROWS) {
+    const int cg = c0 + cl;
+    if (cg >= N) break;
+    const int j = cg / NB;
+    const size_t row0 = (size_t)j * 3 * NB + (cg - j * NB);
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl) {
+      int8_t* o = out + (row0 + (size_t)pl * NB) * K + k0;
+      if ((K & 3) == 0) {
+        if (k0 + 4 * (int)threadIdx.x < K) {
+          reinterpret_cast<uint32_t*>(o)[threadIdx.x] =
+              sq[pl][cl][threadIdx.x];
+        }
+      } else {
+        for (int e = threadIdx.x; e < Q3_K && k0 + e < K; e += Q3_C) {
+          o[e] = (int8_t)(sq[pl][cl][e >> 2] >> (8 * (e & 3)));
+        }
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------------ mono
 // CTA tile: BM output rows x BC output columns; 256 threads as 32 (tx,
 // columns) x 8 (ty, rows). Each thread owns RPT rows (ty + 8t) and CPT
 // columns (tx + 32c), each needing P plane dots (P=3: i8w radix planes,
-// P=1: raw narrow lanes).
+// P=1: raw narrow lanes). XK: X is K-major ([n_lanes, x_ld], mono_panel);
+// otherwise lane-major ([K_rows, x_ld = n_lanes], mono_group).
 constexpr int MT_THREADS = 256;
 constexpr int MT_BM = 32;
 constexpr int MT_RPT = MT_BM / 8;
@@ -105,17 +164,17 @@ constexpr int MT_BK = 64;            // k per shared-memory chunk
 constexpr int MT_K4 = MT_BK / 4;     // int32 words per k chunk
 constexpr int MT_XSTRIDE = MT_K4 + 1;  // +1 word: conflict-free lane rows
 
-template <int P, int CPT, bool GROUPED>
+template <int P, int CPT, bool GROUPED, bool XK>
 __global__ void __launch_bounds__(MT_THREADS)
 mono_kernel(const int32_t* __restrict__ window,     // [ni] or [ns/G]
             const int32_t* __restrict__ strip_ptr,  // [n_strips+1] | null
             const int32_t* __restrict__ start_rel,  // [ni] | [ns]
             const int8_t* __restrict__ panels,      // [ni, TM, PK]
-            const int8_t* __restrict__ x,           // [K_rows, x_ld]
+            const int8_t* __restrict__ x,           // see XK
             const float* __restrict__ scale,        // [n_out] (P==3)
             float* __restrict__ out,                // [n_strips*TM, n_out]
-            int TM, int TK, int PK, int win_stride, int G, int x_ld,
-            int n_out, int NB, int n_row_blocks) {
+            int TM, int TK, int PK, int win_stride, int G, int n_lanes,
+            int x_ld, int n_out, int NB, int n_row_blocks) {
   constexpr int BC = 32 * CPT;
   __shared__ int32_t As[MT_BM][MT_K4];
   __shared__ int32_t Xs[P * BC][MT_XSTRIDE];
@@ -135,7 +194,7 @@ mono_kernel(const int32_t* __restrict__ window,     // [ni] or [ns/G]
   } else {
     lane_base[0] = c0;
   }
-  const int lane_end = (P == 3) ? x_ld : n_out;
+  const int lane_end = n_lanes;
 
   int begin, end;
   if (GROUPED) {
@@ -178,19 +237,25 @@ mono_kernel(const int32_t* __restrict__ window,     // [ni] or [ns/G]
         }
         As[row][k4] = v;
       }
-      // X chunk: BK rows x (P*BC) lanes, transposed into k-packed words
+      // X chunk: BK rows x (P*BC) lanes as k-packed words
       for (int q = tid; q < P * BC * MT_K4; q += MT_THREADS) {
-        const int l = q % (P * BC);
-        const int k4 = q / (P * BC);
+        const int l = XK ? q / MT_K4 : q % (P * BC);
+        const int k4 = XK ? q - l * MT_K4 : q / (P * BC);
         const int p = l / BC;
         const int lane = lane_base[p] + (l - p * BC);
         uint32_t v = 0;
         if (lane < lane_end) {
-          const int8_t* src = x + (xrow0 + k0 + 4 * k4) * (size_t)x_ld + lane;
-          v = (uint32_t)(uint8_t)src[0] |
-              ((uint32_t)(uint8_t)src[x_ld] << 8) |
-              ((uint32_t)(uint8_t)src[2 * (size_t)x_ld] << 16) |
-              ((uint32_t)(uint8_t)src[3 * (size_t)x_ld] << 24);
+          if constexpr (XK) {  // a lane row: 4 consecutive k, one word
+            v = *reinterpret_cast<const uint32_t*>(
+                x + (size_t)lane * x_ld + xrow0 + k0 + 4 * k4);
+          } else {  // transpose 4 lane-major rows into one word
+            const int8_t* src =
+                x + (xrow0 + k0 + 4 * k4) * (size_t)x_ld + lane;
+            v = (uint32_t)(uint8_t)src[0] |
+                ((uint32_t)(uint8_t)src[x_ld] << 8) |
+                ((uint32_t)(uint8_t)src[2 * (size_t)x_ld] << 16) |
+                ((uint32_t)(uint8_t)src[3 * (size_t)x_ld] << 24);
+          }
         }
         Xs[l][k4] = (int32_t)v;
       }
@@ -266,42 +331,92 @@ int fs_colmax(const float* x, int K, int N, float* out, void* stream) {
 
 int fs_quant3(const float* x, const float* sinv, int K, int N, int NB,
               int8_t* out, void* stream) {
-  const size_t total = (size_t)K * N;
-  if (total > 0) {
-    const int threads = 256;
-    const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
-    quant3_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(x, sinv, K, N,
-                                                                NB, out);
+  if (K > 0 && N > 0) {
+    dim3 grid((K + Q3_K - 1) / Q3_K, (N + Q3_C - 1) / Q3_C);
+    dim3 block(Q3_C, Q3_ROWS);
+    quant3_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, sinv, K, N,
+                                                            NB, out);
   }
   return (int)cudaGetLastError();
 }
 
-// fold: 1 = "i8w" (x holds nj blocks of [q0|q1|q2] NB lanes each, x_ld =
-// 3·n_out, scale [n_out]); 0 = raw narrow int8 (x_ld = n_out lanes).
+// fold: 1 = "i8w" (x holds nj blocks of [q0|q1|q2] NB lanes each, n_lanes
+// = 3·n_out, scale [n_out]); 0 = raw narrow int8 (n_lanes = n_out). x is
+// K-major: [n_lanes, x_ld] with x_ld the X rows; TK, x_ld and x's base
+// multiples of 4 (the wrapper checks), so a lane's 4 k load as one word.
 int fs_mono_panel(const int32_t* window, const int32_t* strip_ptr,
                   const int32_t* start_rel, const int8_t* panels,
                   const int8_t* x, const float* scale, float* out,
-                  int n_strips, int TM, int TK, int PK, int win_slabs,
-                  int x_ld, int n_out, int NB, int fold, void* stream) {
-  const int n_row_blocks = (TM + MT_BM - 1) / MT_BM;
-  if (n_strips > 0 && n_out > 0) {
+                  int n_items, int n_strips, int TM, int TK, int PK,
+                  int win_slabs, int n_lanes, int x_ld, int n_out, int NB,
+                  int fold, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_strips <= 0 || n_out <= 0) return (int)cudaGetLastError();
+  const bool aligned = reinterpret_cast<uintptr_t>(panels) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool lanes_ok =
+      fold ? NB % 64 == 0
+           : (n_lanes == 32 || n_lanes == 64 || n_lanes == 96 ||
+              n_lanes == 128);
+  if (TM % 64 == 0 && PK % s8e::KC == 0 && x_ld % 16 == 0 && aligned &&
+      n_items > 0 && lanes_ok) {  // the s8 tensor-core engine
+    s8e::Params p{};
+    p.window = window;
+    p.strip_ptr = strip_ptr;
+    p.start_rel = start_rel;
+    p.out = out;
+    p.nwg = TM % 128 == 0 ? 2 : 1;
+    p.n_row_blocks = TM / (s8e::WG_ROWS * p.nwg);
+    p.TM = TM;
+    p.TK = TK;
+    p.win_slabs = win_slabs;
+    p.k_chunks = PK / s8e::KC;
+    p.n_out = n_out;
+    p.out_rows = n_strips * TM;
+    const long long a_rows = (long long)n_items * TM;
+    const long long tiles = (long long)n_strips * p.n_row_blocks;
     if (fold) {
-      dim3 grid(n_strips * n_row_blocks, (n_out + 63) / 64);
-      mono_kernel<3, 2, false><<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
-          window, strip_ptr, start_rel, panels, x, scale, out, TM, TK, PK,
-          win_slabs, 1, x_ld, n_out, NB, n_row_blocks);
-    } else {
-      dim3 grid(n_strips * n_row_blocks, (n_out + 31) / 32);
-      mono_kernel<1, 1, false><<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
-          window, strip_ptr, start_rel, panels, x, nullptr, out, TM, TK, PK,
-          win_slabs, 1, x_ld, n_out, NB, n_row_blocks);
+      p.scale = scale;
+      p.grp = NB;
+      p.n_col_blocks = n_out / 64;
+      return s8e::launch<64, 3>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                tiles, st);
     }
+    p.grp = n_lanes;  // one column block: lanes [0, n_lanes)
+    p.n_col_blocks = 1;
+    switch (n_lanes) {
+      case 32:
+        return s8e::launch<32, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                  tiles, st);
+      case 64:
+        return s8e::launch<64, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                  tiles, st);
+      case 96:
+        return s8e::launch<96, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                  tiles, st);
+      default:
+        return s8e::launch<128, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                   tiles, st);
+    }
+  }
+  const int n_row_blocks = (TM + MT_BM - 1) / MT_BM;
+  if (fold) {
+    dim3 grid(n_strips * n_row_blocks, (n_out + 63) / 64);
+    mono_kernel<3, 2, false, true><<<grid, MT_THREADS, 0, st>>>(
+        window, strip_ptr, start_rel, panels, x, scale, out, TM, TK, PK,
+        win_slabs, 1, n_lanes, x_ld, n_out, NB, n_row_blocks);
+  } else {
+    dim3 grid(n_strips * n_row_blocks, (n_out + 31) / 32);
+    mono_kernel<1, 1, false, true><<<grid, MT_THREADS, 0, st>>>(
+        window, strip_ptr, start_rel, panels, x, nullptr, out, TM, TK, PK,
+        win_slabs, 1, n_lanes, x_ld, n_out, NB, n_row_blocks);
   }
   return (int)cudaGetLastError();
 }
 
 // Narrow halo engine: strip s reads X rows from
-// (windows[s / G]·stride + start_rel[s])·TK of the un-halo'd planes.
+// (windows[s / G]·stride + start_rel[s])·TK of the un-halo'd lane-major
+// planes.
 int fs_mono_group(const int32_t* windows, const int32_t* start_rel,
                   const int8_t* panels, const int8_t* x, float* out, int ns,
                   int TM, int TK, int PK, int stride, int G, int x_ld,
@@ -309,9 +424,10 @@ int fs_mono_group(const int32_t* windows, const int32_t* start_rel,
   const int n_row_blocks = (TM + MT_BM - 1) / MT_BM;
   if (ns > 0 && n_out > 0) {
     dim3 grid(ns * n_row_blocks, (n_out + 31) / 32);
-    mono_kernel<1, 1, true><<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
+    mono_kernel<1, 1, true, false><<<grid, MT_THREADS, 0,
+                                     (cudaStream_t)stream>>>(
         windows, nullptr, start_rel, panels, x, nullptr, out, TM, TK, PK,
-        stride, G, x_ld, n_out, n_out, n_row_blocks);
+        stride, G, x_ld, x_ld, n_out, n_out, n_row_blocks);
   }
   return (int)cudaGetLastError();
 }

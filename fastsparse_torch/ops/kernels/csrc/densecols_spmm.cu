@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel for the hybrid format's dense-column
+// Hand-written Hopper (sm_90a) kernels for the hybrid format's dense-column
 // block: the CUDA counterpart of densecols_spmm_pallas in
 // fastsparse/ops/pallas/bsr_spmm.py.
 //
@@ -9,19 +9,33 @@
 // int8 radix-256 planes of the selected X rows transposed, [3N, D]: row
 // p·N + n is plane p of column n, k-contiguous (the transpose of the
 // reference's [D, 3N] layout; the X prep writes it so); s is the f32 per-column
-// scale [N]. One launch serves every N: the CTA tile's column width is a
-// template parameter picked from N.
+// scale [N].
 //
 // Bound on this card: the block is the dominant operand (a few hundred MB
 // at the Macau/ECFP shapes). At N=1 the kernel is bound by its bytes; from
-// N of a few dozen on by int8 multiply-adds (3·N per block byte). They run
-// on the tensor cores as mma.sync m16n8k32 s8·s8 -> s32 (no wgmma/TMA yet):
-// a CTA stages a BM x 128-byte chunk of block rows and the matching
-// 3·BC x 128-byte chunk of plane rows in shared memory with 16-byte loads
-// (rows padded to 36 words, so the fragment loads are conflict-free), and
-// each warp accumulates an (MT·16) x (NT·8) output tile for all three
-// planes in registers. Column blocks of one row block are neighbours in
-// launch order, so the block's second and later reads come from L2.
+// N of a few dozen on by int8 multiply-adds (3·N per block byte).
+//
+// Two bodies, chosen by shape in the launcher:
+// * N >= 9 with D % 16 == 0 and 16-byte aligned operands (every DenseCols
+//   build_hybrid makes: D is a multiple of 128): the s8 tensor-core engine
+//   (s8_engine.cuh: a TMA ring and wgmma m64n192k32), output tiles of 128
+//   block rows x 64 output columns (three 64-row plane boxes of q3t),
+//   walked round robin by a persistent grid. The column blocks of one row
+//   block are neighbouring tiles, so they run together and read the
+//   block's chunks at about the same time: the block comes from device
+//   memory about once (270 MB for the ECFP forward block) and from L2 for
+//   the other column blocks (N=128: twice in all, N=256: four times). A
+//   2-CTA cluster multicasting A, or a 128-column tile (192 s32
+//   accumulators a thread), would read it once from L2 too; both cost more
+//   code than the L2 hits they save while the tensor cores, not the bytes,
+//   bound N >= 128.
+// * N <= 8, ragged D or unaligned operands: mma.sync m16n8k32 s8·s8 -> s32
+//   over a single shared-memory buffer. A CTA stages a BM x 128-byte chunk
+//   of block rows and the matching 3·BC x 128-byte chunk of plane rows with
+//   16-byte loads (byte loads for ragged D; rows padded to 36 words, so the
+//   fragment loads are conflict-free), and each warp accumulates an
+//   (MT·16) x (NT·8) output tile for all three planes in registers. At N=1
+//   it runs at about half its byte bound.
 //
 // Exactness: every dot is an exact integer (|d| <= D·128, far below 2^24 at
 // the layout's sizes), so the int32 -> f32 conversions are exact, and the
@@ -31,6 +45,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "s8_engine.cuh"
 
 namespace {
 
@@ -200,15 +216,33 @@ int fs_densecols(const int8_t* block, const int8_t* q3t, const float* s,
                  float* out, int nrow, int D, int N, int vec, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (nrow > 0 && N > 0) {
+    if (N >= 9 && vec && D > 0) {  // the s8 tensor-core engine
+      s8e::Params p{};
+      p.scale = s;
+      p.out = out;
+      p.nwg = 2;
+      p.n_col_blocks = (N + 63) / 64;
+      p.k_chunks = (D + s8e::KC - 1) / s8e::KC;
+      p.grp = N;  // plane q of column c is q3t row c + q·N
+      p.n_out = N;
+      p.out_rows = nrow;
+      return s8e::launch<64, 3>(block, nrow, D, q3t, 3LL * N, D, p,
+                                (nrow + 127) / 128, st);
+    }
     if (N <= 8) {  // 128 x 8 tile: the block streams once
       launch<8, 1, 1, 1>(block, q3t, s, out, nrow, D, N, vec, st);
-    } else if (N <= 32) {  // 128 x 32
-      launch<4, 2, 2, 2>(block, q3t, s, out, nrow, D, N, vec, st);
-    } else {  // 64 x 64
+    } else {  // 64 x 64 (ragged D or unaligned operands only)
       launch<4, 2, 1, 4>(block, q3t, s, out, nrow, D, N, vec, st);
     }
   }
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory and ring depth the engine asks for with BN-row
+// plane boxes, `planes` planes and nwg consumer warpgroups.
+int fs_s8_engine_smem(int bn, int planes, int nwg, int* stages) {
+  *stages = s8e::ring_stages(bn, planes, nwg);
+  return s8e::ring_bytes(bn, planes, nwg);
 }
 
 }  // extern "C"

@@ -5,15 +5,19 @@ only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors (colmax, quant3, densecols, every ELL gather body, the
-one-launch-per-bucket gather and both double-word gathers bit-exact, the
-mono and tile-layout kernels at max|d|/max|ref| <= 1e-6, the tile kernels
+tensors (colmax, quant3, densecols, mono_panel, every ELL gather body, the
+one-launch-per-bucket gather and both double-word gathers bit-exact; the
+s8 tensor-core engine and the old bodies each on the shapes they serve,
+told apart by kernel name; mono_group and the tile-layout kernels at
+max|d|/max|ref| <= 1e-6, the tile kernels
 at tile_k up to 2048 and on strips of up to 70 tiles, each tile mode on
 the body it belongs to), and operator products against scipy in float64
 (the fp64-class products at 1e-10). The scatter engines (``index_add_``:
 atomics in no fixed order) are held to 1e-6 (f32) and 1e-10 (f64), and
 `sort_coo` on the card to its CPU result.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -90,14 +94,14 @@ def test_kernels_match_plain_on_card(card_op):
                             scale=s, **kw)
     yp = tk.mono_panel_spmm_plain(*args, planes, n_block=128, fold="i8w",
                                   scale=s, **kw)
-    assert _rel(yk, yp) <= 1e-6
+    assert torch.equal(yk, yp)
     for N in (9, 40):
         nq = bsr_ops._narrow_nq(N)
         nb = bsr_ops._round_up(3 * nq, 32)
-        qn, _ = bsr_ops._quant3_narrow(X[:, :N], K_pad, nq, nb)
+        qn, _ = bsr_ops._quant3_narrow(X[:, :N], K_pad, nq, nb, kmajor=True)
         yk = tk.mono_panel_spmm(*args, qn, n_block=nb, fold=False, **kw)
         yp = tk.mono_panel_spmm_plain(*args, qn, n_block=nb, fold=False, **kw)
-        assert _rel(yk, yp) <= 1e-6
+        assert torch.equal(yk, yp)
     h = A.narrow
     K_h = ((h.n_windows - 1) * h.stride + h.win_slabs) * A.tile_k
     qh, _ = bsr_ops._quant3_narrow(X[:, :1], K_h, 8, 32)
@@ -109,6 +113,19 @@ def test_kernels_match_plain_on_card(card_op):
     assert _rel(yk, yp) <= 1e-6
     assert tk.launches == {"colmax": 1, "quant3_planes": 1, "mono_panel": 3,
                            "mono_group": 1, "densecols": 0}
+
+
+@pytest.mark.parametrize("K", [1001, 1002, 1024])
+def test_quant3_kmajor_any_k_on_card(card, K):
+    """quant3's K-major planes bit-equal to the plain version when K keeps
+    the plane rows word-aligned (word stores) and when it does not (byte
+    stores), with a ragged last k block."""
+    X = torch.randn((K, 384), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(K))
+    sinv = 1.0 / (X.abs().amax(dim=0, keepdim=True) / (127.0 * 65536.0))
+    got = tk.quant3_planes(X, sinv, n_block=128)
+    assert got.shape == (3 * 384, K)
+    assert torch.equal(got, tk.quant3_planes_plain(X, sinv, n_block=128))
 
 
 @pytest.mark.parametrize("N", [1, 16, 128, 130])
@@ -123,6 +140,49 @@ def test_operator_on_card_vs_scipy(card_op, N):
     assert Y.is_cuda
     ref = md @ X.astype(np.float64)
     assert np.abs(Y.cpu().numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+    Z = op.normal_matmat(Xc, reg=0.5).cpu().numpy()
+    ref = md.T @ (md @ X) + 0.5 * X
+    assert np.abs(Z - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("N", [16, 128])
+@pytest.mark.parametrize("tile_m", [64, 256])
+def test_mono_operator_tile_m_on_card(card, monkeypatch, tile_m, N):
+    """tile_m=256 (two 128-row CTAs a strip) and 64 (one warpgroup) mono
+    layouts whose strips hold 1, 2 and 3 items (and more): mono_panel on
+    the s8 engine bit for bit against its plain version, both modes, and
+    the products against scipy."""
+    monkeypatch.setattr(tbsr, "MONO_WIN_SLABS", 6)
+    m = _banded(3, 2048, 3000, 700)
+    op = ft.operator(m, format="bsr", transpose=True, device=card,
+                     config=ft.Config(tile_m=tile_m))
+    assert op.fwd.tile_m == tile_m and op.fwd.is_mono and op.bwd.is_mono
+    md = m.astype(np.float64)
+    X = np.random.default_rng(N).standard_normal((m.shape[1], N)).astype(
+        np.float32)
+    Xc = torch.from_numpy(X).cuda()
+    for A in (op.fwd, op.bwd):
+        b = A.buckets[0]
+        per_strip = set((b.strip_ptr[1:] - b.strip_ptr[:-1]).tolist())
+        assert {1, 2, 3} <= per_strip
+        assert b.panels.shape[2] % 128 == 0
+        Xr = Xc if A is op.fwd else torch.from_numpy(
+            np.random.default_rng(N + 1).standard_normal(
+                (m.shape[0], N)).astype(np.float32)).cuda()
+        (planes, scale), NB, _, fold, _ = bsr_ops._prep_mono_x(
+            A, Xr, N, "highest")
+        kw = dict(tile_m=A.tile_m, tile_k=A.tile_k, width=b.width,
+                  win_slabs=b.win_slabs, n_block=NB, fold=fold,
+                  out_rows=max(b.out_strips, A.n_strips) * A.tile_m,
+                  scale=scale if fold else None)
+        args = (b.window, b.strip_ptr, b.start_rel, b.panels, planes)
+        names = _kernel_names(lambda: tk.mono_panel_spmm(*args, **kw))
+        assert "s8_engine_kernel" in names and "mono_kernel" not in names
+        assert torch.equal(tk.mono_panel_spmm(*args, **kw),
+                           tk.mono_panel_spmm_plain(*args, **kw))
+    Y = op.matmat(Xc).cpu().numpy()
+    ref = md @ X.astype(np.float64)
+    assert np.abs(Y - ref).max() <= 1e-6 * np.abs(ref).max()
     Z = op.normal_matmat(Xc, reg=0.5).cpu().numpy()
     ref = md.T @ (md @ X) + 0.5 * X
     assert np.abs(Z - ref).max() <= 1e-6 * np.abs(ref).max()
@@ -315,11 +375,12 @@ def test_scatter_products_on_card_vs_scipy(card, binary, dtype):
 
 
 @pytest.mark.parametrize("N", [1, 3, 32, 128, 256])
-@pytest.mark.parametrize("nrow,D", [(1000, 333), (2065, 512)])
+@pytest.mark.parametrize("nrow,D", [(1000, 333), (2065, 512), (700, 5376)])
 def test_densecols_kernel_matches_plain(card, nrow, D, N):
-    """Every tile variant (N<=8, N<=32, wider) on a ragged block: rows
-    past a CTA's tile, D past a 128-byte chunk (byte loads for D=333,
-    16-byte loads for D=512), lanes past a column block; bit-exact."""
+    """Both bodies on a ragged block: the mma.sync tiles (N<=8, and every N
+    at D=333: byte loads), the s8 engine (N >= 9 at D=512 and at the ECFP
+    block's D=5376, a ring that wraps many times); rows past a CTA's tile,
+    D past a 128-byte chunk, lanes past a column block; bit-exact."""
     g = np.random.default_rng(nrow + D + N)
     block = torch.from_numpy((g.random((nrow, D)) < 0.3).astype(np.int8))
     q3t = g.integers(-128, 128, (3 * N, D)).astype(np.int8)
@@ -481,9 +542,13 @@ def _kernel_names(fn, tries=3):
     device activity records: then it profiles ``fn`` again."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):  # records of a lone launch can be lost
+                fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
         names = [e.key for e in events
@@ -491,6 +556,95 @@ def _kernel_names(fn, tries=3):
         if names:
             return " ".join(names)
     return " ".join(e.key for e in events)
+
+
+def _mono_items(gen, n_strips, TM, W, TK=128, win_slabs=8, extra=12):
+    """A mono item list shaped like the headline's (one item a strip,
+    ``extra`` strips with a second one), 0/1 int8 panels of TM x W·TK made
+    on the card; returns the four arrays, the kwargs and the X rows."""
+    g = np.random.default_rng(n_strips + TM)
+    counts = np.ones(n_strips, np.int64)
+    counts[g.choice(n_strips, extra, replace=False)] += 1
+    strip_of = np.repeat(np.arange(n_strips), counts)
+    rows_win = win_slabs * TK
+    n_windows = -(-n_strips * TM // rows_win)
+    window = np.minimum(strip_of * TM // rows_win, n_windows - 1)
+    start_rel = g.integers(0, win_slabs - W + 1, strip_of.size)
+    strip_ptr = np.searchsorted(strip_of, np.arange(n_strips + 1))
+    panels = (torch.rand((strip_of.size, TM, W * TK), device="cuda",
+                         generator=gen) < 0.39).to(torch.int8)
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+
+    kw = dict(tile_m=TM, tile_k=TK, width=W, win_slabs=win_slabs,
+              out_rows=n_strips * TM)
+    return ((i32(window), i32(strip_ptr), i32(start_rel), panels), kw,
+            n_windows * rows_win)
+
+
+def test_s8_engine_picks_body(card):
+    """densecols on the ECFP forward block's shape (50,176 x 5,376) at
+    N = 32, 128, 256 and mono_panel on the headline's (208 items of
+    256 x 768, 196 strips; i8w N=128 and narrow N=32) run the s8 engine;
+    densecols at N <= 8 or D = 333 and mono_panel at tile_m = 8 the old
+    bodies. Each bit-exact against its plain version."""
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    def i8(shape, lo=-128):
+        return torch.randint(lo, 128, shape, device="cuda", generator=gen,
+                             dtype=torch.int8)
+
+    for (nrow, D), N, want in (((50_176, 5_376), 32, "s8_engine_kernel"),
+                               ((50_176, 5_376), 128, "s8_engine_kernel"),
+                               ((50_176, 5_376), 256, "s8_engine_kernel"),
+                               ((50_176, 5_376), 8, "densecols_kernel"),
+                               ((2_000, 333), 128, "densecols_kernel")):
+        block = (torch.rand((nrow, D), device="cuda", generator=gen)
+                 < 0.3).to(torch.int8)
+        q3t = i8((3 * N, D))
+        s = torch.rand((1, N), device="cuda", generator=gen) * 1e-5 + 1e-7
+        names = _kernel_names(lambda: tk.densecols_spmm(block, q3t, s))
+        other = ({"s8_engine_kernel", "densecols_kernel"} - {want}).pop()
+        assert want in names and other not in names, (nrow, D, N, names)
+        assert torch.equal(tk.densecols_spmm(block, q3t, s),
+                           tk.densecols_spmm_plain(block, q3t, s))
+        del block, q3t
+    for TM, W, n_strips, want in ((256, 6, 196, "s8_engine_kernel"),
+                                  (8, 6, 300, "mono_kernel")):
+        args, kw, K_rows = _mono_items(gen, n_strips, TM, W)
+        s = torch.rand((1, 128), device="cuda", generator=gen) * 1e-5 + 1e-7
+        for x, mode in ((i8((384, K_rows)), dict(n_block=128, fold="i8w",
+                                                 scale=s)),
+                        (i8((96, K_rows)), dict(n_block=96, fold=False))):
+            names = _kernel_names(
+                lambda: tk.mono_panel_spmm(*args, x, **kw, **mode))
+            other = ({"s8_engine_kernel", "mono_kernel"} - {want}).pop()
+            assert want in names and other not in names, (TM, mode, names)
+            assert torch.equal(tk.mono_panel_spmm(*args, x, **kw, **mode),
+                               tk.mono_panel_spmm_plain(*args, x, **kw,
+                                                        **mode))
+
+
+def test_s8_engine_route_by_alignment(card):
+    """The launcher routes by shape and alignment before it launches: a
+    q3t off the 16-byte alignment TMA needs takes the mma.sync body (and
+    matches), an aligned one the engine, whose ring fits the card."""
+    from fastsparse_torch.ops.kernels._build import load_library
+
+    stages = ctypes.c_int(0)
+    smem = load_library().fs_s8_engine_smem(64, 3, 2, ctypes.byref(stages))
+    assert smem <= 232_448 and 2 <= stages.value <= 6
+    block = torch.ones((300, 512), dtype=torch.int8, device="cuda")
+    buf = torch.randint(-128, 128, (3 * 16 * 512 + 1,), dtype=torch.int8,
+                        device="cuda")
+    s = torch.ones((1, 16), device="cuda")
+    for q3t, want in ((buf[1:].view(48, 512), "densecols_kernel"),
+                      (buf[:-1].view(48, 512), "s8_engine_kernel")):
+        names = _kernel_names(lambda: tk.densecols_spmm(block, q3t, s))
+        assert want in names, names
+        assert torch.equal(tk.densecols_spmm(block, q3t, s),
+                           tk.densecols_spmm_plain(block, q3t, s))
 
 
 def test_tile_kernels_pick_one_body(card):

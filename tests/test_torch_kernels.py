@@ -3,8 +3,10 @@ kernels (what the wrappers run on CPU tensors, and the on-card oracle of
 the CUDA kernels) against the reference Pallas kernels, run as the JAX
 suite runs them on the CPU (interpret mode).
 
-colmax and quant3 must be bit-exact; the mono kernels are held at
-max|d|/max|ref| <= 1e-6 (exact integer dots: equality is expected).
+colmax and quant3 must be bit-exact (the port writes the planes that
+`mono_panel_spmm` reads K-major: the reference's transposed, bit for bit);
+mono_panel is held bit for bit (exact integer dots, the reference's fold
+and order) and mono_group at max|d|/max|ref| <= 1e-6.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -72,18 +74,19 @@ def test_quant3_plain_bit_exact(n_block):
     ))
     got = tk.quant3_planes(torch.from_numpy(X), torch.from_numpy(sinv),
                            n_block=n_block).numpy()
-    assert got.dtype == np.int8 and np.array_equal(ref, got)
+    assert got.dtype == np.int8 and np.array_equal(ref.T, got)
     # the .5 ties really were ties and rounded half to even
     assert (np.abs(X[:, 1] * sinv[0, 1]) % 1 == 0.5).all()
 
 
 def test_quant3_prep_bit_exact():
-    """The full wide prep (colmax, scale, reciprocal, quant3) and the
-    narrow torch-op prep against the reference's."""
+    """The full wide prep (colmax, scale, reciprocal, quant3; K-major) and
+    the narrow torch-op prep (lane-major for the halo engine, K-major for
+    mono_panel) against the reference's, transposed where K-major."""
     X = _adversarial_x()
     ref_p, ref_s = jops._quant3_planes(jnp.asarray(X), 128, 256)
     got_p, got_s = tops._quant3_planes(torch.from_numpy(X), 128, 256)
-    assert np.array_equal(np.asarray(ref_p), got_p.numpy())
+    assert np.array_equal(np.asarray(ref_p).T, got_p.numpy())
     assert np.array_equal(np.asarray(ref_s), got_s.numpy())
     for N, K in ((1, 300), (5, 256), (16, 200), (40, 256)):
         nq = tops._narrow_nq(N)
@@ -93,6 +96,10 @@ def test_quant3_prep_bit_exact():
                                            nb)
         assert np.array_equal(np.asarray(ref_p), got_p.numpy()), N
         assert np.array_equal(np.asarray(ref_s), got_s.numpy()), N
+        got_k, _ = tops._quant3_narrow(torch.from_numpy(X[:, :N]), K, nq, nb,
+                                       kmajor=True)
+        assert got_k.is_contiguous()
+        assert np.array_equal(np.asarray(ref_p).T, got_k.numpy()), N
 
 
 def _banded(seed, nrow, ncol, bw, density=0.3):
@@ -148,7 +155,7 @@ def test_mono_panel_i8w_plain_vs_pallas(shared):
     out_rows = max(bt.out_strips, At.n_strips) * At.tile_m
     ref = jk.mono_panel_spmm(
         bj.window, bj.strip_ids, bj.start_rel, bj.first, bj.panels,
-        jnp.asarray(planes.numpy()), tile_m=Aj.tile_m, tile_k=Aj.tile_k,
+        jnp.asarray(planes.numpy().T), tile_m=Aj.tile_m, tile_k=Aj.tile_k,
         width=bj.width, win_slabs=bj.win_slabs, binary=False, n_block=128,
         fold="i8w", out_rows=out_rows, scale=jnp.asarray(scale.numpy()),
     )
@@ -159,7 +166,7 @@ def test_mono_panel_i8w_plain_vs_pallas(shared):
         scale=scale,
     )
     assert got.shape == ref.shape
-    assert _rel(got.numpy(), ref) <= 1e-6
+    assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
 @pytest.mark.parametrize("N", [8, 40])
@@ -170,11 +177,12 @@ def test_mono_panel_narrow_plain_vs_pallas(shared, N):
     K_pad = bt.n_windows * bt.win_slabs * At.tile_k
     nq = tops._narrow_nq(N)
     nb = tops._round_up(3 * nq, 32)
-    planes, _ = tops._quant3_narrow(torch.from_numpy(X[:, :N]), K_pad, nq, nb)
+    planes, _ = tops._quant3_narrow(torch.from_numpy(X[:, :N]), K_pad, nq, nb,
+                                    kmajor=True)
     out_rows = max(bt.out_strips, At.n_strips) * At.tile_m
     ref = jk.mono_panel_spmm(
         bj.window, bj.strip_ids, bj.start_rel, bj.first, bj.panels,
-        jnp.asarray(planes.numpy()), tile_m=Aj.tile_m, tile_k=Aj.tile_k,
+        jnp.asarray(planes.numpy().T), tile_m=Aj.tile_m, tile_k=Aj.tile_k,
         width=bj.width, win_slabs=bj.win_slabs, binary=False, n_block=nb,
         fold=False, out_rows=out_rows,
     )
@@ -184,7 +192,7 @@ def test_mono_panel_narrow_plain_vs_pallas(shared, N):
         win_slabs=bt.win_slabs, n_block=nb, fold=False, out_rows=out_rows,
     )
     assert got.shape == ref.shape
-    assert _rel(got.numpy(), ref) <= 1e-6
+    assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_mono_group_plain_vs_pallas(shared):
@@ -218,7 +226,7 @@ def test_mono_group_plain_vs_pallas(shared):
 def test_wrappers_refuse_unported_modes(shared):
     _, op_t, _ = shared
     b = op_t.fwd.buckets[0]
-    x = torch.zeros((b.n_windows * b.win_slabs * 128, 384), dtype=torch.int8)
+    x = torch.zeros((384, b.n_windows * b.win_slabs * 128), dtype=torch.int8)
     kw = dict(tile_m=op_t.fwd.tile_m, tile_k=128, width=b.width,
               win_slabs=b.win_slabs, n_block=128,
               out_rows=b.out_strips * op_t.fwd.tile_m)
