@@ -8,10 +8,10 @@ column j, ``x ≈ (q0·2^16 + q1·2^8 + q2)·s_j`` with
 Wide products (N > 40) encode X with the `colmax` and `quant3_planes`
 kernels and run `mono_panel_spmm` in fold "i8w"; narrow products (N <= 40)
 encode with torch ops (the reference does this in XLA) and fold the three
-plane blocks after the kernel. `mono_panel_spmm` takes its planes K-major
+plane blocks after the kernel. The mono kernels take their planes K-major
 (``(lanes, K)``, the transpose of the reference's ``(K, lanes)``: the s8
 tensor cores read B only so). N <= 8 goes to the halo engine
-(`mono_group_spmm`, lane-major planes) when the matrix has one.
+(`mono_group_spmm`) when the matrix has one.
 
 Tile-bucket and class-panel layouts (and `ColSegmented` containers of
 them): fp32 parity from three bf16 planes of X over tiles that are exact
@@ -166,10 +166,11 @@ def _quant3_planes(Xp, NB: int, Npad: int):
     return quant3_planes(Xp, 1.0 / s, n_block=NB), s
 
 
-def _quant3_narrow(X, K: int, nq: int, nb: int, kmajor: bool = False):
-    """Narrow int8 planes (K, nb): q0, q1, q2 at lane offsets 0, nq, 2·nq
-    and a zero tail to ``nb``; plus the f32 (1, nq) scale. ``kmajor``
-    writes them transposed, (nb, K), as `mono_panel_spmm` takes them."""
+def _quant3_narrow(X, K: int, nq: int, nb: int):
+    """Narrow int8 planes, K-major (nb, K) as the mono kernels take them:
+    q0, q1, q2 in lane rows 0, nq, 2·nq and zero rows to ``nb`` (the
+    reference's (K, nb) lane layout transposed); plus the f32 (1, nq)
+    scale."""
     ncol, N = X.shape
     Xf = X.to(torch.float32)
     if ncol > K:
@@ -179,9 +180,7 @@ def _quant3_narrow(X, K: int, nq: int, nb: int, kmajor: bool = False):
     qs = [q.to(torch.int8) for q in (q0, q1, q2)]
     if nb > 3 * nq:
         qs.append(Xf.new_zeros((Xf.shape[0], nb - 3 * nq), dtype=torch.int8))
-    if kmajor:
-        return torch.cat([q.t() for q in qs]), s
-    return torch.cat(qs, dim=1), s
+    return torch.cat([q.t() for q in qs]), s
 
 
 def _fold_narrow_q(Y, nq: int, scale):
@@ -206,7 +205,7 @@ def _prep_mono_x(A, X, N, precision):
     nq = _narrow_nq(N)
     if nq:
         nb = _round_up(3 * nq, 32)
-        return _quant3_narrow(X, K_pad, nq, nb, kmajor=True), nb, nb, False, nq
+        return _quant3_narrow(X, K_pad, nq, nb), nb, nb, False, nq
     NB = LANES
     Npad = _round_up(N, NB)
     if tuple(X.shape) == (K_pad, Npad):

@@ -15,8 +15,8 @@ Interface differences from the reference kernels:
   with eight equal rows (a TPU sublane tile).
 * `quant3_planes` writes its planes K-major, ``(nj·3·NB, K)``: the
   transpose of the reference's ``(K, nj·3·NB)``, and `mono_panel_spmm`
-  takes X planes in that layout (the narrow planes too, transposed by the
-  X prep): s8 ``wgmma`` reads B only K-major.
+  and `mono_group_spmm` take X planes in that layout (the narrow planes
+  too, transposed by the X prep): s8 ``wgmma`` reads B only K-major.
 * `mono_panel_spmm` takes ``strip_ptr`` (item range of each output strip,
   derived from the ascending ``strip_ids``) in place of ``strip_ids`` and
   ``first``: a strip's first item is the one at ``strip_ptr[s]``. The TPU
@@ -309,7 +309,7 @@ def mono_group_spmm_plain(
     ns = panels.shape[0]
     s = torch.arange(ns, device=x.device)
     row0 = (windows.long()[s // group] * stride + start_rel.long()) * tile_k
-    return _item_dots(panels, x, row0).reshape(ns * tile_m, x.shape[1])
+    return _item_dots(panels, x.t(), row0).reshape(ns * tile_m, x.shape[0])
 
 
 def mono_group_spmm(
@@ -317,13 +317,18 @@ def mono_group_spmm(
 ):
     """``Y = A @ X`` for the narrow halo layout (a MonoGroupBucket with
     one item per strip): f32 ``(ns·TM, nb)`` raw s32 dots of int8 panels
-    against narrow int8 planes ``x`` ``(K, nb)``.
+    against narrow int8 planes ``x`` ``(nb, K)``, K-major (as
+    `bsr_ops._quant3_narrow` writes them).
 
     Replaces ``bsr_spmm.py:mono_group_spmm`` in its halo narrow mode
     (fold=False, int8). ``group`` is only an index grouping here: strip
     ``s`` reads X rows from ``(windows[s // group]·stride +
     start_rel[s])·TK`` of the un-halo'd planes; every output row is
-    written once."""
+    written once. On the card, TM a multiple of 64 with ``width·tile_k`` a
+    multiple of 128 runs the s8 tensor-core engine (TMA ring + ``wgmma``
+    m64n{nb}k32; nb of 32, 64, 96 or 128 lanes, K a multiple of 16 rows,
+    16-byte aligned operands), other shapes (TM 8, 32) the dp4a body; both
+    are bit-exact with the plain version."""
     dev = x.device
     _check("mono_group.windows", windows, torch.int32, 1, dev)
     _check("mono_group.start_rel", start_rel, torch.int32, 1, dev)
@@ -334,24 +339,30 @@ def mono_group_spmm(
         raise ValueError("mono_group: panels disagree with tile sizes/group")
     if start_rel.numel() != ns or windows.numel() != ns // group:
         raise ValueError("mono_group: index arrays disagree with panels")
+    nb, K_rows = x.shape  # K-major planes
+    if K_rows % tile_k or K_rows < PK:
+        raise ValueError(
+            f"mono_group: x must be K-major (nb, K) planes of whole X slabs, "
+            f"got {tuple(x.shape)} for tile_k={tile_k}, width={width}"
+        )
     lib = _library_for(x)
     if lib is None:
         return mono_group_spmm_plain(
             windows, start_rel, panels, x, tile_m=tile_m, tile_k=tile_k,
             width=width, stride=stride, group=group,
         )
-    if PK % 64:
+    if PK % 64 or tile_k % 4:
         raise NotImplementedError(
-            "mono_group CUDA kernel needs width·tile_k a multiple of 64"
+            "mono_group CUDA kernel needs width·tile_k a multiple of 64 and "
+            "tile_k a multiple of 4"
         )
-    if panels.data_ptr() % 4:
-        raise ValueError("mono_group: panels must be 4-byte aligned")
-    nb = x.shape[1]
+    if panels.data_ptr() % 4 or x.data_ptr() % 4:
+        raise ValueError("mono_group: panels and x must be 4-byte aligned")
     out = torch.empty((ns * TM, nb), dtype=torch.float32, device=dev)
     _launch(
         "mono_group", lib.fs_mono_group, _ptr(windows), _ptr(start_rel),
         _ptr(panels), _ptr(x), _ptr(out), ns, TM, tile_k, PK, stride, group,
-        nb, nb,
+        nb, K_rows,
     )
     return out
 

@@ -10,7 +10,8 @@
 //                                           (fold "i8w" and the narrow raw
 //                                           int8 mode; K-major X planes)
 //   fs_mono_group  <- mono_group_spmm       one item per strip, write-once
-//                                           (the narrow halo engine)
+//                                           (the narrow halo engine; K-major
+//                                           X planes)
 //
 // Every launcher takes raw device pointers, sizes and a cudaStream_t, runs
 // on that stream, allocates nothing and returns cudaGetLastError() so the
@@ -27,18 +28,18 @@
 //   plane row's 128 bytes as one warp's coalesced words.
 // * mono_panel is bound by int8 multiply-adds at N=128 (each panel byte
 //   meets 3·128 X lanes) and, at the headline's 6 chunks an item, by the
-//   panel bytes. TM >= 64 with width·TK a multiple of 128 (the shapes
-//   build_bsr makes at its default tile sizes) runs the s8 tensor-core
-//   engine (s8_engine.cuh): output tiles of (strip, 64 or 128 rows, 64
+//   panel bytes. mono_group (the halo layout behind SpMV and N <= 8: 32
+//   raw lanes, each panel byte meets 32 of them) is bound by the panel
+//   bytes alone. Both run the s8 tensor-core engine (s8_engine.cuh) at TM
+//   >= 64 with width·TK a multiple of 128 (the shapes build_bsr makes at
+//   its default tile sizes): output tiles of (strip, 64 or 128 rows, 64
 //   output columns = 192 plane lanes; narrow: all nb lanes), walked by a
-//   persistent grid, the strip's items through one TMA ring, wgmma
-//   m64n192k32 (narrow m64n{32..128}k32), the fold per item in registers.
-//   Other shapes (TM of 8 or 32) keep the dp4a body below (4 int8 MACs per
-//   instruction, no tensor cores): panels and the K-major planes are
-//   k-contiguous, so 4 consecutive k load as one int32.
-// * mono_group keeps the dp4a body over lane-major narrow planes (X
-//   staged through shared memory transposed into k-packed words).
-//
+//   persistent grid, the strip's items (mono_group: its one item) through
+//   one TMA ring, wgmma m64n192k32 (narrow m64n{32..128}k32), the fold per
+//   item in registers. Other shapes (TM of 8 or 32) keep the dp4a body
+//   below (4 int8 MACs per instruction, no tensor cores): panels and the
+//   K-major planes are k-contiguous, so 4 consecutive k load as one int32.
+
 // Ordering: the TPU kernel walks its item grid in order and sets the
 // output block on a strip's first item, adding the others. CUDA blocks run
 // concurrently, so here each (strip, row block, column block) output tile
@@ -155,8 +156,7 @@ __global__ void quant3_kernel(const float* __restrict__ x,
 // CTA tile: BM output rows x BC output columns; 256 threads as 32 (tx,
 // columns) x 8 (ty, rows). Each thread owns RPT rows (ty + 8t) and CPT
 // columns (tx + 32c), each needing P plane dots (P=3: i8w radix planes,
-// P=1: raw narrow lanes). XK: X is K-major ([n_lanes, x_ld], mono_panel);
-// otherwise lane-major ([K_rows, x_ld = n_lanes], mono_group).
+// P=1: raw narrow lanes). X is K-major, [n_lanes, x_ld].
 constexpr int MT_THREADS = 256;
 constexpr int MT_BM = 32;
 constexpr int MT_RPT = MT_BM / 8;
@@ -164,13 +164,13 @@ constexpr int MT_BK = 64;            // k per shared-memory chunk
 constexpr int MT_K4 = MT_BK / 4;     // int32 words per k chunk
 constexpr int MT_XSTRIDE = MT_K4 + 1;  // +1 word: conflict-free lane rows
 
-template <int P, int CPT, bool GROUPED, bool XK>
+template <int P, int CPT, bool GROUPED>
 __global__ void __launch_bounds__(MT_THREADS)
 mono_kernel(const int32_t* __restrict__ window,     // [ni] or [ns/G]
             const int32_t* __restrict__ strip_ptr,  // [n_strips+1] | null
             const int32_t* __restrict__ start_rel,  // [ni] | [ns]
             const int8_t* __restrict__ panels,      // [ni, TM, PK]
-            const int8_t* __restrict__ x,           // see XK
+            const int8_t* __restrict__ x,           // [n_lanes, x_ld]
             const float* __restrict__ scale,        // [n_out] (P==3)
             float* __restrict__ out,                // [n_strips*TM, n_out]
             int TM, int TK, int PK, int win_stride, int G, int n_lanes,
@@ -237,25 +237,17 @@ mono_kernel(const int32_t* __restrict__ window,     // [ni] or [ns/G]
         }
         As[row][k4] = v;
       }
-      // X chunk: BK rows x (P*BC) lanes as k-packed words
+      // X chunk: (P*BC) lane rows x BK k; 4 consecutive k of a lane row
+      // load as one word
       for (int q = tid; q < P * BC * MT_K4; q += MT_THREADS) {
-        const int l = XK ? q / MT_K4 : q % (P * BC);
-        const int k4 = XK ? q - l * MT_K4 : q / (P * BC);
+        const int l = q / MT_K4;
+        const int k4 = q - l * MT_K4;
         const int p = l / BC;
         const int lane = lane_base[p] + (l - p * BC);
         uint32_t v = 0;
         if (lane < lane_end) {
-          if constexpr (XK) {  // a lane row: 4 consecutive k, one word
-            v = *reinterpret_cast<const uint32_t*>(
-                x + (size_t)lane * x_ld + xrow0 + k0 + 4 * k4);
-          } else {  // transpose 4 lane-major rows into one word
-            const int8_t* src =
-                x + (xrow0 + k0 + 4 * k4) * (size_t)x_ld + lane;
-            v = (uint32_t)(uint8_t)src[0] |
-                ((uint32_t)(uint8_t)src[x_ld] << 8) |
-                ((uint32_t)(uint8_t)src[2 * (size_t)x_ld] << 16) |
-                ((uint32_t)(uint8_t)src[3 * (size_t)x_ld] << 24);
-          }
+          v = *reinterpret_cast<const uint32_t*>(
+              x + (size_t)lane * x_ld + xrow0 + k0 + 4 * k4);
         }
         Xs[l][k4] = (int32_t)v;
       }
@@ -315,6 +307,51 @@ mono_kernel(const int32_t* __restrict__ window,     // [ni] or [ns/G]
   }
 }
 
+// The s8 engine takes a mono item source when strips split into 64-row
+// warpgroup parts, items into whole 128-byte k chunks, and X (K-major,
+// x_ld bytes a lane row) has the 16-byte row pitch and both operands the
+// 16-byte bases that TMA needs.
+bool engine_shape(int TM, int PK, int x_ld, const int8_t* panels,
+                  const int8_t* x) {
+  return TM % s8e::WG_ROWS == 0 && PK % s8e::KC == 0 && x_ld % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(panels) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+bool narrow_lanes(int n) {
+  return n == 32 || n == 64 || n == 96 || n == 128;
+}
+
+// Consumer warpgroups of an engine launch: two (128-row tiles) where the
+// strip height allows, else one. On the headline's halo layout (200 strips
+// of 256 rows: 400 tiles, 3.03 rounds of 132 SMs, or 800 one-warpgroup
+// tiles, 6.06 rounds) the two read level on an H100 (PERF.md).
+int engine_nwg(int TM) { return TM % 128 == 0 ? 2 : 1; }
+
+// Raw narrow lanes on the engine: one column block of all n_lanes lanes
+// (m64n{n_lanes}k32); p holds the item source.
+int engine_narrow(s8e::Params p, const int8_t* panels, long long a_rows,
+                  int PK, const int8_t* x, int n_lanes, int x_ld,
+                  long long tiles, cudaStream_t st) {
+  p.grp = n_lanes;
+  p.n_col_blocks = 1;
+  p.n_out = n_lanes;
+  switch (n_lanes) {
+    case 32:
+      return s8e::launch<32, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                tiles, st);
+    case 64:
+      return s8e::launch<64, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                tiles, st);
+    case 96:
+      return s8e::launch<96, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                tiles, st);
+    default:
+      return s8e::launch<128, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
+                                 tiles, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -352,83 +389,81 @@ int fs_mono_panel(const int32_t* window, const int32_t* strip_ptr,
                   int fold, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n_strips <= 0 || n_out <= 0) return (int)cudaGetLastError();
-  const bool aligned = reinterpret_cast<uintptr_t>(panels) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool lanes_ok =
-      fold ? NB % 64 == 0
-           : (n_lanes == 32 || n_lanes == 64 || n_lanes == 96 ||
-              n_lanes == 128);
-  if (TM % 64 == 0 && PK % s8e::KC == 0 && x_ld % 16 == 0 && aligned &&
-      n_items > 0 && lanes_ok) {  // the s8 tensor-core engine
+  if (engine_shape(TM, PK, x_ld, panels, x) && n_items > 0 &&
+      (fold ? NB % 64 == 0 : narrow_lanes(n_lanes))) {
     s8e::Params p{};
+    p.items = s8e::ITEMS_PANEL;
     p.window = window;
     p.strip_ptr = strip_ptr;
     p.start_rel = start_rel;
     p.out = out;
-    p.nwg = TM % 128 == 0 ? 2 : 1;
+    p.nwg = engine_nwg(TM);
     p.n_row_blocks = TM / (s8e::WG_ROWS * p.nwg);
     p.TM = TM;
     p.TK = TK;
-    p.win_slabs = win_slabs;
+    p.win_stride = win_slabs;
+    p.group = 1;
     p.k_chunks = PK / s8e::KC;
-    p.n_out = n_out;
     p.out_rows = n_strips * TM;
     const long long a_rows = (long long)n_items * TM;
     const long long tiles = (long long)n_strips * p.n_row_blocks;
-    if (fold) {
-      p.scale = scale;
-      p.grp = NB;
-      p.n_col_blocks = n_out / 64;
-      return s8e::launch<64, 3>(panels, a_rows, PK, x, n_lanes, x_ld, p,
-                                tiles, st);
+    if (!fold) {
+      return engine_narrow(p, panels, a_rows, PK, x, n_lanes, x_ld, tiles,
+                           st);
     }
-    p.grp = n_lanes;  // one column block: lanes [0, n_lanes)
-    p.n_col_blocks = 1;
-    switch (n_lanes) {
-      case 32:
-        return s8e::launch<32, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
-                                  tiles, st);
-      case 64:
-        return s8e::launch<64, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
-                                  tiles, st);
-      case 96:
-        return s8e::launch<96, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
-                                  tiles, st);
-      default:
-        return s8e::launch<128, 1>(panels, a_rows, PK, x, n_lanes, x_ld, p,
-                                   tiles, st);
-    }
+    p.scale = scale;
+    p.grp = NB;
+    p.n_col_blocks = n_out / 64;
+    p.n_out = n_out;
+    return s8e::launch<64, 3>(panels, a_rows, PK, x, n_lanes, x_ld, p, tiles,
+                              st);
   }
   const int n_row_blocks = (TM + MT_BM - 1) / MT_BM;
   if (fold) {
     dim3 grid(n_strips * n_row_blocks, (n_out + 63) / 64);
-    mono_kernel<3, 2, false, true><<<grid, MT_THREADS, 0, st>>>(
+    mono_kernel<3, 2, false><<<grid, MT_THREADS, 0, st>>>(
         window, strip_ptr, start_rel, panels, x, scale, out, TM, TK, PK,
         win_slabs, 1, n_lanes, x_ld, n_out, NB, n_row_blocks);
   } else {
     dim3 grid(n_strips * n_row_blocks, (n_out + 31) / 32);
-    mono_kernel<1, 1, false, true><<<grid, MT_THREADS, 0, st>>>(
+    mono_kernel<1, 1, false><<<grid, MT_THREADS, 0, st>>>(
         window, strip_ptr, start_rel, panels, x, nullptr, out, TM, TK, PK,
         win_slabs, 1, n_lanes, x_ld, n_out, NB, n_row_blocks);
   }
   return (int)cudaGetLastError();
 }
 
-// Narrow halo engine: strip s reads X rows from
-// (windows[s / G]·stride + start_rel[s])·TK of the un-halo'd lane-major
-// planes.
+// Narrow halo engine: strip s is one item, reading X rows from
+// (windows[s / G]·stride + start_rel[s])·TK of the un-halo'd narrow planes
+// x, K-major [n_lanes, x_ld]; out [ns·TM, n_lanes].
 int fs_mono_group(const int32_t* windows, const int32_t* start_rel,
                   const int8_t* panels, const int8_t* x, float* out, int ns,
-                  int TM, int TK, int PK, int stride, int G, int x_ld,
-                  int n_out, void* stream) {
-  const int n_row_blocks = (TM + MT_BM - 1) / MT_BM;
-  if (ns > 0 && n_out > 0) {
-    dim3 grid(ns * n_row_blocks, (n_out + 31) / 32);
-    mono_kernel<1, 1, true, false><<<grid, MT_THREADS, 0,
-                                     (cudaStream_t)stream>>>(
-        windows, nullptr, start_rel, panels, x, nullptr, out, TM, TK, PK,
-        stride, G, x_ld, x_ld, n_out, n_out, n_row_blocks);
+                  int TM, int TK, int PK, int stride, int G, int n_lanes,
+                  int x_ld, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ns <= 0 || n_lanes <= 0) return (int)cudaGetLastError();
+  if (engine_shape(TM, PK, x_ld, panels, x) && narrow_lanes(n_lanes)) {
+    s8e::Params p{};
+    p.items = s8e::ITEMS_HALO;
+    p.window = windows;
+    p.start_rel = start_rel;
+    p.out = out;
+    p.nwg = engine_nwg(TM);
+    p.n_row_blocks = TM / (s8e::WG_ROWS * p.nwg);
+    p.TM = TM;
+    p.TK = TK;
+    p.win_stride = stride;
+    p.group = G;
+    p.k_chunks = PK / s8e::KC;
+    p.out_rows = ns * TM;
+    return engine_narrow(p, panels, (long long)ns * TM, PK, x, n_lanes, x_ld,
+                         (long long)ns * p.n_row_blocks, st);
   }
+  const int n_row_blocks = (TM + MT_BM - 1) / MT_BM;
+  dim3 grid(ns * n_row_blocks, (n_lanes + 31) / 32);
+  mono_kernel<1, 1, true><<<grid, MT_THREADS, 0, st>>>(
+      windows, nullptr, start_rel, panels, x, nullptr, out, TM, TK, PK,
+      stride, G, n_lanes, x_ld, n_lanes, n_lanes, n_row_blocks);
   return (int)cudaGetLastError();
 }
 

@@ -218,6 +218,7 @@ int fs_densecols(const int8_t* block, const int8_t* q3t, const float* s,
   if (nrow > 0 && N > 0) {
     if (N >= 9 && vec && D > 0) {  // the s8 tensor-core engine
       s8e::Params p{};
+      p.items = s8e::ITEMS_DENSE;
       p.scale = s;
       p.out = out;
       p.nwg = 2;

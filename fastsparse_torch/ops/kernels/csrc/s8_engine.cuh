@@ -1,8 +1,9 @@
-// The s8 tensor-core engine for Hopper (sm_90a): one body for the two
+// The s8 tensor-core engine for Hopper (sm_90a): one body for the three
 // int8 products of the port, kernel #7 (densecols_spmm.cu, the CUDA
-// counterpart of densecols_spmm_pallas) and kernel #3 in its "i8w" and
-// narrow int8 modes (bsr_spmm.cu, the counterpart of mono_panel_spmm), both
-// in fastsparse/ops/pallas/bsr_spmm.py.
+// counterpart of densecols_spmm_pallas), kernel #3 in its "i8w" and narrow
+// int8 modes and kernel #4 in its halo narrow mode (bsr_spmm.cu, the
+// counterparts of mono_panel_spmm and mono_group_spmm), all in
+// fastsparse/ops/pallas/bsr_spmm.py.
 //
 //   Y[r, c] = fold_p( Σ_k A[r, k]·B[lane_p(c), k] )   (exact s32 dots)
 //
@@ -10,8 +11,9 @@
 // row holds consecutive k. An output tile is 64·nwg rows (nwg consumer
 // warpgroups, 64 rows each: the wgmma M) by BN output columns, with a list
 // of items: one for densecols (the whole k range of its row block), the
-// strip's panel items in ascending order for mono. Each item is a k loop
-// in 128-byte chunks. Each output element is written once, by its tile.
+// strip's panel items in ascending order for mono_panel, the strip's one
+// item for the halo layout. Each item is a k loop in 128-byte chunks. Each
+// output element is written once, by its tile.
 //
 // Persistent grid: one CTA per SM (its registers leave room for no other)
 // walks the tiles round robin, and the ring runs on across tiles, so one
@@ -74,10 +76,19 @@ constexpr int ERR_SHAPE = -1;          // a shape the engine does not take
 constexpr int ERR_ENCODE = -2;         // cuTensorMapEncodeTiled refused
 constexpr int ERR_SMEM = -3;           // the ring does not fit
 
+// Where a tile's items come from.
+enum Items : int {
+  ITEMS_DENSE = 0,  // one item, the tile's own rows (densecols)
+  ITEMS_PANEL = 1,  // strip s: items [strip_ptr[s], strip_ptr[s+1])
+  ITEMS_HALO = 2,   // strip s: item s alone (the halo layout)
+};
+
 struct Params {
-  // mono: the item list (strip_ptr == nullptr: one item per CTA, densecols)
+  int items;           // Items
+  // mono item i: A rows from i·TM, B k from
+  // (window[i / group]·win_stride + start_rel[i])·TK (group 1 for panels)
   const int32_t* window;
-  const int32_t* strip_ptr;
+  const int32_t* strip_ptr;  // ITEMS_PANEL only
   const int32_t* start_rel;
   const float* scale;  // per output column (P == 3)
   float* out;          // [out_rows, n_out] f32
@@ -86,8 +97,7 @@ struct Params {
   int n_tiles;         // output tiles: row tiles x column blocks
   int n_row_blocks;    // row tiles per mono strip
   int n_col_blocks;    // column blocks of BN output columns
-  int TM, TK, win_slabs;  // mono item i: A rows from i·TM, B k from
-                          // (window[i]·win_slabs + start_rel[i])·TK
+  int TM, TK, win_stride, group;
   int k_chunks;        // 128-byte chunks per item
   int grp;             // B lane of plane p, column c:
                        // (c / grp)·3·grp + c % grp + p·grp
@@ -317,7 +327,9 @@ __device__ __forceinline__ void wgmma(int (&d)[N / 2], uint64_t da,
 
 // One output tile: column block cb (BN columns from c0) of row tile t
 // (densecols: a row block; mono: one 64·nwg-row part h of a strip), its
-// items [begin, end) and its first output row.
+// items [begin, end) and its first output row. Kept branch-shaped with one
+// exit: with an early return, nvcc rebuilt the scale pointer for every
+// load of the n192 epilogue (densecols N=256 ~12 % slower on an H100).
 struct Tile {
   int c0, begin, end, h, out_row0;
 };
@@ -329,11 +341,12 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int t, int bn,
   const int rt = t / p.n_col_blocks;
   tl.c0 = cb * bn;
   tl.h = 0;
-  if (p.strip_ptr != nullptr) {
+  if (p.items != ITEMS_DENSE) {
     const int strip = rt / p.n_row_blocks;
     tl.h = rt - strip * p.n_row_blocks;
-    tl.begin = p.strip_ptr[strip];
-    tl.end = p.strip_ptr[strip + 1];
+    const bool panel = p.items == ITEMS_PANEL;
+    tl.begin = panel ? p.strip_ptr[strip] : strip;
+    tl.end = panel ? p.strip_ptr[strip + 1] : strip + 1;
     tl.out_row0 = strip * p.TM + tl.h * rows_cta;
   } else {
     tl.begin = 0;
@@ -386,9 +399,10 @@ s8_engine_kernel(const __grid_constant__ CUtensorMap map_a,
       const int lane0 = (tl.c0 / p.grp) * 3 * p.grp + tl.c0 % p.grp;
       for (int it = tl.begin; it < tl.end; ++it) {
         int a_row = tl.out_row0, b_k = 0;
-        if (p.strip_ptr != nullptr) {
+        if (p.items != ITEMS_DENSE) {
           a_row = it * p.TM + tl.h * rows_cta;
-          b_k = (p.window[it] * p.win_slabs + p.start_rel[it]) * p.TK;
+          b_k = (p.window[it / p.group] * p.win_stride + p.start_rel[it]) *
+                p.TK;
         }
         for (int kc = 0; kc < p.k_chunks; ++kc) {
           mbar_wait(&empty[stage], phase ^ 1);

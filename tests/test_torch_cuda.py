@@ -5,10 +5,10 @@ only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors (colmax, quant3, densecols, mono_panel, every ELL gather body, the
-one-launch-per-bucket gather and both double-word gathers bit-exact; the
-s8 tensor-core engine and the old bodies each on the shapes they serve,
-told apart by kernel name; mono_group and the tile-layout kernels at
+tensors (colmax, quant3, densecols, mono_panel, mono_group, every ELL
+gather body, the one-launch-per-bucket gather and both double-word gathers
+bit-exact; the s8 tensor-core engine and the old bodies each on the shapes
+they serve, told apart by kernel name; the tile-layout kernels at
 max|d|/max|ref| <= 1e-6, the tile kernels
 at tile_k up to 2048 and on strips of up to 70 tiles, each tile mode on
 the body it belongs to), and operator products against scipy in float64
@@ -17,6 +17,7 @@ atomics in no fixed order) are held to 1e-6 (f32) and 1e-10 (f64), and
 `sort_coo` on the card to its CPU result.
 """
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -98,7 +99,7 @@ def test_kernels_match_plain_on_card(card_op):
     for N in (9, 40):
         nq = bsr_ops._narrow_nq(N)
         nb = bsr_ops._round_up(3 * nq, 32)
-        qn, _ = bsr_ops._quant3_narrow(X[:, :N], K_pad, nq, nb, kmajor=True)
+        qn, _ = bsr_ops._quant3_narrow(X[:, :N], K_pad, nq, nb)
         yk = tk.mono_panel_spmm(*args, qn, n_block=nb, fold=False, **kw)
         yp = tk.mono_panel_spmm_plain(*args, qn, n_block=nb, fold=False, **kw)
         assert torch.equal(yk, yp)
@@ -107,10 +108,11 @@ def test_kernels_match_plain_on_card(card_op):
     qh, _ = bsr_ops._quant3_narrow(X[:, :1], K_h, 8, 32)
     gkw = dict(tile_m=A.tile_m, tile_k=A.tile_k, width=h.width,
                stride=h.stride, group=h.group)
+    assert tuple(qh.shape) == (32, K_h)  # K-major
     yk = tk.mono_group_spmm(h.windows, h.start_rel, h.panels, qh, **gkw)
     yp = tk.mono_group_spmm_plain(h.windows, h.start_rel, h.panels, qh, **gkw)
     torch.cuda.synchronize()
-    assert _rel(yk, yp) <= 1e-6
+    assert torch.equal(yk, yp)
     assert tk.launches == {"colmax": 1, "quant3_planes": 1, "mono_panel": 3,
                            "mono_group": 1, "densecols": 0}
 
@@ -539,12 +541,15 @@ def test_panel_spmm_kernel_matches_plain(card, mode, row_base, TM):
 def _kernel_names(fn, tries=3):
     """Names of the CUDA kernels ``fn`` launches (torch.profiler). The
     profiler now and then delivers a run's launch calls without their
-    device activity records: then it profiles ``fn`` again."""
+    device activity records, in spells of a few sessions: then it
+    profiles ``fn`` again, half a second later."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for i in range(tries):
+        if i:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(3):  # records of a lone launch can be lost
@@ -624,6 +629,57 @@ def test_s8_engine_picks_body(card):
             assert torch.equal(tk.mono_panel_spmm(*args, x, **kw, **mode),
                                tk.mono_panel_spmm_plain(*args, x, **kw,
                                                         **mode))
+
+
+def _halo_items(gen, ns, TM, G=4, W=6, TK=128, stride=10, win_slabs=16):
+    """A halo item list: ``ns`` strips (a multiple of G), one item each,
+    G strips sharing a window; windows ``stride`` slabs apart and
+    ``win_slabs`` long, so they overlap and items placed past ``stride -
+    W`` slabs into their window straddle the next window's start. 0/1 int8
+    panels of TM x W·TK made on the card; returns the three arrays, the
+    kwargs and the X rows."""
+    g = np.random.default_rng(ns + TM)
+    ng = ns // G
+    n_windows = max(ng // 2, 1)
+    windows = np.sort(g.integers(0, n_windows, ng))
+    start_rel = g.integers(0, win_slabs - W + 1, ns)
+    start_rel[::3] = win_slabs - W  # the last slot: straddles
+    panels = (torch.rand((ns, TM, W * TK), device="cuda", generator=gen)
+              < 0.39).to(torch.int8)
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+
+    kw = dict(tile_m=TM, tile_k=TK, width=W, stride=stride, group=G)
+    return ((i32(windows), i32(start_rel), panels), kw,
+            ((n_windows - 1) * stride + win_slabs) * TK)
+
+
+@pytest.mark.parametrize("N", [1, 2, 8, 16])
+@pytest.mark.parametrize("TM,ns,want", [(256, 200, "s8_engine_kernel"),
+                                        (64, 52, "s8_engine_kernel"),
+                                        (32, 60, "mono_kernel"),
+                                        (8, 120, "mono_kernel")])
+def test_s8_engine_picks_body_halo(card, TM, ns, want, N):
+    """mono_group (the halo layout) on the s8 engine at TM 256 (the
+    headline's 200 strips) and 64, on the dp4a body at TM 32 and 8, told
+    apart by kernel name; K-major narrow planes of N = 1, 2, 8 (nq 8: 32
+    lanes) and 16 (64 lanes) from `_quant3_narrow`; windows that overlap
+    and items that straddle into the next window. Bit-exact against the
+    plain version."""
+    gen = torch.Generator("cuda").manual_seed(TM + N)
+    args, kw, K_rows = _halo_items(gen, ns, TM)
+    nq = bsr_ops._narrow_nq(N)
+    nb = bsr_ops._round_up(3 * nq, 32)
+    X = torch.randn((K_rows, N), device="cuda", generator=gen)
+    x, _ = bsr_ops._quant3_narrow(X, K_rows, nq, nb)
+    assert tuple(x.shape) == (nb, K_rows)
+    names = _kernel_names(lambda: tk.mono_group_spmm(*args, x, **kw))
+    other = ({"s8_engine_kernel", "mono_kernel"} - {want}).pop()
+    assert want in names and other not in names, (TM, N, names)
+    y = tk.mono_group_spmm(*args, x, **kw)
+    assert y.shape == (ns * TM, nb)
+    assert torch.equal(y, tk.mono_group_spmm_plain(*args, x, **kw))
 
 
 def test_s8_engine_route_by_alignment(card):

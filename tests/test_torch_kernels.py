@@ -3,10 +3,10 @@ kernels (what the wrappers run on CPU tensors, and the on-card oracle of
 the CUDA kernels) against the reference Pallas kernels, run as the JAX
 suite runs them on the CPU (interpret mode).
 
-colmax and quant3 must be bit-exact (the port writes the planes that
-`mono_panel_spmm` reads K-major: the reference's transposed, bit for bit);
-mono_panel is held bit for bit (exact integer dots, the reference's fold
-and order) and mono_group at max|d|/max|ref| <= 1e-6.
+colmax and quant3 must be bit-exact (the port writes the planes that the
+mono kernels read K-major: the reference's transposed, bit for bit);
+mono_panel and mono_group are held bit for bit (exact integer dots, the
+reference's fold and order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -80,9 +80,9 @@ def test_quant3_plain_bit_exact(n_block):
 
 
 def test_quant3_prep_bit_exact():
-    """The full wide prep (colmax, scale, reciprocal, quant3; K-major) and
-    the narrow torch-op prep (lane-major for the halo engine, K-major for
-    mono_panel) against the reference's, transposed where K-major."""
+    """The full wide prep (colmax, scale, reciprocal, quant3) and the
+    narrow torch-op prep against the reference's, both transposed: the
+    port writes every plane K-major."""
     X = _adversarial_x()
     ref_p, ref_s = jops._quant3_planes(jnp.asarray(X), 128, 256)
     got_p, got_s = tops._quant3_planes(torch.from_numpy(X), 128, 256)
@@ -94,12 +94,9 @@ def test_quant3_prep_bit_exact():
         ref_p, ref_s = jops._quant3_narrow(jnp.asarray(X[:, :N]), K, nq, nb)
         got_p, got_s = tops._quant3_narrow(torch.from_numpy(X[:, :N]), K, nq,
                                            nb)
-        assert np.array_equal(np.asarray(ref_p), got_p.numpy()), N
+        assert got_p.is_contiguous()
+        assert np.array_equal(np.asarray(ref_p).T, got_p.numpy()), N
         assert np.array_equal(np.asarray(ref_s), got_s.numpy()), N
-        got_k, _ = tops._quant3_narrow(torch.from_numpy(X[:, :N]), K, nq, nb,
-                                       kmajor=True)
-        assert got_k.is_contiguous()
-        assert np.array_equal(np.asarray(ref_p).T, got_k.numpy()), N
 
 
 def _banded(seed, nrow, ncol, bw, density=0.3):
@@ -177,8 +174,7 @@ def test_mono_panel_narrow_plain_vs_pallas(shared, N):
     K_pad = bt.n_windows * bt.win_slabs * At.tile_k
     nq = tops._narrow_nq(N)
     nb = tops._round_up(3 * nq, 32)
-    planes, _ = tops._quant3_narrow(torch.from_numpy(X[:, :N]), K_pad, nq, nb,
-                                    kmajor=True)
+    planes, _ = tops._quant3_narrow(torch.from_numpy(X[:, :N]), K_pad, nq, nb)
     out_rows = max(bt.out_strips, At.n_strips) * At.tile_m
     ref = jk.mono_panel_spmm(
         bj.window, bj.strip_ids, bj.start_rel, bj.first, bj.panels,
@@ -196,14 +192,17 @@ def test_mono_panel_narrow_plain_vs_pallas(shared, N):
 
 
 def test_mono_group_plain_vs_pallas(shared):
-    """The port addresses the un-halo'd planes through the overlapping
-    windows; the reference reads the halo'd copy `_halo_impl` builds."""
+    """The port addresses the un-halo'd K-major planes through the
+    overlapping windows; the reference reads the halo'd lane-major copy
+    `_halo_impl` builds (the planes transposed). Both convert exact s32
+    dots to f32 once (|d| <= PK·127·127, far below 2^24): bit-equal."""
     op_j, op_t, X = shared
     hj, ht = op_j.fwd.narrow, op_t.fwd.narrow
     TK = op_t.fwd.tile_k
     K_pad = ((ht.n_windows - 1) * ht.stride + ht.win_slabs) * TK
     planes, _ = tops._quant3_narrow(torch.from_numpy(X[:, :1]), K_pad, 8, 32)
-    pj = np.asarray(planes.numpy())
+    assert tuple(planes.shape) == (32, K_pad)
+    pj = np.asarray(planes.numpy()).T
     win_rows = ht.win_slabs * TK
     halo = np.concatenate([
         pj[w * ht.stride * TK : w * ht.stride * TK + win_rows]
@@ -220,7 +219,7 @@ def test_mono_group_plain_vs_pallas(shared):
         tile_k=TK, width=ht.width, stride=ht.stride, group=ht.group,
     )
     assert got.shape == ref.shape
-    assert _rel(got.numpy(), ref) <= 1e-6
+    assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_wrappers_refuse_unported_modes(shared):
