@@ -17,10 +17,16 @@ config A's and config B's operators) and phase 12 after phase 10:
    colmax, quant3 (K-major planes), mono_panel (i8w N=128, narrow N=32)
    and mono_group (the halo layout, K-major narrow planes, N=1). Both must
    run the s8 tensor-core engine (by kernel name, torch.profiler);
-   cuSPARSE's product is timed at N=128, N=32 and N=1, and at N=1 its
-   device time beside mono_group's.
+   cuSPARSE's product is timed at N=128, N=32 and N=1, and its device
+   time beside mono_panel's at N=128 and mono_group's at N=1; colmax's
+   device time beside ``torch.linalg.vector_norm``'s.
    Before this phase, and before any torch.profiler session, the four
-   mono products of phase 2 are timed by CUDA events.
+   mono products of phase 2 are timed by CUDA events; then the kernel
+   bodies are checked by name (phase 5's densecols bodies, and the ELL
+   bodies: ell_bucket runs the narrow body at N = 1 and 8 and the
+   lane-split body at N = 128 in every mode, ell_sweep and
+   ell_bucket_smem their own kernels, each bit-exact, on random buckets
+   of the main path's shapes).
 2. mono main-path phase: with every launch count set to 0, ``operator(m,
    format="bsr", transpose=True, device="cuda")`` products through the
    public API: matmat at N=128 and matvec on the headline matrix,
@@ -32,13 +38,15 @@ config A's and config B's operators) and phase 12 after phase 10:
    Then matmat N=128, SpMV, matmat N=32 and normal_matmat timed by CUDA
    events and by device busy time (torch.profiler), with the top kernels.
 3. ELL kernel phase: each mode of the two gather kernels against its
-   plain version, bit-exact, at the main path's shapes: ell_bucket valued
-   whole-row on config A's largest bucket at N=128 and at N=1, packed unit
-   whole-row on a config B bucket, valued and unit chunked (packed pairs,
-   and plain columns against an X past 65,536 rows) on an unsplit build of
-   config A; ell_sweep on one of config B's sweep items at N=128. For
-   ell_bucket at N=1 and the sweep, device time beside cuSPARSE's device
-   time on the same operands (torch.profiler, and queued CUDA events).
+   plain version, bit-exact, at the main path's shapes, ell_bucket's at
+   N = 128, 1 and 8 (the narrow body at N <= 8): valued whole-row on
+   config A's largest bucket, packed unit whole-row on a config B bucket,
+   valued and unit chunked (packed pairs, and plain columns against an X
+   past 65,536 rows) on an unsplit build of config A; ell_sweep on one of
+   config B's sweep items at N=128. For every ell_bucket mode at N=1 and
+   the sweep, device time beside cuSPARSE's device time on the same
+   operands (torch.profiler, and queued CUDA events); for each mode the
+   share of its bound in its event and device time.
 4. ELL main-path phase: with the counts set to 0, config A
    (``powerlaw(20_000, 20_000, 1_000_000, seed=0)``, f32, BASELINE config 2)
    through ``operator(m, device="cuda")`` (auto -> ELL, transpose=True):
@@ -54,9 +62,10 @@ config A's and config B's operators) and phase 12 after phase 10:
    engine, both tilings); the densecols kernel against its plain version
    on the forward block at N = 1, 32, 128, 256, bit-exact;
    ``torch._int_mm`` timed beside it (at N=1 on planes zero-padded to 8
-   columns). Which body runs is checked by kernel name before phase 1
-   (the s8 engine at N >= 32, the mma.sync body at N=1, on a block of the
-   same shape and density, bit-exact too).
+   columns), and at N=128 on the device clock too. Which body runs is
+   checked by kernel name before phase 1 (the s8 engine at N >= 32, the
+   mma.sync body at N=1, on a block of the same shape and density,
+   bit-exact too).
 6. hybrid main-path phase: with the counts set to 0, ECFP matmat at N =
    32, 128, 256, matvec and rmatmat N=32, each within 1e-6 of scipy f64;
    the Macau inner step (``rhs = op.rmatmat(R)``, ``cg_normal(op, rhs,
@@ -78,7 +87,8 @@ config A's and config B's operators) and phase 12 after phase 10:
    planes N=128), bucket_spmv on that segment and on config B's tile
    segment, each at max|d|/max|ref| <= 1e-6, timed beside its plain
    version, its bound and cuSPARSE's product of the same segment (on the
-   device clock too, for all three); first a
+   device clock too, for all three), and each bucket_spmv launch alone on
+   the device clock beside cuSPARSE's product of that bucket alone; first a
    line with the card's L2 read rate (a ~10 MB L2-resident buffer read by
    torch.sum and a GEMV, by device time) and one with the host cost of
    reading the stream handle (the public Stream object against the raw
@@ -125,7 +135,8 @@ config A's and config B's operators) and phase 12 after phase 10:
    widest valued whole bucket at N=1 and 128 and its width-40 bucket at
    N=128, and on config B's width-32 and width-12 unit whole buckets at
    N=128, each timed beside its bound and cuSPARSE's product of the same
-   rows. Then, with the counts set to 0, A's SpMV and matmat N=128 and B's
+   rows (config A's widest at N = 1 and 128 on the device clock too).
+   Then, with the counts set to 0, A's SpMV and matmat N=128 and B's
    matmat N=128 under the flag: launches per product equal to the layout's
    items (ell_bucket, ell_sweep, ell_bucket_smem; the smem kernel must
    launch), the plans used, rel < 1e-6 (A) and 1e-5 (B) vs scipy f64; the
@@ -146,7 +157,8 @@ version, the least time the card could take for the same work (bytes over
 3.35 TB/s or operations over the type's peak, whichever is larger) and,
 where one PyTorch call computes the same function, that call's time. It
 prints the card's name and power limit, the ptxas report (registers,
-spills) and dynamic shared memory of the s8 engine's bodies, a JSON line
+spills) of the s8 engine's bodies, the ELL narrow body and bucket_spmv,
+the engine's dynamic shared memory, a JSON line
 of per-kernel results and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without a CUDA device, or without the
 ``fastsparse_torch`` package beside it, it exits non-zero and prints no
@@ -298,8 +310,9 @@ def check_body(name, fn, want, other):
 
 
 def engine_report(lib, ptxas_report):
-    """ptxas's registers and spills of each s8 engine body and the dynamic
-    shared memory its launch asks for."""
+    """ptxas's registers and spills of each s8 engine body, the ELL narrow
+    body and bucket_spmv, and the dynamic shared memory the engine's
+    launch asks for."""
     import ctypes
 
     for kern, lines in ptxas_report("s8_engine_kernel").items():
@@ -307,6 +320,12 @@ def engine_report(lib, ptxas_report):
         src = "densecols_spmm.cu" if "densecols" in kern else "bsr_spmm.cu"
         print(f"ptxas s8_engine_kernel{tmpl} ({src}): {' | '.join(lines)}",
               flush=True)
+    for pat, src in (("ell_narrow_kernel", "ell_spmm.cu"),
+                     ("bucket_spmv_kernel", "bsr_tiles.cu")):
+        for kern, lines in ptxas_report(pat).items():
+            tmpl = kern.split(pat, 1)[1].split("EEEv", 1)[0]
+            print(f"ptxas {pat}{tmpl} ({src}): {' | '.join(lines)}",
+                  flush=True)
     for bn, planes, nwg in ((64, 3, 2), (64, 3, 1), (128, 1, 2), (96, 1, 2),
                             (64, 1, 2), (32, 1, 2), (32, 1, 1)):
         st = ctypes.c_int(0)
@@ -339,34 +358,91 @@ def engine_body_phase(K):
               f"densecols[N={N}] on the ECFP-shaped block: not bit-exact")
 
 
+def ell_body_phase(EK):
+    """Early too (for the same reason as `engine_body_phase`): on random
+    buckets of the main path's shapes, ell_bucket runs the narrow body at
+    N = 1 and 8 and the lane-split body at N = 128 in every mode; ell_sweep
+    and ell_bucket_smem run their own kernels at N = 1 and 128. Each
+    bit-exact against its plain version."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    ncol, rows_pad = 20_000, 20_008
+
+    def x_of(N):
+        x = torch.randn((rows_pad, N), device="cuda", generator=gen)
+        x[ncol:] = 0.0
+        return x
+
+    def cols_of(nb, K):
+        return torch.randint(0, ncol + 1, (nb, K), device="cuda",
+                             generator=gen, dtype=torch.int32)
+
+    xs = {N: x_of(N) for N in (1, 8, 128)}
+    bodies = ("ell_narrow_kernel", "ell_bucket_kernel")
+    # config A's largest bucket, config B's packed one, the chunked widths
+    # (K = 81: odd, so unit takes plain columns)
+    for mode, nb, K, unit in (("valued_full", 7_808, 64, False),
+                              ("packed_full", 19_176, 32, True),
+                              ("valued_chunked", 1_360, 80, False),
+                              ("packed_chunked", 1_360, 80, True),
+                              ("unit_chunked", 1_360, 81, True)):
+        cols = cols_of(nb, K)
+        vals = torch.randn((nb, K), device="cuda", generator=gen)
+        for N, x in xs.items():
+            check_body(f"ell_bucket[{mode},N={N}]",
+                       lambda: EK.ell_bucket_spmm(cols, vals, x, unit=unit),
+                       *(bodies if N <= 8 else bodies[::-1]))
+            check(torch.equal(
+                EK.ell_bucket_spmm(cols, vals, x, unit=unit),
+                EK.ell_bucket_spmm_plain(cols, vals, x, unit=unit)),
+                f"ell_bucket[{mode},N={N}]: not bit-exact")
+    parts = ((16, 2), (8, 5), (24, 32), (8, 1))
+    flat = torch.cat([EK._pack_pairs(cols_of(n, 2 * k2)) for n, k2 in parts])
+    cols, vals = cols_of(7_808, 64), torch.randn((7_808, 64), device="cuda",
+                                                 generator=gen)
+    for N in (1, 128):
+        x = xs[N]
+        check_body(f"ell_sweep[N={N}]",
+                   lambda: EK.ell_sweep_spmm(flat, x, parts=parts),
+                   "ell_sweep_kernel", "ell_narrow_kernel")
+        check_body(f"ell_bucket_smem[N={N}]",
+                   lambda: EK.ell_bucket_spmm_smem(cols, vals, x),
+                   "ell_smem_kernel", "ell_narrow_kernel")
+
+
 def library_ms(fn, time_cuda):
     """Time of one PyTorch call computing the same function (a yardstick
     only: the port never calls it)."""
     return time_cuda(fn)["min_ms"]
 
 
-def device_pair(name, kern, library, keys, n=5, tries=5):
+def device_pair(name, kern, library, keys, n=5, tries=5,
+                lib_name="cuSPARSE"):
     """A kernel's device time per call beside one PyTorch call's on the
     same operands, each from ``n`` calls under torch.profiler; prints both
     and their ratio. ``kern`` launches one kernel a call (its name holds
-    one of ``keys``): its time is the mean over the launch records the
-    session kept. The library's is the sum of its kernels over ``n`` calls,
-    taken from a session whose most frequent kernel has a count that is a
-    multiple of ``n`` (the profiler drops whole calls' records now and
-    then, in spells; a library may add helper kernels on some calls only).
-    A session without such records is profiled again half a second later,
-    up to ``tries`` times; what the sessions saw is printed when none
-    qualifies. Event times of back-to-back short launches can read the
-    wrapper's host pace; these cannot. Beside them, each side's queued
-    event time (`time_queued`: the calls held behind a spin kernel, so
-    device time and launch gaps alone), which needs no profiler record."""
+    one of ``keys``): its time is the mean over the launch records a
+    session kept (`kernel_device_ms`). The library's is the sum of its
+    kernels over ``n`` calls, taken from a session whose most frequent
+    kernel has a count that is a multiple of ``n``, or over the calls a
+    session kept when all its kernels have one count (the profiler drops
+    whole calls' records now and then, in spells; a library may add
+    helper kernels on some calls only). A session without such records
+    is profiled again half a second later, up to ``tries`` times; what
+    the sessions saw is printed when none qualifies. Event times of
+    back-to-back short launches can read the wrapper's host pace; these
+    cannot. Beside them, each side's queued event time (`time_queued`:
+    the calls held behind a spin kernel, so device time and launch gaps
+    alone), which needs no profiler record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fastsparse_torch.bench.mono_products import device_us
+    from fastsparse_torch.bench.spmv_kernels import kernel_device_ms
     from fastsparse_torch.bench.timing import time_queued
 
-    def busy(f, keys=None):
+    def busy(f):
         f()
         torch.cuda.synchronize()
         seen = []
@@ -379,13 +455,13 @@ def device_pair(name, kern, library, keys, n=5, tries=5):
                     f()
                 torch.cuda.synchronize()
             rows = [(e.count, device_us(e)) for e in prof.key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA")
-                    and (keys is None or any(k in e.key for k in keys))]
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
             seen.append([c for c, _ in rows])
-            if keys is not None and rows:
-                return sum(t for _, t in rows) / 1e3 / sum(c for c, _ in rows)
             if rows and max(c for c, _ in rows) % n == 0:
                 return sum(t for _, t in rows) / 1e3 / n
+            counts = {c for c, _ in rows}
+            if len(counts) == 1:  # whole calls lost: per call kept
+                return sum(t for _, t in rows) / 1e3 / counts.pop()
         print(f"  {name}: no qualifying profiler session (record counts "
               f"per session {seen})", flush=True)
         return None
@@ -394,14 +470,16 @@ def device_pair(name, kern, library, keys, n=5, tries=5):
         t = time_queued(f)
         return None if t is None else t["min_ms"]
 
-    dk, dl = busy(kern, keys), busy(library)
+    dk = kernel_device_ms(kern, keys, n=n, tries=tries)
+    dl = busy(library)
     qk, ql = queued(kern), queued(library)
     ratio = dk / dl if dk and dl else None
     qratio = qk / ql if qk and ql else None
-    print(f"  {name}: device_ms={dk!r} cuSPARSE device_ms={dl!r} "
-          f"kernel/cuSPARSE={ratio!r}; queued_ms={qk!r} cuSPARSE "
-          f"queued_ms={ql!r} kernel/cuSPARSE={qratio!r}", flush=True)
-    return {"device_ms": dk, "library_device_ms": dl}
+    print(f"  {name}: device_ms={dk!r} {lib_name} device_ms={dl!r} "
+          f"kernel/{lib_name}={ratio!r}; queued_ms={qk!r} {lib_name} "
+          f"queued_ms={ql!r} kernel/{lib_name}={qratio!r}", flush=True)
+    return {"device_ms": dk, "library_device_ms": dl, "queued_ms": qk,
+            "library_queued_ms": ql}
 
 
 def mono_kernel_phase(op, mb, X, K, time_cuda):
@@ -432,6 +510,10 @@ def mono_kernel_phase(op, mb, X, K, time_cuda):
     res["colmax"]["library_ms"] = library_ms(
         lambda: torch.linalg.vector_norm(Xp, ord=float("inf"), dim=0),
         time_cuda)
+    res["colmax"].update(device_pair(
+        "colmax", lambda: K.colmax(Xp),
+        lambda: torch.linalg.vector_norm(Xp, ord=float("inf"), dim=0),
+        ("colmax_kernel",), lib_name="vector_norm"))
     s = torch.where(mx > 0, mx, 1.0) * (1.0 / (127.0 * 65536.0))
     sinv = 1.0 / s
     res["quant3_planes"], planes = compare(
@@ -463,6 +545,10 @@ def mono_kernel_phase(op, mb, X, K, time_cuda):
     print(f"  mono_panel i8w N=128: bound_ms={res['mono_panel']['bound_ms']!r}"
           f" ({res['mono_panel']['bound_by']}) cuSPARSE "
           f"{res['mono_panel']['library_ms']!r}", flush=True)
+    res["mono_panel"].update(device_pair(
+        "mono_panel[i8w,N=128]",
+        lambda: K.mono_panel_spmm(*args, planes, **i8w_kw),
+        lambda: torch.sparse.mm(A_csr, X), ("s8_engine_kernel",)))
     # narrow per-item mode at N=32 (the CG operand width)
     nq = 32
     nb = bsr_ops._round_up(3 * nq, 32)
@@ -568,7 +654,6 @@ def ell_kernel_phase(EK, opA, A_unsplit, A_unsplit_bin, opB, time_cuda):
     XA = torch.from_numpy(
         g.standard_normal((ncolA, 128)).astype(np.float32)).cuda()
     XpA = x_panel(XA, ell_ops._round_up(ncolA + 1, 8))
-    xpA1 = XpA[:, :1].contiguous()
     modes = {}
 
     def run(mode, cols, vals, x, unit, packed, quick=False):
@@ -582,19 +667,32 @@ def ell_kernel_phase(EK, opA, A_unsplit, A_unsplit_bin, opB, time_cuda):
         Acsr = gather_csr(cols, lib_vals, x.shape[0])
         r["library_ms"] = library_ms(lambda: torch.sparse.mm(Acsr, x),
                                      time_cuda)
-        if mode == "valued_full,N=1":
+        if x.shape[1] == 1:
             r.update(device_pair(
                 f"ell_bucket[{mode}]",
                 lambda: EK.ell_bucket_spmm(cols, vals, x, unit=unit,
                                            packed=packed),
-                lambda: torch.sparse.mm(Acsr, x), ("ell_bucket_kernel",)))
+                lambda: torch.sparse.mm(Acsr, x),
+                ("ell_narrow_kernel", "ell_bucket_kernel")))
+        dev = r.get("device_ms")
+        print(f"  ell_bucket[{mode}] {tuple(cols.shape)}: bound_ms="
+              f"{r['bound_ms']!r} ({r['bound_by']}), of event ms "
+              f"{r['bound_ms'] / r['ms']!r}, of device ms "
+              f"{None if not dev else r['bound_ms'] / dev!r}; cuSPARSE "
+              f"{r['library_ms']!r}", flush=True)
         r["shape"] = list(cols.shape)
         modes[mode] = r
 
+    def run_widths(mode, cols, vals, x128, unit, packed, quick=False):
+        """One mode at N=128 (the lane-split body) and at N = 1 and 8 (the
+        narrow body)."""
+        for N in (128, 1, 8):
+            x = x128 if N == 128 else x128[:, :N].contiguous()
+            run(f"{mode},N={N}", cols, vals, x, unit, packed, quick)
+
     big = max(opA.fwd.buckets, key=lambda b: b.cols.numel())
     print(f"config A largest bucket {tuple(big.cols.shape)}", flush=True)
-    run("valued_full,N=128", big.cols, big.vals, XpA, False, None)
-    run("valued_full,N=1", big.cols, big.vals, xpA1, False, None)
+    run_widths("valued_full", big.cols, big.vals, XpA, False, None)
     segB = opB.fwd.segments[0]
     rows_padB = ell_ops._round_up(segB.shape[1] + 1, 8)
     XB = torch.from_numpy(
@@ -602,18 +700,18 @@ def ell_kernel_phase(EK, opA, A_unsplit, A_unsplit_bin, opB, time_cuda):
     XpB = x_panel(XB, rows_padB)
     bB = max((b for b in segB.buckets if b.width <= 64),
              key=lambda b: b.cols.numel())
-    run("packed_full,N=128", bB.cols, bB.vals, XpB, True, bB.packed)
+    run_widths("packed_full", bB.cols, bB.vals, XpB, True, bB.packed)
     wide = max((b for b in A_unsplit.buckets if b.width > 64),
                key=lambda b: b.cols.numel())
-    run("valued_chunked,N=128", wide.cols, wide.vals, XpA, False, None,
-        quick=True)
+    run_widths("valued_chunked", wide.cols, wide.vals, XpA, False, None,
+               quick=True)
     wideb = max((b for b in A_unsplit_bin.buckets if b.width > 64),
                 key=lambda b: b.cols.numel())
-    run("packed_chunked,N=128", wideb.cols, wideb.vals, XpA, True,
-        wideb.packed, quick=True)
+    run_widths("packed_chunked", wideb.cols, wideb.vals, XpA, True,
+               wideb.packed, quick=True)
     # plain columns: an X panel past 65,536 rows cannot use 16-bit pairs
-    run("unit_chunked,N=128", wideb.cols, wideb.vals,
-        x_panel(XA, 65_544), True, None, quick=True)
+    run_widths("unit_chunked", wideb.cols, wideb.vals, x_panel(XA, 65_544),
+               True, None, quick=True)
 
     # sweep: config B segment 0's first sweep item, built as _seg_parts does
     item = next(b for b, mode, *_ in ell_ops._seg_layout(segB)
@@ -828,6 +926,11 @@ def densecols_kernel_phase(K, opE, time_cuda):
         r["shape"] = [nrow, D, N]
         print(f"  densecols N={N}: bound_ms={r['bound_ms']!r} "
               f"({r['bound_by']}) library_ms={r['library_ms']!r}", flush=True)
+        if N == 128:
+            r.update(device_pair(
+                f"densecols[N={N}]", lambda: K.densecols_spmm(block, q3t, s),
+                lambda: torch._int_mm(block, q3_cm), ("s8_engine_kernel",),
+                lib_name="torch._int_mm"))
         modes[f"N={N}"] = r
     row = dict(modes["N=128"])
     row["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
@@ -960,6 +1063,19 @@ def bsr_csr(A):
     coo = torch.sparse_coo_tensor(
         torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
         size=tuple(A.shape)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def tile_part_csr(slab_ids, tiles, ncols):
+    """A CUDA CSR (f32) of one tile-bucket launch's strips alone, ``(ns·TM,
+    ncols)``: cuSPARSE's operand for that launch's product."""
+    import torch
+
+    ns, _, TM, TK = tiles.shape
+    i, t, r, c = tiles.nonzero(as_tuple=True)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([i * TM + r, slab_ids.long()[i, t] * TK + c]),
+        tiles[i, t, r, c].float(), size=(ns * TM, ncols)).coalesce()
     return coo.to_sparse_csr()
 
 
@@ -1138,6 +1254,7 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
     import torch
 
     from fastsparse_torch.bench.mono_products import device_busy_ms
+    from fastsparse_torch.bench.spmv_kernels import kernel_device_ms
     from fastsparse_torch.ops import bsr_ops as bo
 
     g = np.random.default_rng(17)
@@ -1149,8 +1266,9 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
         """One product's launches of a kernel against the plain version
         (their outputs concatenated to compare, not while timed); beside
         the event time (which includes the wrappers' host work), the
-        device time of the launches under torch.profiler (profiled up to
-        twice more if the profiler saw no device time). With ``library`` (a
+        device time of the launches under torch.profiler (the mean over
+        the launch records kept, times the launches; `kernel_device_ms`).
+        With ``library`` (a
         callable): cuSPARSE's event and device times, and the set timed
         with and without the concatenation in three alternating rounds
         (the host's pace drifts between calls), each the least of its
@@ -1161,16 +1279,16 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
         r = compare(name, cat, lambda: torch.cat(plain()), False, (), {},
                     time_cuda, True, timed=(kern, plain))[0]
 
-        def busy_of(f, keys=None):
+        def busy_of(f):
             for _ in range(3):
-                busy, top = device_busy_ms(f, None)
+                busy, _ = device_busy_ms(f, None)
                 if busy is not None:
-                    return busy if keys is None else sum(
-                        t for t, key in top if any(k in key for k in keys))
+                    return busy
             return None
 
-        r["device_ms"] = busy_of(kern, ("spmv_kernel", "tile_mma_kernel",
-                                        "_scalar_kernel"))
+        r["device_ms"] = kernel_device_ms(
+            kern, ("spmv_kernel", "tile_mma_kernel", "_scalar_kernel"),
+            per_call=len(calls))
         if library is not None:
             r["library_ms"] = library_ms(library, time_cuda)
             r["library_device_ms"] = busy_of(lambda _: library())
@@ -1295,6 +1413,23 @@ def tile_kernel_phase(TT, opF, opT, opB, time_cuda):
               f"cuSPARSE {r['library_ms']!r}, device_ms {lib_dev!r}; device "
               f"ratio {None if not (dev and lib_dev) else dev / lib_dev!r}x",
               flush=True)
+        # each launch alone, beside cuSPARSE on that bucket's CSR alone
+        per = []
+        for k, (sl, t, xq) in enumerate(parts):
+            csr = tile_part_csr(sl, t, S.shape[1])
+            per.append(device_pair(
+                f"bucket_spmv[{name} launch {k}: {tuple(t.shape[:3])}]",
+                lambda: TT.bucket_spmv(sl, t, xq),
+                lambda: torch.sparse.mm(csr, x1), ("bucket_spmv_kernel",)))
+        r["launch_device_ms"] = [p["device_ms"] for p in per]
+        r["bucket_library_device_ms"] = [p["library_device_ms"] for p in per]
+        r["launch_queued_ms"] = [p["queued_ms"] for p in per]
+        r["bucket_library_queued_ms"] = [p["library_queued_ms"] for p in per]
+        print(f"  bucket_spmv {name} per launch: device_ms "
+              f"{r['launch_device_ms']!r}, cuSPARSE per bucket device_ms "
+              f"{r['bucket_library_device_ms']!r}; queued "
+              f"{r['launch_queued_ms']!r}, cuSPARSE "
+              f"{r['bucket_library_queued_ms']!r}", flush=True)
         modes[name] = r
     row = dict(modes["ecfp bwd"])
     row["max_abs_err"] = max(v["max_abs_err"] for v in modes.values())
@@ -1762,6 +1897,11 @@ def smem_kernel_phase(EK, opA_s, opB_s, time_cuda):
         r["shape"] = [nb, K, N]
         print(f"  bound_ms={r['bound_ms']!r} ({r['bound_by']}) "
               f"cuSPARSE {r['library_ms']!r}", flush=True)
+        if b is bA:
+            r.update(device_pair(
+                f"ell_bucket_smem[{name}]",
+                lambda: EK.ell_bucket_spmm_smem(b.cols, b.vals, x, unit=unit),
+                lambda: torch.sparse.mm(Acsr, x), ("ell_smem_kernel",)))
         modes[name] = r
     row = dict(next(iter(modes.values())))
     row["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
@@ -2003,6 +2143,7 @@ def main() -> int:
               f"min={t['min_ms']!r} median={t['median_ms']!r}", flush=True)
 
     engine_body_phase(K)
+    ell_body_phase(EK)
     kres = mono_kernel_phase(op, mb, X, K, time_cuda)
 
     # ---- mono main path through the public API

@@ -249,7 +249,9 @@ def bucket_spmv(slab_ids, tiles, x):
     Replaces ``bsr_spmm.py:bucket_spmv`` (`_spmv_body`):
     ``y[i, r] = Σ_t Σ_c tiles[i, t, r, c] · x[slab_ids[i, t], c]`` with
     bf16 (0/1) or f32 tiles and f32 ``x`` ``(n_slabs, TK)``; the products
-    are f32."""
+    are f32. The kernel reads 16-byte chunks: it takes TK a multiple of 32
+    (as `build_bsr` makes it) and 16-byte aligned tiles and ``x``, and
+    raises `NotImplementedError` on anything else."""
     dev = x.device
     _check("bucket_spmv.slab_ids", slab_ids, torch.int32, 2, dev)
     _check("bucket_spmv.x", x, torch.float32, 2, dev)
@@ -267,8 +269,10 @@ def bucket_spmv(slab_ids, tiles, x):
     if lib is None:
         return bucket_spmv_plain(slab_ids, tiles, x)
     _check("bucket_spmv.tiles", tiles, tiles.dtype, 4, dev)
-    out = torch.zeros((ns, TM), dtype=torch.float32, device=dev)
-    if ns and T:
+    if not T:
+        return torch.zeros((ns, TM), dtype=torch.float32, device=dev)
+    out = torch.empty((ns, TM), dtype=torch.float32, device=dev)
+    if ns:  # the kernel writes every row
         _launch("bucket_spmv", lib.fs_bucket_spmv, _ptr(slab_ids),
                 _ptr(tiles), _ptr(x), _ptr(out), ns, T, TM, TK,
                 _DTYPE_CODE[tiles.dtype], counts=launches)

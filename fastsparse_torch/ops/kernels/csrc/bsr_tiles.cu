@@ -65,9 +65,23 @@
 // Neither is the MXU's order: the bar against the plain versions is
 // max|d|/max|ref| <= 1e-6, not bit-exactness.
 //
-// bucket_spmv gives one warp to each (strip slot, row): lanes stride the
-// tile's columns, and a shuffle sum reduces the 32 lane sums; it streams the
-// tiles once and is bound by their bytes.
+// bucket_spmv streams the tiles once and is bound by their bytes (11.8 MB
+// on the ECFP backward segment, 0.0036 ms at 3.35 TB/s), but its launches
+// are short (a strip holds 1-32 tiles of 2 KB, in L2 when the product
+// repeats), so round trips and the work around them set its time, not
+// the bytes. A warp owns a block of a strip's rows: a tile row is LPR
+// lanes' 16-byte chunks (LPR = 16 at tile_k 128 bf16, so a warp load is
+// two 256-byte rows), and a lane loads up to 4 tiles' chunks and their x
+// chunks before its FMAs; a strip of more tiles is split over 2 or 4
+// warps of the CTA (contiguous tile ranges). Measured on the H100
+// (PERF.md): a warp per whole strip (each x chunk read once for its 8
+// rows) or 16 chunks in flight per lane ran slower than this, by the
+// registers and predicated slots they cost; the x re-reads stay in L2.
+// Order: a lane sums its chunks by fused multiply-adds, column order
+// within a chunk, then its column chunks, then the tiles in order; a
+// shuffle tree adds a row's lanes; the splits add in split order. Not the
+// MXU's order: held to max|d|/max|ref| <= 1e-6 against the f64 plain
+// version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -478,29 +492,139 @@ panel_scalar_kernel(const int* __restrict__ start,   // [ns]
 }
 
 // ---------------------------------------------------------------- #8
-template <typename TT>
-__global__ void __launch_bounds__(256)
+constexpr int SPMV_WARPS = 4;  // warps per CTA
+
+// One 16-byte tile chunk (8 bf16 or 4 f32 values) times the x values of
+// the same columns, fused multiply-adds into acc in column order.
+__device__ __forceinline__ float dot_chunk(uint4 t, const float* xv, float acc,
+                                           const __nv_bfloat16*) {
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc = __fmaf_rn(__uint_as_float(w[k] << 16), xv[2 * k], acc);
+    acc = __fmaf_rn(__uint_as_float(w[k] & 0xffff0000u), xv[2 * k + 1], acc);
+  }
+  return acc;
+}
+__device__ __forceinline__ float dot_chunk(uint4 t, const float* xv, float acc,
+                                           const float*) {
+  acc = __fmaf_rn(__uint_as_float(t.x), xv[0], acc);
+  acc = __fmaf_rn(__uint_as_float(t.y), xv[1], acc);
+  acc = __fmaf_rn(__uint_as_float(t.z), xv[2], acc);
+  return __fmaf_rn(__uint_as_float(t.w), xv[3], acc);
+}
+
+// An item is (strip, block of 32 / LPR rows); S warps share it, each
+// taking a contiguous range of the strip's T tiles. A tile row is read by
+// LPR = 2^lpr_log2 lanes in 16-byte chunks (lane cl takes chunks cl, cl +
+// LPR, ...), so one warp load covers the item's rows. A warp loads TB
+// tiles' chunks and their x chunks before the FMAs.
+template <typename TT, int TB>
+__global__ void __launch_bounds__(SPMV_WARPS * 32)
 bucket_spmv_kernel(const int* __restrict__ slab_ids,  // [ns, T]
                    const TT* __restrict__ tiles,      // [ns, T, TM, TK]
                    const float* __restrict__ x,       // [n_slabs, TK]
                    float* __restrict__ out,           // [ns, TM]
-                   int T, int TM, int TK, int nrb) {
-  const int i = blockIdx.x / nrb;
-  const int r = (blockIdx.x - i * nrb) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= TM) return;  // whole warps leave: no barrier follows
+                   int ns, int T, int TM, int TK, int nrb, int S,
+                   int lpr_log2) {
+  constexpr int E = 16 / sizeof(TT);
+  __shared__ float part[SPMV_WARPS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int item = blockIdx.x * (SPMV_WARPS / S) + warp / S;
+  const int w = warp % S;
+  const bool live = item < ns * nrb;
+  const int strip = live ? item / nrb : 0;
+  const int rl = lane >> lpr_log2;
+  const int r = ((live ? item % nrb : 0) << (5 - lpr_log2)) + rl;
+  const int cl = lane & ((1 << lpr_log2) - 1);
+  const int cpr = TK / E;
+  const int per = (T + S - 1) / S;
+  const int t_lo = min(T, w * per);
+  const int t_hi = live && r < TM ? min(T, t_lo + per) : t_lo;
+  const size_t tile_elems = (size_t)TM * TK;
+  const TT* row = tiles + (size_t)strip * T * tile_elems + (size_t)r * TK;
   float acc = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const size_t slab = (size_t)slab_ids[(size_t)i * T + t];
-    const size_t row = (((size_t)i * T + t) * TM + r) * TK;
-#pragma unroll 4
-    for (int c = lane; c < TK; c += 32)
-      acc = __fmaf_rn(ld(tiles, row + c), x[slab * TK + c], acc);
-  }
+  for (int t0 = t_lo; t0 < t_hi; t0 += TB) {
+    int sl[TB];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+    for (int b = 0; b < TB; ++b)
+      sl[b] = t0 + b < t_hi ? __ldg(slab_ids + (size_t)strip * T + t0 + b) : 0;
+    for (int c = cl; c < cpr; c += 1 << lpr_log2) {
+      uint4 tv[TB];
+      float xv[TB][E];
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        tv[b] = t0 + b < t_hi
+                    ? __ldg(reinterpret_cast<const uint4*>(
+                          row + (t0 + b) * tile_elems + c * E))
+                    : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int k = 0; k < E; k += 4) {
+          const float4 f =
+              t0 + b < t_hi
+                  ? __ldg(reinterpret_cast<const float4*>(
+                        x + (size_t)sl[b] * TK + c * E + k))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+          xv[b][k] = f.x;
+          xv[b][k + 1] = f.y;
+          xv[b][k + 2] = f.z;
+          xv[b][k + 3] = f.w;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < TB; ++b) acc = dot_chunk(tv[b], xv[b], acc, tiles);
+    }
+  }
+  // a row's LPR lanes, by a shuffle tree; then the S warps in split order
+  for (int off = (1 << lpr_log2) >> 1; off > 0; off >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  if (lane == 0) out[(size_t)i * TM + r] = acc;
+  if (S == 1) {
+    if (live && cl == 0 && r < TM) out[(size_t)strip * TM + r] = acc;
+    return;
+  }
+  if (cl == 0) part[warp][rl] = acc;
+  __syncthreads();
+  if (live && w == 0 && cl == 0 && r < TM) {
+    float s = part[warp][rl];
+    for (int k = 1; k < S; ++k) s = __fadd_rn(s, part[warp + k][rl]);
+    out[(size_t)strip * TM + r] = s;
+  }
+}
+
+template <typename TT, int TB>
+void launch_spmv(const int* slab_ids, const void* tiles, const float* x,
+                 float* out, int ns, int T, int TM, int TK, int lpr_log2,
+                 cudaStream_t st) {
+  const int rows = 32 >> lpr_log2;  // rows an item covers
+  const int nrb = (TM + rows - 1) / rows;
+  const int S = T <= TB ? 1 : T <= 2 * TB ? 2 : 4;
+  const int per_cta = SPMV_WARPS / S;
+  const long long items = (long long)ns * nrb;
+  bucket_spmv_kernel<TT, TB><<<(unsigned int)((items + per_cta - 1) / per_cta),
+                               SPMV_WARPS * 32, 0, st>>>(
+      slab_ids, (const TT*)tiles, x, out, ns, T, TM, TK, nrb, S, lpr_log2);
+}
+
+// LPR: the most lanes, up to 32, that split a tile row into whole 16-byte
+// chunks (a power of two); TB: tiles a warp loads at once, as many as the
+// strip has, up to 4.
+template <typename TT>
+int launch_spmv_any(const int* slab_ids, const void* tiles, const float* x,
+                    float* out, int ns, int T, int TM, int TK,
+                    cudaStream_t st) {
+  constexpr int E = 16 / sizeof(TT);
+  if (TK % 32 || (uintptr_t)tiles % 16 || (uintptr_t)x % 16)
+    return FS_SHAPE_REFUSED;
+  const int cpr = TK / E;
+  int lpr_log2 = 0;
+  while (lpr_log2 < 5 && (2 << lpr_log2) <= cpr) ++lpr_log2;
+  if (T >= 4)
+    launch_spmv<TT, 4>(slab_ids, tiles, x, out, ns, T, TM, TK, lpr_log2, st);
+  else if (T >= 2)
+    launch_spmv<TT, 2>(slab_ids, tiles, x, out, ns, T, TM, TK, lpr_log2, st);
+  else
+    launch_spmv<TT, 1>(slab_ids, tiles, x, out, ns, T, TM, TK, lpr_log2, st);
+  return (int)cudaGetLastError();
 }
 
 // The MMA body's shape rules, in this one place: 16-byte X loads need
@@ -604,18 +728,12 @@ int fs_bucket_spmv(const int* slab_ids, const void* tiles, const float* x,
                    float* out, int ns, int T, int TM, int TK, int tile_dt,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nrb = (TM + 7) / 8;
-  const unsigned int grid = (unsigned int)ns * nrb;
-  if (tile_dt == 1) {
-    bucket_spmv_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        slab_ids, (const __nv_bfloat16*)tiles, x, out, T, TM, TK, nrb);
-  } else if (tile_dt == 2) {
-    bucket_spmv_kernel<float><<<grid, 256, 0, st>>>(
-        slab_ids, (const float*)tiles, x, out, T, TM, TK, nrb);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (tile_dt == 1)
+    return launch_spmv_any<__nv_bfloat16>(slab_ids, tiles, x, out, ns, T, TM,
+                                          TK, st);
+  if (tile_dt == 2)
+    return launch_spmv_any<float>(slab_ids, tiles, x, out, ns, T, TM, TK, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

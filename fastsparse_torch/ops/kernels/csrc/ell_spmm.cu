@@ -44,6 +44,24 @@
 // bytes at N = 1. The slot layout, the plan and the real columns are the
 // reference's.
 //
+// Narrow body (ell_narrow_kernel), for X of at most 8 lanes (SpMV and the
+// narrow CG widths). The lane split above gives a row one thread at N = 1,
+// so a 7,808-row bucket would be 31 CTAs on 132 SMs, each thread walking
+// its row in 4-entry trips of an index/value load and a dependent X load:
+// ~32 round trips at K = 64. The narrow body gives a row four threads, thread j owning accumulator j (entries j, j+4, ... of
+// every chunk), and each of them the row's TPR lane threads, so a row
+// takes 4·TPR threads and a CTA 128 threads: that bucket is 244 CTAs.
+// A thread walks a step of up to NARROW_SLOTS of its entries (whole
+// chunks: a full row of K <= 64, 16 / ceil(KB/4) chunks of a chunked
+// row) in three unrolled passes: all indices and values, then all X
+// loads, then the dependent adds, so a step costs two round trips. At
+// each chunk's end every thread of the group reads the four accumulators
+// through __shfl_sync and joins them in order, ((a0 + a1) + a2) + a3, a
+// chain and not a tree (all compute the same sum; thread j = 0 stores
+// it), and a chunked body adds that sum into its zeroed output in chunk
+// order: the reference's arithmetic, bit for bit. A warp's index load
+// reads 16 contiguous bytes of each of its rows (at N = 1, 8 rows).
+//
 // Arithmetic, the reference's in the reference's order: four accumulators
 // per row, entry u of a chunk going to accumulator u % 4 (in packed mode
 // pair u's c0 is entry 2u, its c1 entry 2u+1), combined as
@@ -74,6 +92,10 @@
 namespace {
 
 constexpr int ELL_THREADS = 256;
+// the narrow body: X lanes it takes, threads per CTA, entries per step
+constexpr int NARROW_MAX_LANES = 8;
+constexpr int NARROW_THREADS = 128;
+constexpr int NARROW_SLOTS = 16;
 constexpr int SWEEP_MAX_PARTS = 128;
 // staged index words (and value words) per fs_ell_smem block: 20 KB each
 constexpr int SMEM_STAGE_WORDS = 5120;
@@ -227,6 +249,95 @@ ell_bucket_kernel(const int32_t* __restrict__ idx,
   store_out<V>(out, (size_t)r * ldx + col0, o);
 }
 
+// The narrow body (ldx <= NARROW_MAX_LANES): thread (row, j, q) owns
+// accumulator j of lanes [q·V, q·V + V) of its row. Its slot n of a step
+// is entry j + 4·(n % Q) of chunk c0 + n / Q, Q = ceil(KB / 4); a step
+// holds S = NARROW_SLOTS / Q whole chunks. Every loop bound and chunk end
+// is uniform across the grid, so the joins' shuffles run in full warps.
+template <int V, bool UNIT, bool PACKED>
+__global__ void __launch_bounds__(NARROW_THREADS)
+ell_narrow_kernel(const int32_t* __restrict__ idx,
+                  const float* __restrict__ vals,
+                  const float* __restrict__ x, float* __restrict__ out, int nb,
+                  int K, int KB, int full, int ldx, int tpr_log2) {
+  const int g_log2 = tpr_log2 + 2;  // 4·TPR threads a row
+  const int r = blockIdx.x * (NARROW_THREADS >> g_log2) + (threadIdx.x >> g_log2);
+  const int j = (threadIdx.x >> tpr_log2) & 3;
+  const int q = threadIdx.x & ((1 << tpr_log2) - 1);
+  const int col0 = q * V;
+  const bool live = r < nb && col0 < ldx;
+  const int src0 = (threadIdx.x & 31 & ~((1 << g_log2) - 1)) + q;  // j = 0's lane
+  const int Q = (KB + 3) >> 2;
+  const int S = NARROW_SLOTS / Q;
+  const int nchunks = K / KB;
+  const int32_t* ri = idx + (size_t)(live ? r : 0) * (PACKED ? K / 2 : K);
+  const float* rv = UNIT ? nullptr : vals + (size_t)(live ? r : 0) * K;
+  float o[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = 0.0f;
+  for (int c0 = 0; c0 < nchunks; c0 += S) {
+    int col[NARROW_SLOTS];
+    float v[NARROW_SLOTS];
+    bool ok[NARROW_SLOTS];
+    {
+      int c = c0, i = 0;
+#pragma unroll
+      for (int n = 0; n < NARROW_SLOTS; ++n) {
+        const int u = j + 4 * i;
+        const int e = c * KB + u;
+        ok[n] = live && c < c0 + S && c < nchunks && u < KB;
+        col[n] = ok[n] ? col_at<PACKED, true>(ri, e) : 0;
+        v[n] = ok[n] ? val_at<UNIT, true>(rv, e) : 0.0f;
+        if (++i == Q) {
+          i = 0;
+          ++c;
+        }
+      }
+    }
+    float xr[NARROW_SLOTS][V];
+#pragma unroll
+    for (int n = 0; n < NARROW_SLOTS; ++n) {
+      if (ok[n]) {
+        load_x<V>(x, (size_t)col[n] * ldx + col0, xr[n]);
+      } else {
+#pragma unroll
+        for (int l = 0; l < V; ++l) xr[n][l] = 0.0f;
+      }
+    }
+    float a[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) a[l] = 0.0f;
+    int c = c0, i = 0;
+#pragma unroll
+    for (int n = 0; n < NARROW_SLOTS; ++n) {
+      if (ok[n]) {
+#pragma unroll
+        for (int l = 0; l < V; ++l) {
+          a[l] = UNIT ? __fadd_rn(a[l], xr[n][l])
+                      : __fadd_rn(a[l], __fmul_rn(xr[n][l], v[n]));
+        }
+      }
+      if (++i == Q) {
+        if (c < c0 + S && c < nchunks) {  // uniform: the chunk's join
+#pragma unroll
+          for (int l = 0; l < V; ++l) {
+            const float a0 = __shfl_sync(0xffffffffu, a[l], src0);
+            const float a1 = __shfl_sync(0xffffffffu, a[l], src0 + (1 << tpr_log2));
+            const float a2 = __shfl_sync(0xffffffffu, a[l], src0 + (2 << tpr_log2));
+            const float a3 = __shfl_sync(0xffffffffu, a[l], src0 + (3 << tpr_log2));
+            const float s = __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), a2), a3);
+            o[l] = full ? s : __fadd_rn(o[l], s);
+            a[l] = 0.0f;
+          }
+        }
+        i = 0;
+        ++c;
+      }
+    }
+  }
+  if (live && j == 0) store_out<V>(out, (size_t)r * ldx + col0, o);
+}
+
 template <int V>
 __global__ void __launch_bounds__(ELL_THREADS)
 ell_sweep_kernel(const int32_t* __restrict__ words, const float* __restrict__ x,
@@ -309,9 +420,34 @@ LaneSplit lane_split(const void* x, const void* out, int ldx) {
 }
 
 template <int V>
+int launch_narrow(const int32_t* idx, const float* vals, const float* x,
+                  float* out, int nb, int K, int KB, int full, int unit,
+                  int packed, int ldx, const LaneSplit& s, cudaStream_t st) {
+  const int rows_per_block = NARROW_THREADS >> (s.tpr_log2 + 2);
+  const unsigned int grid = (nb + rows_per_block - 1) / rows_per_block;
+  if (unit && packed) {
+    ell_narrow_kernel<V, true, true><<<grid, NARROW_THREADS, 0, st>>>(
+        idx, vals, x, out, nb, K, KB, full, ldx, s.tpr_log2);
+  } else if (unit) {
+    ell_narrow_kernel<V, true, false><<<grid, NARROW_THREADS, 0, st>>>(
+        idx, vals, x, out, nb, K, KB, full, ldx, s.tpr_log2);
+  } else if (!packed) {
+    ell_narrow_kernel<V, false, false><<<grid, NARROW_THREADS, 0, st>>>(
+        idx, vals, x, out, nb, K, KB, full, ldx, s.tpr_log2);
+  } else {
+    return (int)cudaErrorInvalidValue;  // packed pairs are unit-only
+  }
+  return 0;
+}
+
+template <int V>
 int launch_bucket(const int32_t* idx, const float* vals, const float* x,
                   float* out, int nb, int K, int KB, int full, int unit,
                   int packed, int ldx, const LaneSplit& s, cudaStream_t st) {
+  if (ldx <= NARROW_MAX_LANES && KB <= 4 * NARROW_SLOTS) {  // a chunk fits a step
+    return launch_narrow<V>(idx, vals, x, out, nb, K, KB, full, unit, packed,
+                            ldx, s, st);
+  }
   const int rows_per_block = ELL_THREADS >> s.tpr_log2;
   dim3 grid((nb + rows_per_block - 1) / rows_per_block, s.n_col_blocks);
   if (unit && packed) {

@@ -236,7 +236,7 @@ def _ell_inputs(K, lanes, seed, nb=40, ncol=3000):
             torch.from_numpy(x).cuda())
 
 
-@pytest.mark.parametrize("lanes", [1, 6, 128, 260])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 4, 6, 8, 128, 260])
 @pytest.mark.parametrize("mode", sorted(ELL_MODES))
 def test_ell_bucket_kernel_matches_plain(card, mode, lanes):
     K, unit, packed = ELL_MODES[mode]
@@ -249,6 +249,49 @@ def test_ell_bucket_kernel_matches_plain(card, mode, lanes):
     assert ek.launches["ell_bucket"] == 1
     yp = ek.ell_bucket_spmm_plain(cols, vals, x, unit=unit, packed=pk)
     assert yk.shape == (cols.shape[0], lanes) and torch.equal(yk, yp)
+
+
+# (K, unit, packed, nb): a single slot (three of a row's four accumulator
+# threads hold no entry), and 72 rows (not a multiple of the narrow
+# body's 32, 16 or 4 rows a CTA)
+NARROW_EDGES = {
+    "valued_k1": (1, False, False, 40),
+    "unit_k1": (1, True, False, 40),
+    "packed_k2": (2, True, True, 40),
+    "valued_72_rows": (48, False, False, 72),
+    "packed_chunked_72_rows": (200, True, True, 72),
+}
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("case", sorted(NARROW_EDGES))
+def test_ell_bucket_narrow_edges(card, case, lanes):
+    K, unit, packed, nb = NARROW_EDGES[case]
+    cols, vals, x = _ell_inputs(K, lanes, seed=K + nb + lanes, nb=nb)
+    pk = ek._pack_pairs(cols).reshape(nb, K // 2) if packed else None
+    assert ek._body_mode(K, x.shape[0], unit)[2] == packed
+    yk = ek.ell_bucket_spmm(cols, vals, x, unit=unit, packed=pk)
+    torch.cuda.synchronize()
+    yp = ek.ell_bucket_spmm_plain(cols, vals, x, unit=unit, packed=pk)
+    assert yk.shape == (nb, lanes) and torch.equal(yk, yp)
+
+
+def test_ell_bucket_picks_body(card):
+    """At most 8 X lanes run the narrow body (four threads a row), 16 and
+    128 lanes the lane-split body; each mode bit-exact on each."""
+    for mode, (K, unit, packed) in sorted(ELL_MODES.items()):
+        for lanes in (1, 2, 4, 8, 16, 128):
+            cols, vals, x = _ell_inputs(K, lanes, seed=lanes)
+            pk = (ek._pack_pairs(cols).reshape(cols.shape[0], K // 2)
+                  if packed else None)
+            names = _kernel_names(lambda: ek.ell_bucket_spmm(
+                cols, vals, x, unit=unit, packed=pk))
+            want, other = ("ell_narrow_kernel", "ell_bucket_kernel")[
+                :: 1 if lanes <= 8 else -1]
+            assert want in names and other not in names, (mode, lanes, names)
+            assert torch.equal(
+                ek.ell_bucket_spmm(cols, vals, x, unit=unit, packed=pk),
+                ek.ell_bucket_spmm_plain(cols, vals, x, unit=unit, packed=pk))
 
 
 @pytest.mark.parametrize("lanes", [1, 128])
@@ -735,12 +778,17 @@ def test_tile_kernels_pick_one_body(card):
                     tt.panel_spmm_plain(start, pan, x, **kw)) <= 1e-6
 
 
-@pytest.mark.parametrize("TM", [8, 20])
+@pytest.mark.parametrize("TK", [128, 512])
+@pytest.mark.parametrize("T", [1, 5, 16])
+@pytest.mark.parametrize("TM", [8, 20, 32])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_bucket_spmv_kernel_matches_plain(card, dtype, TM):
-    g = np.random.default_rng(TM + 1)
-    slab, tiles = _tile_bucket(g, ns=21, T=5, TM=TM, dtype=dtype)
-    x = torch.from_numpy(g.standard_normal((20, 128)).astype(np.float32)).cuda()
+def test_bucket_spmv_kernel_matches_plain(card, dtype, TM, T, TK):
+    """Strips of 1 to 16 tiles (1, 2 or 4 tiles a batch; a strip split
+    over 2 or 4 warps), TM not a multiple of 8 and past a warp's rows,
+    tile_k 128 and 512, bf16 and f32 tiles."""
+    g = np.random.default_rng(TM + T + TK)
+    slab, tiles = _tile_bucket(g, ns=21, T=T, TM=TM, TK=TK, dtype=dtype)
+    x = torch.from_numpy(g.standard_normal((20, TK)).astype(np.float32)).cuda()
     tt.reset_launches()
     yk = tt.bucket_spmv(slab, tiles, x)
     torch.cuda.synchronize()

@@ -191,8 +191,12 @@ KERNEL_MODES = {
 }
 
 
+@pytest.mark.parametrize("lanes", [1, 3, 8, 128])
 @pytest.mark.parametrize("mode", sorted(KERNEL_MODES))
-def test_bucket_kernel_plain_vs_pallas(mode):
+def test_bucket_kernel_plain_vs_pallas(mode, lanes):
+    """The port's plain version on X of ``lanes`` lanes (the narrow body's
+    widths on the card at N <= 8) against the Pallas kernel on the same X
+    zero-padded to its 128-lane block, first ``lanes`` columns."""
     K, unit, packed = KERNEL_MODES[mode]
     g = np.random.default_rng(K)
     nb, ncol = 8, 700
@@ -200,15 +204,16 @@ def test_bucket_kernel_plain_vs_pallas(mode):
     cols[-2:, K // 2:] = ncol  # sentinel slots
     vals = g.standard_normal((nb, K)).astype(np.float32)
     x = np.zeros((ncol + 4, 128), np.float32)
-    x[:ncol] = g.standard_normal((ncol, 128))
+    x[:ncol, :lanes] = g.standard_normal((ncol, 128))[:, :lanes]
     ct = torch.from_numpy(cols)
     pk = tk._pack_pairs(ct).reshape(nb, K // 2) if packed else None
     assert tk._body_mode(K, x.shape[0], unit)[2] == packed
     ref = np.asarray(jk.ell_bucket_spmm(
         jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x), n_block=128,
         unit=unit, packed=None if pk is None else jnp.asarray(pk.numpy()),
-    ))
-    got = tk.ell_bucket_spmm(ct, torch.from_numpy(vals), torch.from_numpy(x),
+    ))[:, :lanes]
+    got = tk.ell_bucket_spmm(ct, torch.from_numpy(vals),
+                             torch.from_numpy(x[:, :lanes].copy()),
                              unit=unit, packed=pk).numpy()
     assert got.shape == ref.shape
     if unit:
