@@ -24,9 +24,14 @@ config A's and config B's operators) and phase 12 after phase 10:
    mono products of phase 2 are timed by CUDA events; then the kernel
    bodies are checked by name (phase 5's densecols bodies, and the ELL
    bodies: ell_bucket runs the narrow body at N = 1 and 8 and the
-   lane-split body at N = 128 in every mode, ell_sweep and
-   ell_bucket_smem their own kernels, each bit-exact, on random buckets
-   of the main path's shapes).
+   lane-split body at N = 128 in every mode, ell_sweep its own kernel,
+   ell_bucket_smem its narrow body (``ell_smem_narrow_kernel``) at N = 1
+   and 8 and ``ell_smem_kernel`` at N = 128; ell_bucket_dd_valued runs
+   its split kernel (``ell_dd_valued_kernel``) on config 2-fp64's
+   longest-row shape (8 x 2,048, N=1) and its kernel of one thread a
+   chain (``ell_dd_valued_rows_kernel``) on its largest (5,048 x 32,
+   N=32), and ell_bucket_dd ``ell_dd_kernel`` on config B's (18,864 x 32,
+   N=32); each bit-exact, on random buckets of the main path's shapes).
 2. mono main-path phase: with every launch count set to 0, ``operator(m,
    format="bsr", transpose=True, device="cuda")`` products through the
    public API: matmat at N=128 and matvec on the headline matrix,
@@ -112,10 +117,12 @@ config A's and config B's operators) and phase 12 after phase 10:
 9. dd kernel phase: the two double-word gathers against their plain
    versions, bit-equal in hi and lo: ell_bucket_dd_valued on the largest
    bucket of BASELINE config 1's `build_ell_dd` (N=1) and of config 2 in
-   fp64 (N=1 and N=32), ell_bucket_dd on config B's largest unsplit unit
+   fp64 (N=1 and N=32) and on config 2-fp64's longest-row bucket (8 x
+   2,048, N=1 and N=32), ell_bucket_dd on config B's largest unsplit unit
    bucket (N=1 and N=32); each timed beside its plain version, its bound
-   and cuSPARSE's f64 product of the same rows; at N=32 (config 2-fp64,
-   config B) also by device time against cuSPARSE's device time.
+   and cuSPARSE's f64 product of the same rows; at N=32 (config 2-fp64's
+   largest, config B) and on the longest-row bucket at N=1 also by device
+   time against cuSPARSE's device time.
 10. fp64 main-path phase: with the counts set to 0, BASELINE config 1
    (``powerlaw(100_000, 100_000, 5_000_000, seed=0, alpha=1.0)``, f64)
    both ways the reference's suite runs it, ``operator(m1, format="ell",
@@ -125,17 +132,21 @@ config A's and config B's operators) and phase 12 after phase 10:
    ``spmm_dd(operator(mB, format="ell", transpose=False,
    config=Config(ell_split_rows=0)), X)`` at N=32 (3 segments). Each
    within max|d|/max|ref| 1e-10 of scipy f64; both dd kernels must
-   launch. Then host build seconds, per-product times, launches, device
-   busy time and idle share.
+   launch. Then the five longest dd launches of config 2-fp64's product
+   (torch.profiler, each with its bucket's shape; also in the kernels
+   JSON line under ell_bucket_dd_valued's ``longest_launches``), host
+   build seconds, per-product times, launches, device busy time and idle
+   share.
 11. SMEM-blocked gather phase: config A (``operator(mA)``) and config B
    (``operator(mB, format="ell", transpose=False)``) built again with
    ``ell_ops.USE_SMEM_PATH = True`` (their plans are keyed by the flag;
    the flag is set inside try/finally and always reset).
    ell_bucket_smem against its plain version, bit-exact, on config A's
-   widest valued whole bucket at N=1 and 128 and its width-40 bucket at
-   N=128, and on config B's width-32 and width-12 unit whole buckets at
-   N=128, each timed beside its bound and cuSPARSE's product of the same
-   rows (config A's widest at N = 1 and 128 on the device clock too).
+   widest valued whole bucket at N=1 (the narrow body) and 128 and its
+   width-40 bucket at N=128, and on config B's width-32 and width-12 unit
+   whole buckets at N=128, each timed beside its bound and cuSPARSE's
+   product of the same rows (config A's widest at N = 1 and 128 on the
+   device clock too).
    Then, with the counts set to 0, A's SpMV and matmat N=128 and B's
    matmat N=128 under the flag: launches per product equal to the layout's
    items (ell_bucket, ell_sweep, ell_bucket_smem; the smem kernel must
@@ -157,7 +168,8 @@ version, the least time the card could take for the same work (bytes over
 3.35 TB/s or operations over the type's peak, whichever is larger) and,
 where one PyTorch call computes the same function, that call's time. It
 prints the card's name and power limit, the ptxas report (registers,
-spills) of the s8 engine's bodies, the ELL narrow body and bucket_spmv,
+spills) of the s8 engine's bodies, the ELL narrow bodies (ell_bucket's
+and ell_bucket_smem's), the valued dd kernel and bucket_spmv,
 the engine's dynamic shared memory, a JSON line
 of per-kernel results and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without a CUDA device, or without the
@@ -302,17 +314,19 @@ def kernel_names(fn, tries=3):
 
 
 def check_body(name, fn, want, other):
-    """``fn`` must run the kernel named ``want`` and not ``other``."""
+    """``fn`` must run the kernel named ``want`` and not ``other`` (a name
+    or a tuple of names)."""
     names = kernel_names(fn)
-    check(want in names and other not in names,
+    others = (other,) if isinstance(other, str) else other
+    check(want in names and not any(o in names for o in others),
           f"{name}: expected body {want}, profiler saw: {names[:300]}")
     print(f"  {name}: body {want}", flush=True)
 
 
 def engine_report(lib, ptxas_report):
     """ptxas's registers and spills of each s8 engine body, the ELL narrow
-    body and bucket_spmv, and the dynamic shared memory the engine's
-    launch asks for."""
+    bodies, the valued dd kernel and bucket_spmv, and the dynamic shared
+    memory the engine's launch asks for."""
     import ctypes
 
     for kern, lines in ptxas_report("s8_engine_kernel").items():
@@ -321,6 +335,8 @@ def engine_report(lib, ptxas_report):
         print(f"ptxas s8_engine_kernel{tmpl} ({src}): {' | '.join(lines)}",
               flush=True)
     for pat, src in (("ell_narrow_kernel", "ell_spmm.cu"),
+                     ("ell_smem_narrow_kernel", "ell_spmm.cu"),
+                     ("ell_dd_valued", "ell_dd.cu"),
                      ("bucket_spmv_kernel", "bsr_tiles.cu")):
         for kern, lines in ptxas_report(pat).items():
             tmpl = kern.split(pat, 1)[1].split("EEEv", 1)[0]
@@ -358,12 +374,15 @@ def engine_body_phase(K):
               f"densecols[N={N}] on the ECFP-shaped block: not bit-exact")
 
 
-def ell_body_phase(EK):
+def ell_body_phase(EK, DK):
     """Early too (for the same reason as `engine_body_phase`): on random
     buckets of the main path's shapes, ell_bucket runs the narrow body at
     N = 1 and 8 and the lane-split body at N = 128 in every mode; ell_sweep
-    and ell_bucket_smem run their own kernels at N = 1 and 128. Each
-    bit-exact against its plain version."""
+    runs its own kernel at N = 1 and 128; ell_bucket_smem its narrow body
+    at N = 1 and 8 and its lane-split body at N = 128; the dd gathers
+    their own kernels (the valued one on config 2-fp64's longest-row and
+    largest shapes, the unit one on config B's). Each bit-exact against
+    its plain version."""
     import torch
 
     gen = torch.Generator("cuda").manual_seed(11)
@@ -406,9 +425,50 @@ def ell_body_phase(EK):
         check_body(f"ell_sweep[N={N}]",
                    lambda: EK.ell_sweep_spmm(flat, x, parts=parts),
                    "ell_sweep_kernel", "ell_narrow_kernel")
+    for N, x in xs.items():
         check_body(f"ell_bucket_smem[N={N}]",
                    lambda: EK.ell_bucket_spmm_smem(cols, vals, x),
-                   "ell_smem_kernel", "ell_narrow_kernel")
+                   *(("ell_smem_narrow_kernel",
+                      ("ell_smem_kernel", "ell_narrow_kernel")) if N <= 8
+                     else ("ell_smem_kernel", "ell_smem_narrow_kernel")))
+        check(torch.equal(EK.ell_bucket_spmm_smem(cols, vals, x),
+                          EK.ell_bucket_spmm_smem_plain(cols, vals, x)),
+              f"ell_bucket_smem[N={N}]: not bit-exact")
+    # dd: (rows, slots, lanes) of config 2-fp64's longest-row bucket (few
+    # long rows: the split kernel) and largest bucket (many rows: every
+    # thread a chain), and of config B's largest unit bucket
+    k_rows = 20_008
+    dd_bodies = ("ell_dd_valued_kernel", "ell_dd_valued_rows_kernel",
+                 "ell_dd_kernel")
+    for valued, nb, K, N, want in (
+            (True, 8, 2048, 1, "ell_dd_valued_kernel"),
+            (True, 5048, 32, 32, "ell_dd_valued_rows_kernel"),
+            (False, 18_864, 32, 32, "ell_dd_kernel")):
+        c = torch.randint(0, ncol, (nb, K), device="cuda", generator=gen,
+                          dtype=torch.int32)
+        x2 = torch.randn((2 * k_rows, N), device="cuda", generator=gen)
+        x2[k_rows:] *= 1e-8
+        if valued:
+            vh = torch.randn((nb, K), device="cuda", generator=gen)
+            vl = vh * 1e-8
+
+            def kern():
+                return DK.ell_bucket_spmm_dd_valued(c, vh, vl, x2)
+
+            def plain():
+                return DK.ell_bucket_spmm_dd_valued_plain(c, vh, vl, x2)
+        else:
+            def kern():
+                return DK.ell_bucket_spmm_dd(c, x2)
+
+            def plain():
+                return DK.ell_bucket_spmm_dd_plain(c, x2)
+        name = (f"ell_bucket_dd{'_valued' if valued else ''}"
+                f"[{nb}x{K},N={N}]")
+        check_body(name, kern, want,
+                   tuple(k for k in dd_bodies if k != want))
+        check(all(torch.equal(k, p) for k, p in zip(kern(), plain())),
+              f"{name}: not bit-exact")
 
 
 def library_ms(fn, time_cuda):
@@ -1542,9 +1602,10 @@ def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
     return counts
 
 
-def largest_dd_bucket(A, valued):
+def largest_dd_bucket(A, valued, key=lambda b: b.cols.numel()):
     """(offset, segment, bucket, lo bucket or None) of the bucket with the
-    most slots in a DdEll (valued) or a unit ELL tiling."""
+    most slots (or the largest ``key``) in a DdEll (valued) or a unit ELL
+    tiling."""
     from fastsparse_torch.ops.ell_ops import _segments
 
     if valued:
@@ -1554,7 +1615,7 @@ def largest_dd_bucket(A, valued):
     else:
         items = [(off, seg, b, None) for off, seg in _segments(A)
                  for b in seg.buckets]
-    return max(items, key=lambda it: it[2].cols.numel())
+    return max(items, key=lambda it: key(it[2]))
 
 
 def dd_kernel_run(DK, name, cols, vh, vl, x2, time_cuda, device=False):
@@ -1562,6 +1623,8 @@ def dd_kernel_run(DK, name, cols, vh, vl, x2, time_cuda, device=False):
     (bit-equal in hi and lo), timed beside it, its bound and cuSPARSE's
     f64 product of the same rows (``device``: also both device times)."""
     import torch
+
+    from fastsparse_torch.bench.spmv_kernels import dd_work
 
     valued = vh is not None
     if valued:
@@ -1591,15 +1654,9 @@ def dd_kernel_run(DK, name, cols, vh, vl, x2, time_cuda, device=False):
     tp = time_cuda(plain, reps=2, batches=3, warmup=1)
     nb, K = cols.shape
     k_rows, L = x2.shape[0] // 2, x2.shape[1]
-    slots = nb * K
-    rows_used = int(torch.unique(cols).numel())
     r = {"max_abs_err": d, "ms": tk["min_ms"], "plain_ms": tp["min_ms"],
          "shape": [nb, K, L]}
-    r.update(bound(slots * (12 if valued else 4) + rows_used * L * 8
-                   + nb * L * 8,
-                   slots * L * (25 if valued else 8) + (4 * slots if valued
-                                                        else 0),
-                   F32_OPS_PER_S))
+    r.update(bound(*dd_work(cols, L, valued), F32_OPS_PER_S))
     vals = (vh.double() + vl.double()) if valued else torch.ones(
         (nb, K), dtype=torch.float64, device=cols.device)
     Acsr = gather_csr(cols, vals, k_rows)
@@ -1610,15 +1667,17 @@ def dd_kernel_run(DK, name, cols, vh, vl, x2, time_cuda, device=False):
           f"{r['plain_ms']!r} bound_ms={r['bound_ms']!r} ({r['bound_by']}) "
           f"cuSPARSE f64 {r['library_ms']!r}", flush=True)
     if device:
-        r.update(device_pair(name, kern, lambda: torch.sparse.mm(Acsr, X64),
-                             ("ell_dd_kernel",)))
+        r.update(device_pair(
+            name, kern, lambda: torch.sparse.mm(Acsr, X64),
+            ("ell_dd_valued",) if valued else ("ell_dd_kernel",)))
     return r
 
 
 def dd_kernel_phase(DK, A1, A2d, opBu, time_cuda):
     """Each dd kernel against its plain version at the main path's shapes:
-    #13 on config 1's and config 2-fp64's largest DdEll bucket, #12 on
-    config B's largest unsplit unit bucket."""
+    #13 on config 1's and config 2-fp64's largest DdEll bucket and on
+    config 2-fp64's longest-row bucket, #12 on config B's largest unsplit
+    unit bucket."""
     import numpy as np
     import torch
 
@@ -1643,6 +1702,15 @@ def dd_kernel_phase(DK, A1, A2d, opBu, time_cuda):
                 DK, f"ell_bucket_dd_valued[{cname},N={N}]", b.cols, b.vals,
                 bl.vals, panel(off, seg, N), time_cuda,
                 device=(cname, N) == ("config 2-fp64", 32))
+    off, seg, b, bl = largest_dd_bucket(A2d, True,
+                                        key=lambda b: b.cols.shape[::-1])
+    print(f"config 2-fp64 longest-row DdEll bucket {tuple(b.cols.shape)} "
+          f"(segment at column {off})", flush=True)
+    for N in (1, 32):
+        modes[f"config 2-fp64 longest,N={N}"] = dd_kernel_run(
+            DK, f"ell_bucket_dd_valued[config 2-fp64 longest,N={N}]",
+            b.cols, b.vals, bl.vals, panel(off, seg, N), time_cuda,
+            device=N == 1)
     valued = dict(modes["config 1,N=1"])
     valued["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
     valued["modes"] = modes
@@ -1712,7 +1780,9 @@ def fp64_builds(ft, mB):
 def longest_dd_launches(fn, arg, tiling, name, top=5):
     """The longest dd kernel launches of one product under torch.profiler,
     each with its bucket's (segment, rows, slots): launches run in the
-    order `ell_spmm_dd` walks the buckets."""
+    order `ell_spmm_dd` walks the buckets. Returns ``{"launches",
+    "device_us", "longest": [[us, segment, rows, slots], ...]}``, or None
+    when the profiler's records do not match the buckets."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1726,21 +1796,23 @@ def longest_dd_launches(fn, arg, tiling, name, top=5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn(arg)
             torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events() if "ell_dd_kernel" in e.name),
+        evs = sorted((e for e in prof.events() if "ell_dd" in e.name),
                      key=lambda e: e.time_range.start)
         us = [e.time_range.elapsed_us() for e in evs]
     except Exception as exc:  # the sandbox's profiler is untried
         print(f"{name} launches: not measured ({exc!r})", flush=True)
-        return
+        return None
     if len(us) != len(shapes):
         print(f"{name} launches: {len(us)} kernel events for "
               f"{len(shapes)} buckets, not matched", flush=True)
-        return
+        return None
     order = sorted(range(len(us)), key=lambda i: -us[i])[:top]
     print(f"{name}: {len(us)} dd launches, {sum(us)!r} us in all; longest "
           + ", ".join(f"{us[i]!r} us (segment {shapes[i][0]}, "
                       f"{shapes[i][1]} rows x {shapes[i][2]} slots)"
                       for i in order), flush=True)
+    return {"launches": len(us), "device_us": sum(us),
+            "longest": [[us[i], *shapes[i]] for i in order]}
 
 
 def fp64_main_phase(ft, counters, DK, m1, m2d, mB, op1, A1, A2d, opBu,
@@ -1784,8 +1856,8 @@ def fp64_main_phase(ft, counters, DK, m1, m2d, mB, op1, A1, A2d, opBu,
     for name in ("ell_bucket_dd", "ell_bucket_dd_valued"):
         check(counts[name] > 0, f"kernel {name} never launched on the fp64 path")
 
-    longest_dd_launches(lambda v: ft.spmm_dd(A2d, v), x2, A2d.hi,
-                        "config2-fp64.spmm_dd")
+    longest = longest_dd_launches(lambda v: ft.spmm_dd(A2d, v), x2, A2d.hi,
+                                  "config2-fp64.spmm_dd")
     products = {
         "config1.operator.matvec": (op1.matvec, x1),
         "config1.spmm_dd": (lambda v: ft.spmm_dd(A1, v), x1[:, None]),
@@ -1793,7 +1865,7 @@ def fp64_main_phase(ft, counters, DK, m1, m2d, mB, op1, A1, A2d, opBu,
         "configB-unit.spmm_dd N=32": (lambda v: ft.spmm_dd(opBu, v), XB),
     }
     time_products(products, time_cuda, counters)
-    return counts
+    return counts, longest
 
 
 @contextlib.contextmanager
@@ -1901,7 +1973,7 @@ def smem_kernel_phase(EK, opA_s, opB_s, time_cuda):
             r.update(device_pair(
                 f"ell_bucket_smem[{name}]",
                 lambda: EK.ell_bucket_spmm_smem(b.cols, b.vals, x, unit=unit),
-                lambda: torch.sparse.mm(Acsr, x), ("ell_smem_kernel",)))
+                lambda: torch.sparse.mm(Acsr, x), ("ell_smem",)))
         modes[name] = r
     row = dict(next(iter(modes.values())))
     row["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
@@ -2143,7 +2215,7 @@ def main() -> int:
               f"min={t['min_ms']!r} median={t['median_ms']!r}", flush=True)
 
     engine_body_phase(K)
-    ell_body_phase(EK)
+    ell_body_phase(EK, DK)
     kres = mono_kernel_phase(op, mb, X, K, time_cuda)
 
     # ---- mono main path through the public API
@@ -2276,8 +2348,9 @@ def main() -> int:
     # ---- fp64: BASELINE config 1, config 2 in fp64, the unit dd form
     m1, m2d, op1, A1, A2d, opBu = fp64_builds(ft, mB)
     kres.update(dd_kernel_phase(DK, A1, A2d, opBu, time_cuda))
-    dd_counts = fp64_main_phase(ft, (K, EK, TT, DK), DK, m1, m2d, mB, op1,
-                                A1, A2d, opBu, time_cuda)
+    dd_counts, longest = fp64_main_phase(ft, (K, EK, TT, DK), DK, m1, m2d,
+                                         mB, op1, A1, A2d, opBu, time_cuda)
+    kres["ell_bucket_dd_valued"]["longest_launches"] = longest
     counts.update({k: dd_counts[k]
                    for k in ("ell_bucket_dd", "ell_bucket_dd_valued")})
     del op1, A1, A2d, opBu
@@ -2298,7 +2371,8 @@ def main() -> int:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         entry.update({k: v for k, v in r.items()
                       if k.startswith("narrow_") or k in (
-                          "modes", "parts", "device_ms", "library_device_ms")})
+                          "modes", "parts", "device_ms", "library_device_ms",
+                          "longest_launches")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,35 @@
-"""The gather kernels and the tile SpMV, and the narrow products they
-serve, timed on one card.
+"""The gather kernels and the tile SpMV, and the products they serve,
+timed on one card.
 
     python3 fastsparse_torch/bench/spmv_kernels.py [--root DIR]
+        [--groups spmv,smem,dd]
 
-Kernels, each through its wrapper at the main path's shapes: ell_bucket
-(#9) on config A's largest bucket (BASELINE config 2, 7,808 x 64 valued)
-at N = 1, 8, 128, on config B's largest packed whole-row bucket at N = 1
-and 128, and in the chunked modes at N=1 (valued and packed on config A
-built unsplit, unit with plain columns against a 65,544-row X); ell_sweep
-(#10) on config B's first sweep item at N = 1 and 128; ell_bucket_smem
-(#11) on config A's 7,808 x 64 bucket at N = 1 and 128; bucket_spmv (#8)
-on the ECFP transpose tiling's largest segment (5 launches, as a set and
-each alone) and on config B's tile segment (``reorder="degree"``, 1
-launch). Products: config A SpMV
+Group ``spmv``, each kernel through its wrapper at the main path's shapes:
+ell_bucket (#9) on config A's largest bucket (BASELINE config 2, 7,808 x
+64 valued) at N = 1, 8, 128, on config B's largest packed whole-row
+bucket at N = 1 and 128, and in the chunked modes at N=1 (valued and
+packed on config A built unsplit, unit with plain columns against a
+65,544-row X); ell_sweep (#10) on config B's first sweep item at N = 1
+and 128; ell_bucket_smem (#11) on config A's 7,808 x 64 bucket at N = 1
+and 128; bucket_spmv (#8) on the ECFP transpose tiling's largest segment
+(5 launches, as a set and each alone) and on config B's tile segment
+(``reorder="degree"``, 1 launch). Products: config A SpMV
 (``operator(m)``), config 2 SpMV (``reorder="auto", transpose=False``),
 config B SpMV (``format="ell"``), ECFP matvec (``operator(m)``) and config
 B ``reorder="degree"`` matvec, each with its error against scipy in
 float64.
+
+Group ``smem``: ell_bucket_smem (#11) on config A's four whole buckets
+under ``ell_ops.USE_SMEM_PATH`` at N = 1, 8 and 128, and cuSPARSE's
+product of the same rows at N=1; the product config A SpMV with the flag
+on.
+
+Group ``dd``: ell_bucket_dd_valued (#13) on every bucket of config 2 in
+fp64 (``build_ell_dd``, 60 buckets) at N=1, each with its bound; the dd
+launches of one ``spmm_dd`` as a set (the buckets' launches on their
+segments' panels, without the merges): #13 on config 2-fp64 (N=1) and
+BASELINE config 1 (N=1), #12 on config B's unsplit unit layout (N=32);
+and those three ``spmm_dd`` products, with their error against scipy.
 
 Run as a script it prints the card's name and power limit, then one JSON
 line per item: the CUDA-event minimum and median in ms (20 calls a batch,
@@ -24,31 +37,35 @@ line per item: the CUDA-event minimum and median in ms (20 calls a batch,
 for a kernel the queued time (`timing.time_queued`: the calls held
 behind a spin kernel, so device time and launch gaps alone); then the
 device time per call under torch.profiler (for a kernel the named
-kernel's records, for a product every kernel's: its device busy time)
-and, for a product, the idle share ``1 - busy / median`` and its largest
-kernels. ``--root`` names
-the checkout whose ``fastsparse_torch`` is imported (default: the one
-holding this file), so that one copy of this script times two trees in
-turns on one card. Without a CUDA device it exits 2 and prints no
-result.
+kernel's records, for a library call and a product every kernel's: its
+device busy time) and, for a product, the idle share ``1 - busy /
+median`` and its largest kernels. ``--root`` names the checkout whose
+``fastsparse_torch`` is imported (default: the one holding this file), so
+that one copy of this script times two trees in turns on one card.
+Without a CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 ELL_KEYS = ("ell_narrow_kernel", "ell_bucket_kernel")
+GROUPS = ("spmv", "smem", "dd")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12
 
 
 def kernel_device_ms(fn, keys, per_call=1, n=5, tries=3):
     """Device ms per call of the kernels named by ``keys`` under
     torch.profiler: the mean over the launch records a session kept times
     ``per_call``, the launches one call makes (the profiler drops whole
-    calls' records now and then). A session that kept none is profiled
-    again half a second later; None if none did."""
+    calls' records now and then); ``per_call=None``: the records' sum over
+    the ``n`` calls (a library call of several kernels). A session that
+    kept none is profiled again half a second later; None if none did."""
     import time
 
     import torch
@@ -70,33 +87,95 @@ def kernel_device_ms(fn, keys, per_call=1, n=5, tries=3):
                 if str(getattr(e, "device_type", "")).endswith("CUDA")
                 and any(k in e.key for k in keys)]
         if rows:
+            if per_call is None:
+                return sum(t for _, t in rows) / 1e3 / n
             return (sum(t for _, t in rows) / 1e3
                     / sum(c for c, _ in rows) * per_call)
     return None
 
 
-def setup(ft):
-    """``kernels``: name -> (fn, profiler keys, launches a call);
-    ``products``: name -> (fn, x, scipy f64 reference)."""
+def bound_ms(nbytes, ops):
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the peak, the larger."""
+    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+
+
+def dd_work(cols, lanes, valued):
+    """(bytes, f32 operations) of one dd launch: each slot's index (and
+    value planes) read once, each gathered X row in both planes, both
+    outputs written once; 25 operations a slot and lane (plus 4 a slot for
+    the split of vh) valued, 8 unit."""
+    import torch
+
+    nb, K = cols.shape
+    slots = nb * K
+    rows_used = int(torch.unique(cols).numel())
+    nbytes = (slots * (12 if valued else 4) + rows_used * lanes * 8
+              + nb * lanes * 8)
+    ops = slots * lanes * (25 if valued else 8) + (4 * slots if valued else 0)
+    return nbytes, ops
+
+
+def setup(ft, groups=GROUPS):
+    """``kernels``: name -> (fn, profiler keys or ("",) for every kernel,
+    launches a call or None for a sum, extra fields); ``products``: name
+    -> (fn, x, scipy f64 reference)."""
     import numpy as np
     import torch
 
     from fastsparse_torch.bench.matrices import ecfp_like, powerlaw
+
+    g = np.random.default_rng(7)
+    mats = {}
+
+    def mat(key):
+        if key not in mats:
+            mats[key] = {
+                "A": lambda: powerlaw(20_000, 20_000, 1_000_000, seed=0,
+                                      dtype=np.float32),
+                "B": lambda: powerlaw(65_536, 65_536, 4_000_000, seed=0,
+                                      binary=True),
+                "E": lambda: ecfp_like(50_000, 20_000, 64, 400, seed=2),
+                "2d": lambda: powerlaw(20_000, 20_000, 1_000_000, seed=0,
+                                       dtype=np.float64),
+                "1": lambda: powerlaw(100_000, 100_000, 5_000_000, seed=0,
+                                      alpha=1.0, dtype=np.float64),
+            }[key]()
+        return mats[key]
+
+    kernels, products = {}, {}
+    if "spmv" in groups:
+        _spmv_items(ft, g, mat, kernels, products)
+    if "smem" in groups:
+        _smem_items(ft, g, mat, kernels, products)
+    if "dd" in groups:
+        _dd_items(ft, g, mat, kernels, products)
+    return kernels, products
+
+
+def _x_panel(g, n_real, n_rows, N):
+    """An f32 X panel on the card: ``n_real`` random rows, zeros below."""
+    import numpy as np
+    import torch
+
+    x = np.zeros((n_rows, N), np.float32)
+    x[:n_real] = g.standard_normal((n_real, N))
+    return torch.from_numpy(x).cuda()
+
+
+def _spmv_items(ft, g, mat, kernels, products):
+    import numpy as np
+    import torch
+
     from fastsparse_torch.ops import bsr_ops as bo
     from fastsparse_torch.ops import ell_ops
     from fastsparse_torch.ops.kernels import bsr_tiles as TT
     from fastsparse_torch.ops.kernels import ell_spmm as EK
 
-    g = np.random.default_rng(7)
-
     def x_panel(n_real, n_rows, N):
-        x = np.zeros((n_rows, N), np.float32)
-        x[:n_real] = g.standard_normal((n_real, N))
-        return torch.from_numpy(x).cuda()
+        return _x_panel(g, n_real, n_rows, N)
 
-    mA = powerlaw(20_000, 20_000, 1_000_000, seed=0, dtype=np.float32)
-    mB = powerlaw(65_536, 65_536, 4_000_000, seed=0, binary=True)
-    mE = ecfp_like(50_000, 20_000, 64, 400, seed=2)
+    mA, mB, mE = mat("A"), mat("B"), mat("E")
     opA = ft.operator(mA)
     op2 = ft.operator(mA, reorder="auto", transpose=False,
                       dtype=torch.float32)
@@ -110,7 +189,6 @@ def setup(ft):
         ft.binary_coo_from_scipy(mA, device="cuda"), split_rows=0,
         device="cuda")
 
-    kernels = {}
     ncolA = mA.shape[1]
     XA = x_panel(ncolA, ell_ops._round_up(ncolA + 1, 8), 128)
     big = max(opA.fwd.buckets, key=lambda b: b.cols.numel())
@@ -130,7 +208,7 @@ def setup(ft):
 
     def bucket(b, x, unit, packed=None):
         return (lambda: EK.ell_bucket_spmm(b.cols, b.vals, x, unit=unit,
-                                           packed=packed), ELL_KEYS, 1)
+                                           packed=packed), ELL_KEYS, 1, {})
 
     for N in (1, 8, 128):
         kernels[f"ell_bucket valued_full {tuple(big.cols.shape)} N={N}"] = (
@@ -156,11 +234,11 @@ def setup(ft):
         x = lanes[N][1]
         kernels[f"ell_sweep config B item {len(meta)} parts N={N}"] = (
             lambda x=x: EK.ell_sweep_spmm(flat, x, parts=meta),
-            ("ell_sweep_kernel",), 1)
+            ("ell_sweep_kernel",), 1, {})
         x = lanes[N][0]
         kernels[f"ell_bucket_smem {tuple(big.cols.shape)} N={N}"] = (
             lambda x=x: EK.ell_bucket_spmm_smem(big.cols, big.vals, x),
-            ("ell_smem_kernel",), 1)
+            ("ell_smem",), 1, {})
     for name, S in (("ecfp bwd", max(opT.bwd.dense.segments,
                                      key=lambda s: s.padded_tiles)),
                     ("config B", opBd.fwd.dense.segments[0])):
@@ -173,13 +251,12 @@ def setup(ft):
                 f"{[tuple(t.shape[:3]) for _, t in parts]})"] = (
             lambda parts=parts, xp=xp: [TT.bucket_spmv(sl, t, xp)
                                         for sl, t in parts],
-            ("bucket_spmv_kernel",), len(parts))
+            ("bucket_spmv_kernel",), len(parts), {})
         for k, (sl, t) in enumerate(parts):
             kernels[f"bucket_spmv {name} launch {k} {tuple(t.shape[:3])}"] = (
                 lambda sl=sl, t=t, xp=xp: TT.bucket_spmv(sl, t, xp),
-                ("bucket_spmv_kernel",), 1)
+                ("bucket_spmv_kernel",), 1, {})
 
-    products = {}
     for name, op, m in (("config A SpMV", opA, mA),
                         ("config 2 SpMV (reorder='auto')", op2, mA),
                         ("config B SpMV (format='ell')", opB, mB),
@@ -188,13 +265,133 @@ def setup(ft):
         xn = g.standard_normal(m.shape[1]).astype(np.float32)
         products[name] = (op.matvec, torch.from_numpy(xn).cuda(),
                           m.astype(np.float64) @ xn.astype(np.float64))
-    return kernels, products
+
+
+@contextlib.contextmanager
+def _smem_path():
+    """``ell_ops.USE_SMEM_PATH`` on for the block, reset whatever happens."""
+    from fastsparse_torch.ops import ell_ops
+
+    ell_ops.USE_SMEM_PATH = True
+    try:
+        yield
+    finally:
+        ell_ops.USE_SMEM_PATH = False
+
+
+def _smem_items(ft, g, mat, kernels, products):
+    """#11 on config A's whole buckets (the layout under the flag)."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.ops import ell_ops
+    from fastsparse_torch.ops.kernels import ell_spmm as EK
+
+    mA = mat("A")
+    with _smem_path():
+        opA = ft.operator(mA)
+        whole = [b for b, mode, *_ in ell_ops._seg_layout(opA.fwd)
+                 if mode == "smem"]
+    ncol = mA.shape[1]
+    X = _x_panel(g, ncol, ell_ops._round_up(ncol + 1, 8), 128)
+    for b in whole:
+        shape = tuple(b.cols.shape)
+        for N in (1, 8, 128):
+            x = X[:, :N].contiguous()
+            kernels[f"ell_bucket_smem A {shape} N={N}"] = (
+                lambda b=b, x=x: EK.ell_bucket_spmm_smem(b.cols, b.vals, x),
+                ("ell_smem",), 1, {})
+        x = X[:, :1].contiguous()
+        rows = torch.arange(shape[0], device=x.device).repeat_interleave(
+            shape[1])
+        A = torch.sparse_coo_tensor(
+            torch.stack([rows, b.cols.reshape(-1).long()]),
+            b.vals.reshape(-1), (shape[0], x.shape[0])).coalesce().to_sparse_csr()
+        kernels[f"cuSPARSE A {shape} N=1"] = (
+            lambda A=A, x=x: torch.sparse.mm(A, x), ("",), None, {})
+
+    def flagged(fn):
+        def run(v):
+            with _smem_path():
+                return fn(v)
+        return run
+
+    xn = g.standard_normal(mA.shape[1]).astype(np.float32)
+    products["config A SpMV [USE_SMEM_PATH]"] = (
+        flagged(opA.matvec), torch.from_numpy(xn).cuda(),
+        mA.astype(np.float64) @ xn.astype(np.float64))
+
+
+def _dd_items(ft, g, mat, kernels, products):
+    """#13 per bucket of config 2-fp64; the dd launches of one spmm_dd as
+    a set (config 2-fp64 and config 1: #13; config B unit: #12)."""
+    import numpy as np
+    import torch
+
+    from fastsparse_torch.ops.ell_ops import _dd_panel, _segments
+    from fastsparse_torch.ops.kernels import ell_dd as DK
+
+    def launches(A, N):
+        """[(cols, vh or None, vl or None, x2)] of one product, in the
+        order `ell_spmm_dd` launches them, and the f64 X."""
+        valued = hasattr(A, "lo")
+        tiling = A.hi if valued else A
+        X = torch.from_numpy(g.standard_normal((tiling.shape[1], N))).cuda()
+        xh = X.float()
+        xl = (X - xh.double()).float()
+        out = []
+        segs = (zip(_segments(A.hi), _segments(A.lo)) if valued
+                else ((s, (None, None)) for s in _segments(A)))
+        for (off, seg), (_, seg_lo) in segs:
+            x2 = _dd_panel(xh, xl, off, seg.shape[1])
+            for i, b in enumerate(seg.buckets):
+                out.append((b.cols, b.vals if valued else None,
+                            seg_lo.buckets[i].vals if valued else None, x2))
+        return out, X
+
+    def run_all(items):
+        for cols, vh, vl, x2 in items:
+            if vh is None:
+                DK.ell_bucket_spmm_dd(cols, x2)
+            else:
+                DK.ell_bucket_spmm_dd_valued(cols, vh, vl, x2)
+
+    m2d, m1, mB = mat("2d"), mat("1"), mat("B")
+    A2d = ft.build_ell_dd(m2d)
+    A1 = ft.build_ell_dd(m1)
+    opBu = ft.operator(mB, format="ell", transpose=False,
+                       config=ft.Config(ell_split_rows=0))
+    items2, X2 = launches(A2d, 1)
+    seg_of = [si for si, (_, seg) in enumerate(_segments(A2d.hi))
+              for _ in seg.buckets]
+    for si, (cols, vh, vl, x2) in zip(seg_of, items2):
+        kernels[f"dd_valued config2-fp64 seg{si} {tuple(cols.shape)} N=1"] = (
+            lambda c=cols, h=vh, l=vl, x=x2:
+                DK.ell_bucket_spmm_dd_valued(c, h, l, x),
+            ("ell_dd",), 1, {"bound_ms": bound_ms(*dd_work(cols, 1, True))})
+    for name, A, N, m in (("dd_valued config2-fp64", A2d, 1, m2d),
+                          ("dd_valued config1", A1, 1, m1),
+                          ("dd_unit configB", opBu.fwd, 32, mB)):
+        items, X = (items2, X2) if A is A2d else launches(A, N)
+        work = [dd_work(c, N, vh is not None) for c, vh, _, _ in items]
+        kernels[f"{name} all {len(items)} launches N={N}"] = (
+            lambda items=items: run_all(items), ("ell_dd",), len(items),
+            {"bound_ms": bound_ms(sum(w[0] for w in work),
+                                  sum(w[1] for w in work))})
+        ref = m.astype(np.float64) @ X.cpu().numpy()
+        products[f"{name.split()[1]} spmm_dd N={N}"] = (
+            lambda v, A=A: ft.spmm_dd(A, v), X, ref)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma-separated item groups: " + ", ".join(GROUPS))
     args = ap.parse_args(argv)
+    groups = tuple(args.groups.split(","))
+    if not set(groups) <= set(GROUPS):
+        ap.error(f"--groups: choose from {GROUPS}")
     import numpy as np
     import torch
 
@@ -217,22 +414,26 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    kernels, products = setup(ft)
+    kernels, products = setup(ft, groups)
     events = {name: time_cuda(fn) for name, (fn, *_) in kernels.items()}
     events.update({name: time_cuda(fn, x)
                    for name, (fn, x, _) in products.items()})
-    queued = {name: time_queued(fn) for name, (fn, *_) in kernels.items()}
+    # a set of launches is queued one call a batch (its host time would
+    # outlast the spin kernel's hold)
+    queued = {name: time_queued(fn, reps=max(1, 20 // (per_call or 1)))
+              for name, (fn, _, per_call, _) in kernels.items()}
 
     def row(name, **kw):
         t = events[name]
         return {"root": str(root), "item": name, "event_min_ms": t["min_ms"],
                 "event_median_ms": t["median_ms"], **kw}
 
-    for name, (fn, keys, per_call) in kernels.items():
+    for name, (fn, keys, per_call, extra) in kernels.items():
         q = queued[name]
         print(json.dumps(row(
             name, queued_ms=None if q is None else q["min_ms"],
-            device_ms=kernel_device_ms(fn, keys, per_call))), flush=True)
+            device_ms=kernel_device_ms(fn, keys, per_call), **extra)),
+            flush=True)
     for name, (fn, x, ref) in products.items():
         y = fn(x).double().cpu().numpy()
         rel = float(np.abs(y - ref).max() / np.abs(ref).max())

@@ -27,32 +27,67 @@
 // native f64, but these kernels compute the double-word arithmetic of the
 // TPU kernels so that the two can be held bit for bit.
 //
-// Design: the TPU kernel carries (hi, lo) across an in-order ("arbitrary")
-// grid axis over the row's K slots. Here one thread owns one (bucket row,
-// lane), walks the row's slots in order with (hi, lo) in registers, and
-// writes each output once. The chain is serial, so a bucket of a few long
-// rows (up to 2,048 slots at N = 1) keeps one warp busy for its whole
-// length while the rest of the card idles; one launch per bucket adds the
-// buckets' chains up (PERF.md). Lanes go fastest within a warp: a row's
-// lanes split over TPR = min(32, next_pow2(N)) threads, so at N >= 32 a
-// warp reads 32 consecutive floats of each gathered X row, and at N = 1 a
-// warp covers 32 rows. The row's columns
-// (and value planes) are read once per slot; the lanes of a row read the
-// same address, a broadcast.
+// Design. The TPU kernel carries (hi, lo) across an in-order
+// ("arbitrary") grid axis over the row's K slots. Only hi and lo carry
+// from one slot to the next: a slot's Dekker splits, its product p1 =
+// vh·xh and q = perr + cross depend on that slot's inputs alone.
 //
-// Bound on this card: bytes. #12 reads 4 B of index per slot, #13 12 B
-// (index, vh, vl), plus each gathered X row in both planes and each output
-// written once (hi and lo). #12 does 8 f32 operations per slot and lane,
-// #13 25 (plus 4 per slot for the split of vh); against 67 TFLOP/s that is
-// below the time of the bytes at 3.35 TB/s at the main path's shapes.
-// The gathered rows are scattered, so they come through L2.
+// #12 (ell_dd_kernel): one thread owns one (bucket row, lane), walks the
+// row's slots in order with (hi, lo) in registers, and writes each output
+// once. A row's lanes split over TPR = min(32, next_pow2(N)) threads, so
+// at N >= 32 a warp reads 32 consecutive floats of each gathered X row.
+//
+// #13: what bounds it on this card is the chain, not the bytes. One
+// thread a row walked 2,048 slots of config 2-fp64's longest bucket, each
+// an index load, then a dependent gather, then ~29 operations (0.25 ms
+// for 8 rows while the card idled), and short rows read cols, vh and vl
+// at a stride of K·4 B between threads. Two kernels now, chosen by the
+// launcher:
+// - ell_dd_valued_kernel (few rows, or long ones): a block owns R rows
+//   and TPR lanes and walks K in slices. The slice's cols, vh and vl for
+//   its rows are staged in shared memory by cp.async (16, 8 or 4 bytes,
+//   coalesced along each row), the next slice in flight while this one is
+//   used. Every thread computes the terms (p1, q) of many (row, slot,
+//   lane) items at once, all gathers of a batch issued before use, into a
+//   contiguous row of shared memory per (row, lane). Then thread (row,
+//   lane) runs the exact chain over them, its reads DD_STEP slots ahead:
+//   per slot one shared-memory read and the TwoSum's eight adds, of which
+//   only s = hi + p1 and lo + (e + q) carry. R is halved from 256 / TPR
+//   while the grid holds fewer than two blocks an SM and a block has more
+//   than DD_THREADS·DD_BATCH items a slice, so a bucket of a few long
+//   rows runs a block a row.
+// - ell_dd_valued_rows_kernel (many rows, or rows of at most DD_SHORT_K
+//   slots): one thread per (row, lane) as #12, each step's indices,
+//   values and X gathers issued before its terms and chain steps.
+// The operations and their nesting are _body_dd_valued's in both
+// (dd_terms, dd_chain), so the outputs are bit-equal whichever runs. A
+// lone thread's chain step still takes ~18 cycles here (PERF.md): the
+// chain, not the bytes, sets the time of a 2,048-slot row.
+//
+// Bound on this card: bytes, by the bound's rule. #12 reads 4 B of index
+// per slot, #13 12 B (index, vh, vl), plus each gathered X row in both
+// planes and each output written once (hi and lo). #12 does 8 f32
+// operations per slot and lane, #13 25 (plus 4 per slot for the split of
+// vh); against 67 TFLOP/s that is below the time of the bytes at 3.35
+// TB/s at the main path's shapes. The gathered rows are scattered, so
+// they come through L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int DD_THREADS = 256;
+// #13: dynamic shared memory per block of the split kernel (no opt-in
+// needed); the items a thread's term pass takes at once and the slots a
+// chain step loads ahead (loads issued first); the longest rows that go to
+// the kernel of one thread a chain whatever the grid
+constexpr int DD_SMEM_BYTES = 48 * 1024;
+constexpr int DD_BATCH = 4;
+constexpr int DD_STEP = 8;
+constexpr int DD_SHORT_K = 8;
 
 // Dekker split at 4097 (12/12 bits): hi + lo == a exactly
 __device__ __forceinline__ void split4097(float a, float& hi, float& lo) {
@@ -61,44 +96,64 @@ __device__ __forceinline__ void split4097(float a, float& hi, float& lo) {
   lo = __fsub_rn(a, hi);
 }
 
-// One slot's step of the row's (hi, lo) chain, in the reference's order.
-template <bool VALUED>
-__device__ __forceinline__ void dd_step(float& hi, float& lo, float xh,
-                                        float xl, float v_h, float v_l) {
-  if constexpr (VALUED) {
-    float vhh, vhl, xhh, xhl;
-    split4097(v_h, vhh, vhl);
-    split4097(xh, xhh, xhl);
-    const float p1 = __fmul_rn(v_h, xh);
-    // vhl·xhl + (vhl·xhh + (vhh·xhl + (vhh·xhh − p1)))
-    const float perr = __fadd_rn(
-        __fmul_rn(vhl, xhl),
-        __fadd_rn(__fmul_rn(vhl, xhh),
-                  __fadd_rn(__fmul_rn(vhh, xhl),
-                            __fsub_rn(__fmul_rn(vhh, xhh), p1))));
-    const float cross = __fadd_rn(__fmul_rn(v_h, xl), __fmul_rn(v_l, xh));
-    // branch-free TwoSum(hi, p1); residue + cross into the low word
-    const float s = __fadd_rn(hi, p1);
-    const float bb = __fsub_rn(s, hi);
-    const float e =
-        __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(p1, bb));
-    hi = s;
-    lo = __fadd_rn(lo, __fadd_rn(e, __fadd_rn(perr, cross)));
-  } else {
-    // TwoSum(hi, xh) -> (s, err); err and xl into the low word
-    const float s = __fadd_rn(hi, xh);
-    const float bb = __fsub_rn(s, hi);
-    const float err =
-        __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(xh, bb));
-    hi = s;
-    lo = __fadd_rn(lo, __fadd_rn(err, xl));
+// One slot's step of a row's (hi, lo) chain: branch-free TwoSum(hi, a)
+// and its residue plus b into the low word. Unit values: (a, b) = (xh,
+// xl); valued: (a, b) = dd_terms(...).
+__device__ __forceinline__ void dd_chain(float& hi, float& lo, float a,
+                                         float b) {
+  const float s = __fadd_rn(hi, a);
+  const float bb = __fsub_rn(s, hi);
+  const float e = __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(a, bb));
+  hi = s;
+  lo = __fadd_rn(lo, __fadd_rn(e, b));
+}
+
+// A chain over the terms t[0 .. n) in slot order, its reads DD_STEP slots
+// ahead of its steps (the chain waits on its adds, not on its reads); t
+// must be readable up to t[n + DD_STEP - 1].
+__device__ __forceinline__ void chain_walk(const float2* t, int n, float& hi,
+                                           float& lo) {
+  const int nfull = n - n % DD_STEP;
+  float2 cur[DD_STEP];
+#pragma unroll
+  for (int u = 0; u < DD_STEP; ++u) cur[u] = t[u];
+  for (int k = 0; k < nfull; k += DD_STEP) {
+    float2 nxt[DD_STEP];
+#pragma unroll
+    for (int u = 0; u < DD_STEP; ++u) nxt[u] = t[k + DD_STEP + u];
+#pragma unroll
+    for (int u = 0; u < DD_STEP; ++u) dd_chain(hi, lo, cur[u].x, cur[u].y);
+#pragma unroll
+    for (int u = 0; u < DD_STEP; ++u) cur[u] = nxt[u];
+  }
+#pragma unroll
+  for (int u = 0; u < DD_STEP; ++u) {
+    if (nfull + u < n) dd_chain(hi, lo, cur[u].x, cur[u].y);
   }
 }
 
-template <bool VALUED>
+// A valued slot's terms, which depend on the slot's inputs alone: (p1, q)
+// with p1 = vh·xh and q = perr + cross, Dekker's TwoProd residue of vh·xh
+// and the cross terms vh·xl + vl·xh, in the reference's order.
+__device__ __forceinline__ float2 dd_terms(float v_h, float v_l, float xh,
+                                           float xl) {
+  float vhh, vhl, xhh, xhl;
+  split4097(v_h, vhh, vhl);
+  split4097(xh, xhh, xhl);
+  const float p1 = __fmul_rn(v_h, xh);
+  // vhl·xhl + (vhl·xhh + (vhh·xhl + (vhh·xhh − p1)))
+  const float perr = __fadd_rn(
+      __fmul_rn(vhl, xhl),
+      __fadd_rn(__fmul_rn(vhl, xhh),
+                __fadd_rn(__fmul_rn(vhh, xhl),
+                          __fsub_rn(__fmul_rn(vhh, xhh), p1))));
+  const float cross = __fadd_rn(__fmul_rn(v_h, xl), __fmul_rn(v_l, xh));
+  return make_float2(p1, __fadd_rn(perr, cross));
+}
+
+// #12: one thread per (bucket row, lane) walks the row's slots in order.
 __global__ void __launch_bounds__(DD_THREADS)
-ell_dd_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vh,
-              const float* __restrict__ vl, const float* __restrict__ x2,
+ell_dd_kernel(const int32_t* __restrict__ cols, const float* __restrict__ x2,
               float* __restrict__ out_hi, float* __restrict__ out_lo, int nb,
               int K, int k_rows, int ldx, int tpr_log2) {
   const int tpr = 1 << tpr_log2;
@@ -110,12 +165,253 @@ ell_dd_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vh,
   float hi = 0.0f, lo = 0.0f;
   for (int k = 0; k < K; ++k) {
     const size_t xo = (size_t)__ldg(cols + row0 + k) * ldx + lane;
-    dd_step<VALUED>(hi, lo, __ldg(x2 + xo), __ldg(x2 + lo_plane + xo),
-                    VALUED ? __ldg(vh + row0 + k) : 0.0f,
-                    VALUED ? __ldg(vl + row0 + k) : 0.0f);
+    dd_chain(hi, lo, __ldg(x2 + xo), __ldg(x2 + lo_plane + xo));
   }
   out_hi[(size_t)r * ldx + lane] = hi;
   out_lo[(size_t)r * ldx + lane] = lo;
+}
+
+// #13 where every thread owns a chain (ell_dd_valued_rows_kernel): one
+// thread per (bucket row, lane), as #12, walking the row's slots DD_STEP
+// at a time: the step's indices and value planes, then all of its X
+// gathers, then its terms and chain steps in slot order.
+__global__ void __launch_bounds__(DD_THREADS)
+ell_dd_valued_rows_kernel(const int32_t* __restrict__ cols,
+                          const float* __restrict__ vh,
+                          const float* __restrict__ vl,
+                          const float* __restrict__ x2,
+                          float* __restrict__ out_hi,
+                          float* __restrict__ out_lo, int nb, int K,
+                          int k_rows, int ldx, int tpr_log2) {
+  const int tpr = 1 << tpr_log2;
+  const int r = blockIdx.x * (DD_THREADS >> tpr_log2) + (threadIdx.x >> tpr_log2);
+  const int lane = blockIdx.y * tpr + (threadIdx.x & (tpr - 1));
+  if (r >= nb || lane >= ldx) return;
+  const size_t row0 = (size_t)r * K;
+  const size_t lo_plane = (size_t)k_rows * ldx;
+  float hi = 0.0f, lo = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += DD_STEP) {
+    int c[DD_STEP];
+    float a[DD_STEP], b[DD_STEP], xh[DD_STEP], xl[DD_STEP];
+#pragma unroll
+    for (int u = 0; u < DD_STEP; ++u) {
+      const bool ok = k0 + u < K;
+      c[u] = ok ? __ldg(cols + row0 + k0 + u) : 0;
+      a[u] = ok ? __ldg(vh + row0 + k0 + u) : 0.0f;
+      b[u] = ok ? __ldg(vl + row0 + k0 + u) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < DD_STEP; ++u) {
+      const size_t xo = (size_t)c[u] * ldx + lane;
+      const bool ok = k0 + u < K;
+      xh[u] = ok ? __ldg(x2 + xo) : 0.0f;
+      xl[u] = ok ? __ldg(x2 + lo_plane + xo) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < DD_STEP; ++u) {
+      if (k0 + u < K) {
+        const float2 pq = dd_terms(a[u], b[u], xh[u], xl[u]);
+        dd_chain(hi, lo, pq.x, pq.y);
+      }
+    }
+  }
+  out_hi[(size_t)r * ldx + lane] = hi;
+  out_lo[(size_t)r * ldx + lane] = lo;
+}
+
+// #13 on few long rows (ell_dd_valued_kernel): a block owns R =
+// 2^r_log2 bucket rows and TPR = 2^tpr_log2 lanes, R·TPR < DD_THREADS,
+// and walks K in slices of ks slots. Per slice: the rows' cols, vh and vl
+// are staged in shared memory (cp.async of CPB bytes, the next slice in
+// flight while this one is used); every thread computes the terms (p1, q)
+// of (row, slot, lane) items, lane fastest, into one row of rs >= ks
+// float2 per chain (rs odd: the chains' reads at one slot hit different
+// banks; a chain's slots are contiguous, so its reads need no address
+// arithmetic); then thread (row, lane) runs its chain over the slice in
+// slot order, its reads DD_STEP slots ahead of its adds.
+template <int CPB>
+__global__ void __launch_bounds__(DD_THREADS)
+ell_dd_valued_kernel(const int32_t* __restrict__ cols,
+                     const float* __restrict__ vh, const float* __restrict__ vl,
+                     const float* __restrict__ x2, float* __restrict__ out_hi,
+                     float* __restrict__ out_lo, int nb, int K, int k_rows,
+                     int ldx, int tpr_log2, int r_log2, int ks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tpr = 1 << tpr_log2;
+  const int nst = K > ks ? 2 : 1;
+  const int sw = (1 << r_log2) * ks;  // staged words per array
+  const int rs = ks | 1;              // terms per chain
+  int32_t* s_in = reinterpret_cast<int32_t*>(smem_raw);  // [nst][3][sw]
+  float2* terms = reinterpret_cast<float2*>(
+      smem_raw + (((size_t)nst * 3 * sw * 4 + 15) & ~(size_t)15));
+  const int row0 = blockIdx.x << r_log2;
+  const int nrows = min(1 << r_log2, nb - row0);
+  const int lane0 = blockIdx.y * tpr;
+  const size_t lo_plane = (size_t)k_rows * ldx;
+  const int cr = threadIdx.x >> tpr_log2;  // this thread's chain
+  const int cl = threadIdx.x & (tpr - 1);
+  const bool chain = cr < nrows && lane0 + cl < ldx;
+  const bool lane_ok = lane0 + cl < ldx;
+  // the term pass: thread t takes lane t % TPR of (row, slot) pairs
+  // t / TPR, t / TPR + P, ..., P = DD_THREADS / TPR pairs a pass
+  const int P = DD_THREADS >> tpr_log2;
+  float hi = 0.0f, lo = 0.0f;
+
+  // the rows' slots [k0, k0 + kw) into stage st: cols, vh, vl
+  auto stage = [&](int st, int k0, int kw) {
+    int32_t* d = s_in + st * 3 * sw;
+    constexpr int E = CPB / 4;
+    const int per_row = kw / E;
+    for (int i = threadIdx.x; i < nrows * per_row; i += DD_THREADS) {
+      const int rr = i / per_row;
+      const int c = (i - rr * per_row) * E;
+      const size_t g = (size_t)(row0 + rr) * K + k0 + c;
+      const int o = rr * ks + c;
+      acp::cp_async<CPB>(d + o, cols + g);
+      acp::cp_async<CPB>(d + sw + o, vh + g);
+      acp::cp_async<CPB>(d + 2 * sw + o, vl + g);
+    }
+    acp::cp_async_commit();
+  };
+
+  if (K > 0) stage(0, 0, min(ks, K));
+  for (int sl = 0, k0 = 0; k0 < K; ++sl, k0 += ks) {
+    const int kw = min(ks, K - k0);
+    const int st = sl & (nst - 1);
+    const bool more = k0 + ks < K;
+    // the other stage was consumed before the last slice's final barrier
+    if (more) stage(st ^ 1, k0 + ks, min(ks, K - k0 - ks));
+    if (more) {
+      acp::cp_async_wait<1>();
+    } else {
+      acp::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int32_t* s_col = s_in + st * 3 * sw;
+    const float* s_vh = reinterpret_cast<const float*>(s_col + sw);
+    const float* s_vl = reinterpret_cast<const float*>(s_col + 2 * sw);
+    // pair p's (row, slot) advance by P pairs without a division
+    const int npairs = nrows * kw;
+    const int dr = P / kw, dk = P - (P / kw) * kw;
+    const int p0 = threadIdx.x >> tpr_log2;
+    // the slice's terms, DD_BATCH items a thread at a time
+    for (int p = p0, rr = p0 / kw, k = p0 - (p0 / kw) * kw; p < npairs;) {
+      float xh[DD_BATCH], xl[DD_BATCH], a[DD_BATCH], b[DD_BATCH];
+      int at[DD_BATCH];
+#pragma unroll
+      for (int u = 0; u < DD_BATCH; ++u) {
+        const bool ok = p < npairs && lane_ok;
+        const int si = rr * ks + k;
+        at[u] = ok ? ((rr << tpr_log2) + cl) * rs + k : -1;
+        const int c = ok ? s_col[si] : 0;
+        a[u] = ok ? s_vh[si] : 0.0f;
+        b[u] = ok ? s_vl[si] : 0.0f;
+        const size_t xo = (size_t)c * ldx + lane0 + cl;
+        xh[u] = ok ? __ldg(x2 + xo) : 0.0f;
+        xl[u] = ok ? __ldg(x2 + lo_plane + xo) : 0.0f;
+        p += P;
+        rr += dr;
+        k += dk;
+        if (k >= kw) {
+          k -= kw;
+          ++rr;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < DD_BATCH; ++u) {
+        if (at[u] >= 0) terms[at[u]] = dd_terms(a[u], b[u], xh[u], xl[u]);
+      }
+    }
+    __syncthreads();
+    // the slice's chain, one thread per (row, lane)
+    if (chain) chain_walk(terms + threadIdx.x * rs, kw, hi, lo);
+    __syncthreads();  // terms and stage st are free
+  }
+  if (chain) {
+    const size_t o = (size_t)(row0 + cr) * ldx + lane0 + cl;
+    out_hi[o] = hi;
+    out_lo[o] = lo;
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n <= 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0) {
+      n = 132;
+    }
+  }
+  return n;
+}
+
+// #13's launch. Every thread a chain (ell_dd_valued_rows_kernel, 256 /
+// TPR rows a block) when that grid holds two blocks an SM, or the rows
+// are at most DD_SHORT_K slots (one step of loads). Else the split
+// kernel, R halved from 256 / TPR while the grid holds fewer than two
+// blocks an SM and a block has more than DD_THREADS·DD_BATCH items a
+// slice (a bucket of a few long rows runs a block a row). Its copy:
+// 16-byte cp.async where the rows and buffers allow it, else 8 or 4. Its
+// slice: all of K when the staged inputs, terms and his fit DD_SMEM_BYTES, else
+// the fewest equal slices that fit, each a multiple of the copy's entries.
+int launch_dd_valued(const int32_t* cols, const float* vh, const float* vl,
+                     const float* x2, float* out_hi, float* out_lo, int nb,
+                     int K, int k_rows, int ldx, int tpr_log2,
+                     int n_lane_blocks, cudaStream_t st) {
+  auto blocks = [&](int r_log2) {
+    return (long long)((nb + (1 << r_log2) - 1) >> r_log2) * n_lane_blocks;
+  };
+  int r_log2 = 8 - tpr_log2;
+  if (K <= DD_SHORT_K || blocks(r_log2) >= 2LL * sm_count()) {
+    dim3 grid((unsigned)blocks(r_log2) / n_lane_blocks, n_lane_blocks);
+    ell_dd_valued_rows_kernel<<<grid, DD_THREADS, 0, st>>>(
+        cols, vh, vl, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2);
+    return 0;
+  }
+  while (r_log2 > 0 && blocks(r_log2) < 2LL * sm_count() &&
+         ((long long)K << (r_log2 + tpr_log2)) > DD_THREADS * DD_BATCH) {
+    --r_log2;
+  }
+  const int R = 1 << r_log2, tpr = 1 << tpr_log2;
+  auto aligned = [&](int b) {
+    return (K * 4) % b == 0 && (uintptr_t)cols % b == 0 &&
+           (uintptr_t)vh % b == 0 && (uintptr_t)vl % b == 0;
+  };
+  const int cpb = aligned(16) ? 16 : aligned(8) ? 8 : 4;
+  const int E = cpb / 4;
+  // staged inputs, then (p1, q) of each slot of each chain, and the
+  // chain's read-ahead past the last
+  auto smem_of = [&](int ks, int nst) {
+    return (((size_t)nst * 3 * R * ks * 4 + 15) & ~(size_t)15) +
+           ((size_t)R * tpr * (ks | 1) + DD_STEP) * 8;
+  };
+  int ks = K;
+  if (smem_of(K, 1) > (size_t)DD_SMEM_BYTES) {
+    // per slot and row: two stages of three words, TPR terms
+    const int ks_max =
+        ((DD_SMEM_BYTES - 16 - DD_STEP * 8) / R - 8 * tpr) /
+        (24 + 8 * tpr) / E * E;
+    if (ks_max <= 0) return (int)cudaErrorInvalidValue;
+    const int n = (K + ks_max - 1) / ks_max;
+    ks = ((K + n - 1) / n + E - 1) / E * E;
+  }
+  const size_t smem = smem_of(ks, K > ks ? 2 : 1);
+  dim3 grid((unsigned)blocks(r_log2) / n_lane_blocks, n_lane_blocks);
+#define FS_DD_VALUED(C)                                                    \
+  ell_dd_valued_kernel<C><<<grid, DD_THREADS, smem, st>>>(                 \
+      cols, vh, vl, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2,      \
+      r_log2, ks)
+  if (cpb == 16) {
+    FS_DD_VALUED(16);
+  } else if (cpb == 8) {
+    FS_DD_VALUED(8);
+  } else {
+    FS_DD_VALUED(4);
+  }
+#undef FS_DD_VALUED
+  return 0;
 }
 
 }  // namespace
@@ -131,17 +427,18 @@ int fs_ell_dd(const int32_t* cols, const float* vh, const float* vl,
   if (nb > 0 && ldx > 0) {
     int tpr_log2 = 0;
     while ((1 << tpr_log2) < ldx && tpr_log2 < 5) ++tpr_log2;
-    const int rows_per_block = DD_THREADS >> tpr_log2;
     const int n_lane_blocks = (ldx + (1 << tpr_log2) - 1) >> tpr_log2;
     if (n_lane_blocks > 65535) return (int)cudaErrorInvalidValue;
-    dim3 grid((nb + rows_per_block - 1) / rows_per_block, n_lane_blocks);
     const cudaStream_t st = (cudaStream_t)stream;
     if (valued) {
-      ell_dd_kernel<true><<<grid, DD_THREADS, 0, st>>>(
-          cols, vh, vl, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2);
+      const int rc = launch_dd_valued(cols, vh, vl, x2, out_hi, out_lo, nb, K,
+                                      k_rows, ldx, tpr_log2, n_lane_blocks, st);
+      if (rc) return rc;
     } else {
-      ell_dd_kernel<false><<<grid, DD_THREADS, 0, st>>>(
-          cols, vh, vl, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2);
+      const int rows_per_block = DD_THREADS >> tpr_log2;
+      dim3 grid((nb + rows_per_block - 1) / rows_per_block, n_lane_blocks);
+      ell_dd_kernel<<<grid, DD_THREADS, 0, st>>>(
+          cols, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2);
     }
   }
   return (int)cudaGetLastError();

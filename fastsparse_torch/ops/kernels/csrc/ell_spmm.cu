@@ -72,22 +72,41 @@
 // --fmad=false). The accumulators start at +0, which gives the reference's
 // values up to the sign of a zero result.
 //
-// fs_ell_smem (the TPU kernel's (1, G, K) SMEM index blocks): one block
-// owns R = 256 / TPR bucket rows (a multiple of the TPU's 8-row group) and
-// one lane range. It walks K in slices of KS entries (a multiple of KB, so
-// slices end on chunk boundaries): the block copies the R rows' slice of
-// indices, and of values in valued mode, into shared memory with
-// coalesced loads, then every thread adds the slice's chunk sums into its
-// running output in chunk order, exactly _body_smem's order (which is the
-// chunked body's: the output starts at +0 and every chunk's sum is added,
-// so a zero result is +0 as in the reference). Whole-K staging would not
-// fit: K = 4096 valued or 8192 unit is 256 KB for 8 rows, over the 227 KB
-// a block may hold. Row stride in shared memory is KS + 1 words, so at
-// N = 1 (a thread per row) a warp's 32 rows read 32 different banks.
-// Bound: bytes, as fs_ell_bucket.
+// fs_ell_smem (the TPU kernel's (1, G, K) SMEM index blocks) stages each
+// block's rows' indices (and values) in shared memory slice by slice, KS
+// entries a slice (a multiple of KB, so slices end on chunk boundaries),
+// and adds the slice's chunk sums into its running output in chunk order,
+// exactly _body_smem's order (the chunked body's: the output starts at +0
+// and every chunk's sum is added, so a zero result is +0 as in the
+// reference). Whole-K staging would not fit: K = 4096 valued or 8192 unit
+// is 256 KB for 8 rows, over the 227 KB a block may hold. Bound: bytes,
+// as fs_ell_bucket; what holds it at narrow X is the latency of each
+// row's chain of loads, not the bytes.
+//
+// At X widths <= 8 (ell_smem_narrow_kernel) it runs the narrow body's
+// threads: four a row (accumulator j), 128 a block, so at N = 1 a block
+// holds 32 rows and config A's 7,808-row bucket runs on 244 blocks. The
+// slice arrives by Hopper's bulk copy: one cp.async.bulk per row and
+// array (a row's slice is contiguous) completing on the stage's mbarrier,
+// with the next slice in flight while this one is read (two stages when K
+// takes more than one slice); rows whose bytes or buffers are not 16-byte
+// aligned take 8- or 4-byte cp.async instead (the launcher chooses). An
+// index then costs no round trip in a thread's dependent chain: a step
+// issues all of its X gathers from the staged indices, one round trip
+// where #9's narrow body pays two. Rows in shared memory are ks entries
+// padded to a stride of 4 mod 32 words, so a warp's 8 rows x 4
+// accumulator threads read 32 banks. Two stages of indices and values fit
+// 48 KB, the dynamic shared memory a block gets without opting in.
+//
+// At wider X (ell_smem_kernel) one block owns R = 256 / TPR rows and one
+// lane range, with the lane split above; the block copies the slice with
+// coalesced loads between two barriers, and a row's stride in shared
+// memory is KS + 1 words (at one thread a row, 32 rows read 32 banks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -99,6 +118,9 @@ constexpr int NARROW_SLOTS = 16;
 constexpr int SWEEP_MAX_PARTS = 128;
 // staged index words (and value words) per fs_ell_smem block: 20 KB each
 constexpr int SMEM_STAGE_WORDS = 5120;
+// the narrow smem body: staged words per array and stage (two stages of
+// indices and values stay within the 48 KB a block gets without opt-in)
+constexpr int SMEM_NARROW_STAGE_WORDS = 3040;
 
 // the sweep's static part table, passed by value as a grid constant
 struct SweepParts {
@@ -249,32 +271,24 @@ ell_bucket_kernel(const int32_t* __restrict__ idx,
   store_out<V>(out, (size_t)r * ldx + col0, o);
 }
 
-// The narrow body (ldx <= NARROW_MAX_LANES): thread (row, j, q) owns
-// accumulator j of lanes [q·V, q·V + V) of its row. Its slot n of a step
-// is entry j + 4·(n % Q) of chunk c0 + n / Q, Q = ceil(KB / 4); a step
-// holds S = NARROW_SLOTS / Q whole chunks. Every loop bound and chunk end
-// is uniform across the grid, so the joins' shuffles run in full warps.
-template <int V, bool UNIT, bool PACKED>
-__global__ void __launch_bounds__(NARROW_THREADS)
-ell_narrow_kernel(const int32_t* __restrict__ idx,
-                  const float* __restrict__ vals,
-                  const float* __restrict__ x, float* __restrict__ out, int nb,
-                  int K, int KB, int full, int ldx, int tpr_log2) {
-  const int g_log2 = tpr_log2 + 2;  // 4·TPR threads a row
-  const int r = blockIdx.x * (NARROW_THREADS >> g_log2) + (threadIdx.x >> g_log2);
-  const int j = (threadIdx.x >> tpr_log2) & 3;
-  const int q = threadIdx.x & ((1 << tpr_log2) - 1);
-  const int col0 = q * V;
-  const bool live = r < nb && col0 < ldx;
-  const int src0 = (threadIdx.x & 31 & ~((1 << g_log2) - 1)) + q;  // j = 0's lane
+// The narrow body's walk over chunks [0, nchunks) of one row, the
+// entries at ri (and rv), shared by ell_narrow_kernel (the row in global
+// memory) and ell_smem_narrow_kernel (a slice staged in shared memory).
+// Thread (row, j, q) owns accumulator j of lanes [col0, col0 + V); its
+// slot n of a step is entry j + 4·(n % Q) of chunk c0 + n / Q, Q =
+// ceil(KB / 4); a step holds S = NARROW_SLOTS / Q whole chunks, loaded in
+// three passes (indices and values, X, the adds). At each chunk's end the
+// row's threads read the four accumulators from fixed lanes (src0 is
+// j = 0's) and join them in order; full: store the one chunk's sum, else
+// add each chunk's sum into o in order. nchunks is uniform across the
+// grid, so the joins' shuffles run in full warps.
+template <int V, bool UNIT, bool PACKED, bool GLOBAL>
+__device__ __forceinline__ void narrow_chunks(
+    const int32_t* __restrict__ ri, const float* __restrict__ rv,
+    const float* __restrict__ x, int ldx, int col0, bool live, int j,
+    int KB, int nchunks, int full, int tpr_log2, int src0, float (&o)[V]) {
   const int Q = (KB + 3) >> 2;
   const int S = NARROW_SLOTS / Q;
-  const int nchunks = K / KB;
-  const int32_t* ri = idx + (size_t)(live ? r : 0) * (PACKED ? K / 2 : K);
-  const float* rv = UNIT ? nullptr : vals + (size_t)(live ? r : 0) * K;
-  float o[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) o[i] = 0.0f;
   for (int c0 = 0; c0 < nchunks; c0 += S) {
     int col[NARROW_SLOTS];
     float v[NARROW_SLOTS];
@@ -286,8 +300,8 @@ ell_narrow_kernel(const int32_t* __restrict__ idx,
         const int u = j + 4 * i;
         const int e = c * KB + u;
         ok[n] = live && c < c0 + S && c < nchunks && u < KB;
-        col[n] = ok[n] ? col_at<PACKED, true>(ri, e) : 0;
-        v[n] = ok[n] ? val_at<UNIT, true>(rv, e) : 0.0f;
+        col[n] = ok[n] ? col_at<PACKED, GLOBAL>(ri, e) : 0;
+        v[n] = ok[n] ? val_at<UNIT, GLOBAL>(rv, e) : 0.0f;
         if (++i == Q) {
           i = 0;
           ++c;
@@ -335,6 +349,30 @@ ell_narrow_kernel(const int32_t* __restrict__ idx,
       }
     }
   }
+}
+
+// The narrow body (ldx <= NARROW_MAX_LANES): 4·TPR threads a row, the
+// row's entries read from global memory.
+template <int V, bool UNIT, bool PACKED>
+__global__ void __launch_bounds__(NARROW_THREADS)
+ell_narrow_kernel(const int32_t* __restrict__ idx,
+                  const float* __restrict__ vals,
+                  const float* __restrict__ x, float* __restrict__ out, int nb,
+                  int K, int KB, int full, int ldx, int tpr_log2) {
+  const int g_log2 = tpr_log2 + 2;  // 4·TPR threads a row
+  const int r = blockIdx.x * (NARROW_THREADS >> g_log2) + (threadIdx.x >> g_log2);
+  const int j = (threadIdx.x >> tpr_log2) & 3;
+  const int q = threadIdx.x & ((1 << tpr_log2) - 1);
+  const int col0 = q * V;
+  const bool live = r < nb && col0 < ldx;
+  const int src0 = (threadIdx.x & 31 & ~((1 << g_log2) - 1)) + q;  // j = 0's lane
+  const int32_t* ri = idx + (size_t)(live ? r : 0) * (PACKED ? K / 2 : K);
+  const float* rv = UNIT ? nullptr : vals + (size_t)(live ? r : 0) * K;
+  float o[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = 0.0f;
+  narrow_chunks<V, UNIT, PACKED, true>(ri, rv, x, ldx, col0, live, j, KB,
+                                       K / KB, full, tpr_log2, src0, o);
   if (live && j == 0) store_out<V>(out, (size_t)r * ldx + col0, o);
 }
 
@@ -402,6 +440,112 @@ ell_smem_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
   if (active) store_out<V>(out, (size_t)r * ldx + col0, o);
 }
 
+// words per staged row of a slice of ks entries: the least stride >= ks
+// with stride % 32 == 4 (16-byte rows; at N = 1 a warp's 8 rows x 4
+// accumulator threads then read 32 different banks)
+__host__ __device__ __forceinline__ int narrow_stage_stride(int ks) {
+  return ks + (36 - ks % 32) % 32;
+}
+
+// One whole bucket at X widths <= NARROW_MAX_LANES (fs_ell_smem): the
+// narrow body's threads, the block's rows' entries staged slice by slice
+// in shared memory, two slices deep when K takes more than one. CPB = 16:
+// one bulk copy per row and array, completing on the stage's mbarrier;
+// CPB = 8 or 4: cp.async of that many bytes, completing by commit group.
+template <int V, bool UNIT, int CPB>
+__global__ void __launch_bounds__(NARROW_THREADS)
+ell_smem_narrow_kernel(const int32_t* __restrict__ idx,
+                       const float* __restrict__ vals,
+                       const float* __restrict__ x, float* __restrict__ out,
+                       int nb, int K, int KB, int ks, int ldx, int tpr_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // one per stage
+  const int g_log2 = tpr_log2 + 2;  // 4·TPR threads a row
+  const int rows_blk = NARROW_THREADS >> g_log2;
+  const int stride = narrow_stage_stride(ks);
+  const int stage_words = rows_blk * stride;
+  const int nst = K > ks ? 2 : 1;
+  int32_t* s_idx = reinterpret_cast<int32_t*>(smem_raw + 16);  // [nst][...]
+  float* s_val = reinterpret_cast<float*>(s_idx + nst * stage_words);
+  const int row0 = blockIdx.x * rows_blk;
+  const int nrows = min(rows_blk, nb - row0);
+  const int lr = threadIdx.x >> g_log2;
+  const int r = row0 + lr;
+  const int j = (threadIdx.x >> tpr_log2) & 3;
+  const int q = threadIdx.x & ((1 << tpr_log2) - 1);
+  const int col0 = q * V;
+  const bool live = r < nb && col0 < ldx;
+  const int src0 = (threadIdx.x & 31 & ~((1 << g_log2) - 1)) + q;  // j = 0's lane
+
+  if constexpr (CPB == 16) {
+    if (threadIdx.x == 0) {
+      acp::mbar_init(&bar[0], 1);
+      acp::mbar_init(&bar[1], 1);
+      acp::fence_mbar_init();
+    }
+    __syncthreads();
+  }
+  // the block's rows' entries [k0, k0 + kw) into stage st
+  auto stage = [&](int st, int k0, int kw) {
+    int32_t* di = s_idx + st * stage_words;
+    float* dv = s_val + st * stage_words;
+    if constexpr (CPB == 16) {
+      if (threadIdx.x < 32) {
+        if (threadIdx.x == 0) {
+          acp::mbar_expect_tx(&bar[st], nrows * kw * (UNIT ? 4 : 8));
+        }
+        __syncwarp();
+        acp::fence_proxy_async();
+        for (int rr = threadIdx.x; rr < nrows; rr += 32) {
+          const size_t g = (size_t)(row0 + rr) * K + k0;
+          acp::bulk_g2s(di + rr * stride, idx + g, kw * 4, &bar[st]);
+          if constexpr (!UNIT) {
+            acp::bulk_g2s(dv + rr * stride, vals + g, kw * 4, &bar[st]);
+          }
+        }
+      }
+    } else {
+      constexpr int E = CPB / 4;
+      const int per_row = kw / E;
+      for (int i = threadIdx.x; i < nrows * per_row; i += NARROW_THREADS) {
+        const int rr = i / per_row;
+        const int c = (i - rr * per_row) * E;
+        const size_t g = (size_t)(row0 + rr) * K + k0 + c;
+        acp::cp_async<CPB>(di + rr * stride + c, idx + g);
+        if constexpr (!UNIT) acp::cp_async<CPB>(dv + rr * stride + c, vals + g);
+      }
+      acp::cp_async_commit();
+    }
+  };
+
+  float o[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = 0.0f;
+  stage(0, 0, min(ks, K));
+  for (int sl = 0, k0 = 0; k0 < K; ++sl, k0 += ks) {
+    const int st = sl & (nst - 1);
+    const bool more = k0 + ks < K;
+    // the other stage was consumed before the last slice's barrier
+    if (more) stage(st ^ 1, k0 + ks, min(ks, K - k0 - ks));
+    if constexpr (CPB == 16) {
+      acp::mbar_wait(&bar[st], (sl >> 1) & 1);
+    } else {
+      if (more) {
+        acp::cp_async_wait<1>();
+      } else {
+        acp::cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
+    narrow_chunks<V, UNIT, false, false>(
+        s_idx + st * stage_words + lr * stride,
+        s_val + st * stage_words + lr * stride, x, ldx, col0, live, j, KB,
+        min(ks, K - k0) / KB, 0, tpr_log2, src0, o);
+    __syncthreads();  // stage st is free for the slice after next
+  }
+  if (live && j == 0) store_out<V>(out, (size_t)r * ldx + col0, o);
+}
+
 // lane split: V lanes per thread, TPR = 2^tpr_log2 threads per row
 struct LaneSplit {
   int vec4;
@@ -437,6 +581,50 @@ int launch_narrow(const int32_t* idx, const float* vals, const float* x,
   } else {
     return (int)cudaErrorInvalidValue;  // packed pairs are unit-only
   }
+  return 0;
+}
+
+// fs_ell_smem at ldx <= NARROW_MAX_LANES. The copy: bulk (16-byte rows and
+// buffers), else cp.async of 8 or 4 bytes. The slice: K whole when the
+// block's rows fit a stage, else the most entries that fit, a multiple of
+// KB (slices end on chunk boundaries) and of the copy's entries.
+template <int V>
+int launch_smem_narrow(const int32_t* idx, const float* vals, const float* x,
+                       float* out, int nb, int K, int KB, int unit, int ldx,
+                       const LaneSplit& s, cudaStream_t st) {
+  const int rows_blk = NARROW_THREADS >> (s.tpr_log2 + 2);
+  auto aligned = [&](int b) {
+    return (K * 4) % b == 0 && (uintptr_t)idx % b == 0 &&
+           (unit || (uintptr_t)vals % b == 0);
+  };
+  const int cpb = aligned(16) ? 16 : aligned(8) ? 8 : 4;
+  int step = KB;  // lcm(KB, entries a copy moves)
+  while (step % (cpb / 4)) step += KB;
+  int ks = K;
+  if (rows_blk * narrow_stage_stride(K) > SMEM_NARROW_STAGE_WORDS) {
+    ks = (SMEM_NARROW_STAGE_WORDS / rows_blk / step) * step;
+    while (ks > 0 && rows_blk * narrow_stage_stride(ks) > SMEM_NARROW_STAGE_WORDS) {
+      ks -= step;
+    }
+  }
+  if (ks <= 0) return (int)cudaErrorInvalidValue;
+  const int nst = K > ks ? 2 : 1;
+  const size_t smem =
+      16 + (size_t)nst * rows_blk * narrow_stage_stride(ks) * 4 * (unit ? 1 : 2);
+  const unsigned int grid = (nb + rows_blk - 1) / rows_blk;
+#define FS_SMEM_NARROW(U, C)                                                \
+  ell_smem_narrow_kernel<V, U, C><<<grid, NARROW_THREADS, smem, st>>>(      \
+      idx, vals, x, out, nb, K, KB, ks, ldx, s.tpr_log2)
+  if (unit) {
+    if (cpb == 16) FS_SMEM_NARROW(true, 16);
+    else if (cpb == 8) FS_SMEM_NARROW(true, 8);
+    else FS_SMEM_NARROW(true, 4);
+  } else {
+    if (cpb == 16) FS_SMEM_NARROW(false, 16);
+    else if (cpb == 8) FS_SMEM_NARROW(false, 8);
+    else FS_SMEM_NARROW(false, 4);
+  }
+#undef FS_SMEM_NARROW
   return 0;
 }
 
@@ -532,12 +720,18 @@ int fs_ell_smem(const int32_t* idx, const float* vals, const float* x,
   if (nb > 0 && ldx > 0 && K > 0) {
     if (KB <= 0 || K % KB) return (int)cudaErrorInvalidValue;
     const LaneSplit s = lane_split(x, out, ldx);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (ldx <= NARROW_MAX_LANES) {
+      const int rc = s.vec4
+          ? launch_smem_narrow<4>(idx, vals, x, out, nb, K, KB, unit, ldx, s, st)
+          : launch_smem_narrow<1>(idx, vals, x, out, nb, K, KB, unit, ldx, s, st);
+      return rc ? rc : (int)cudaGetLastError();
+    }
     const int rows_per_block = ELL_THREADS >> s.tpr_log2;
     // slice: the most whole chunks whose rows (stride ks + 1) fit the stage
     const int ks = ((SMEM_STAGE_WORDS / rows_per_block - 1) / KB) * KB;
     if (ks <= 0) return (int)cudaErrorInvalidValue;
     dim3 grid((nb + rows_per_block - 1) / rows_per_block, s.n_col_blocks);
-    const cudaStream_t st = (cudaStream_t)stream;
     if (s.vec4 && unit) {
       ell_smem_kernel<4, true><<<grid, ELL_THREADS, 0, st>>>(
           idx, vals, x, out, nb, K, KB, ks, ldx, s.tpr_log2);

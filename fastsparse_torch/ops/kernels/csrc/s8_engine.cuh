@@ -62,6 +62,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 // The engine lives in an unnamed namespace: each source that includes it
 // gets its own copy, with no symbol shared at link time.
 namespace {
@@ -105,48 +107,11 @@ struct Params {
   int out_rows;        // output rows that exist
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed. A wait
-// that outlasts any load by orders of magnitude (2^26 polls) traps: a
-// broken ring then fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (polls == (1u << 26)) __trap();
-  }
-}
+using acp::mbar_arrive;
+using acp::mbar_expect_tx;
+using acp::mbar_init;
+using acp::mbar_wait;
+using acp::smem_u32;
 
 // One 2-D TMA box: coordinates (k, row), innermost first.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -385,7 +350,7 @@ s8_engine_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], n_cons_warps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    acp::fence_mbar_init();
   }
   __syncthreads();
 

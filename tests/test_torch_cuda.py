@@ -344,16 +344,20 @@ def test_ell_operator_on_card_vs_scipy(card, fmt):
 
 
 # (K, unit) of the one-launch gather #11: chunks of 12, 10 and 16 entries,
-# and the SMEM_BLOCK_K caps (valued 4096, unit 8192)
+# and the SMEM_BLOCK_K caps (valued 4096, unit 8192); rows of 24 and 72
+# bytes (8-byte copies at N <= 8) and of 36 bytes (4-byte copies), and
+# 90 entries in two slices of 8-byte copies
 SMEM_WIDTHS = [(12, False), (12, True), (40, False), (40, True),
-               (64, False), (64, True), (4096, False), (8192, True)]
+               (64, False), (64, True), (4096, False), (8192, True),
+               (6, False), (6, True), (18, False), (18, True), (9, True),
+               (90, False)]
 
 
-@pytest.mark.parametrize("N", [1, 8, 33, 128])
+@pytest.mark.parametrize("N", [1, 2, 8, 33, 128])
 @pytest.mark.parametrize("K,unit", SMEM_WIDTHS)
 def test_ell_smem_kernel_matches_plain(card, K, unit, N):
-    # 2,056 rows: not a multiple of the 256 (N=1) or 128 (N=8) rows a block
-    # takes; 33 lanes take the one-lane path
+    # 2,056 rows: not a multiple of the 256 (N = 33, 128) or the 32, 16 or
+    # 4 (N <= 8) rows a block takes; 33 lanes take the one-lane path
     nb = 2056 if K <= 64 else 40
     cols, vals, x = _ell_inputs(K, N, seed=K + N, nb=nb)
     ek.reset_launches()
@@ -947,15 +951,20 @@ def _dd_x2(g, k_rows, N, sentinel):
     return x2
 
 
-@pytest.mark.parametrize("N", [1, 8, 33])
+@pytest.mark.parametrize("N", [1, 2, 8, 33])
+@pytest.mark.parametrize("nb,K", [(40, 24), (8, 2048), (16, 384), (24, 6),
+                                  (2056, 24)])
 @pytest.mark.parametrize("valued", [False, True])
-def test_dd_kernels_match_plain(card, valued, N):
+def test_dd_kernels_match_plain(card, valued, nb, K, N):
     """ell_bucket_spmm_dd (#12) and ell_bucket_spmm_dd_valued (#13)
-    against their plain versions, bit for bit in hi and lo."""
+    against their plain versions, bit for bit in hi and lo, on short rows
+    and on long ones (#13 then takes several slices, or a block a row);
+    #13 runs its kernel of one thread a chain on the 24 rows of 6 slots
+    and, at N = 33, on the 2,056 rows, its split kernel on the others."""
     from fastsparse_torch.ops.kernels import ell_dd as dk
 
-    g = np.random.default_rng(N + 100 * valued)
-    cols, vh, vl, sentinel = _dd_bucket(g, valued)
+    g = np.random.default_rng(N + 100 * valued + K)
+    cols, vh, vl, sentinel = _dd_bucket(g, valued, nb=nb, K=K)
     x2 = torch.from_numpy(_dd_x2(g, 48, N, sentinel)).cuda()
     cols, vh, vl = (torch.from_numpy(a).cuda() for a in (cols, vh, vl))
     dk.reset_launches()
@@ -970,7 +979,7 @@ def test_dd_kernels_match_plain(card, valued, N):
     torch.cuda.synchronize()
     assert dk.launches[name] == 1
     for k, p in zip(yk, yp):
-        assert k.shape == (40, N) and torch.equal(k, p)
+        assert k.shape == (nb, N) and torch.equal(k, p)
     assert not yk[0][-5:].any() and not yk[1][-5:].any()
 
 

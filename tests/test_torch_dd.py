@@ -161,25 +161,31 @@ def _x2(g, k_rows, N, sentinel):
     return x2
 
 
-def test_unit_dd_plain_bit_equal_to_pallas():
+# (nb, K): a short-row bucket, and a long row (the chain over 512 slots)
+DD_PLAIN_SHAPES = [(16, 24), (8, 512)]
+
+
+@pytest.mark.parametrize("nb,K", DD_PLAIN_SHAPES)
+def test_unit_dd_plain_bit_equal_to_pallas(nb, K):
     g = np.random.default_rng(6)
-    cols, _, _, sentinel = _bucket(g)
+    cols, _, _, sentinel = _bucket(g, nb=nb, K=K)
     x2 = _x2(g, 40, 8, sentinel)
     rh, rl = jk.ell_bucket_spmm_dd(jnp.asarray(cols), jnp.asarray(x2),
                                    n_block=8)
     tdd.reset_launches()
     th, tl = tdd.ell_bucket_spmm_dd(torch.from_numpy(cols),
                                     torch.from_numpy(x2))
-    assert th.dtype == tl.dtype == torch.float32 and th.shape == (16, 8)
+    assert th.dtype == tl.dtype == torch.float32 and th.shape == (nb, 8)
     assert np.array_equal(th.numpy(), np.asarray(rh))
     assert np.array_equal(tl.numpy(), np.asarray(rl))
     assert not tl[-3:].any() and not th[-3:].any()  # padding rows add zero
     assert tdd.launches["ell_bucket_dd"] == 0  # the plain version never counts
 
 
-def test_valued_dd_plain_vs_pallas_in_process():
+@pytest.mark.parametrize("nb,K", DD_PLAIN_SHAPES)
+def test_valued_dd_plain_vs_pallas_in_process(nb, K):
     g = np.random.default_rng(7)
-    cols, vh, vl, sentinel = _bucket(g, unit=False)
+    cols, vh, vl, sentinel = _bucket(g, nb=nb, K=K, unit=False)
     x2 = _x2(g, 40, 8, sentinel)
     rh, rl = jk.ell_bucket_spmm_dd_valued(
         jnp.asarray(cols), jnp.asarray(vh), jnp.asarray(vl), jnp.asarray(x2),
