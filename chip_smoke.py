@@ -26,12 +26,14 @@ config A's and config B's operators) and phase 12 after phase 10:
    bodies: ell_bucket runs the narrow body at N = 1 and 8 and the
    lane-split body at N = 128 in every mode, ell_sweep its own kernel,
    ell_bucket_smem its narrow body (``ell_smem_narrow_kernel``) at N = 1
-   and 8 and ``ell_smem_kernel`` at N = 128; ell_bucket_dd_valued runs
-   its split kernel (``ell_dd_valued_kernel``) on config 2-fp64's
-   longest-row shape (8 x 2,048, N=1) and its kernel of one thread a
-   chain (``ell_dd_valued_rows_kernel``) on its largest (5,048 x 32,
-   N=32), and ell_bucket_dd ``ell_dd_kernel`` on config B's (18,864 x 32,
-   N=32); each bit-exact, on random buckets of the main path's shapes).
+   and 8 and ``ell_smem_kernel`` at N = 128; the dd gathers, one pair of
+   kernels for both value forms, run the split kernel
+   (``ell_dd_split_kernel``) on config 2-fp64's longest-row shape (8 x
+   2,048, N=1) and on config B's longest unit rows (16 x 2,048, N = 1
+   and 32), the kernel of one thread a chain (``ell_dd_rows_kernel``) on
+   config 2-fp64's largest bucket (5,048 x 32, N=32) and on config B's
+   largest unit bucket (18,864 x 32, N=32); each bit-exact, on random
+   buckets of the main path's shapes).
 2. mono main-path phase: with every launch count set to 0, ``operator(m,
    format="bsr", transpose=True, device="cuda")`` products through the
    public API: matmat at N=128 and matvec on the headline matrix,
@@ -119,10 +121,11 @@ config A's and config B's operators) and phase 12 after phase 10:
    bucket of BASELINE config 1's `build_ell_dd` (N=1) and of config 2 in
    fp64 (N=1 and N=32) and on config 2-fp64's longest-row bucket (8 x
    2,048, N=1 and N=32), ell_bucket_dd on config B's largest unsplit unit
-   bucket (N=1 and N=32); each timed beside its plain version, its bound
-   and cuSPARSE's f64 product of the same rows; at N=32 (config 2-fp64's
-   largest, config B) and on the longest-row bucket at N=1 also by device
-   time against cuSPARSE's device time.
+   bucket and on its longest-row one (16 x 2,048) (N=1 and N=32); each
+   timed beside its plain version, its bound and cuSPARSE's f64 product
+   of the same rows; at N=32 (config 2-fp64's largest, config B's two)
+   and on config 2-fp64's longest-row bucket at N=1 also by device time
+   against cuSPARSE's device time.
 10. fp64 main-path phase: with the counts set to 0, BASELINE config 1
    (``powerlaw(100_000, 100_000, 5_000_000, seed=0, alpha=1.0)``, f64)
    both ways the reference's suite runs it, ``operator(m1, format="ell",
@@ -133,8 +136,9 @@ config A's and config B's operators) and phase 12 after phase 10:
    config=Config(ell_split_rows=0)), X)`` at N=32 (3 segments). Each
    within max|d|/max|ref| 1e-10 of scipy f64; both dd kernels must
    launch. Then the five longest dd launches of config 2-fp64's product
-   (torch.profiler, each with its bucket's shape; also in the kernels
-   JSON line under ell_bucket_dd_valued's ``longest_launches``), host
+   and of config B's unit one (torch.profiler, each with its bucket's
+   segment and shape; also in the kernels JSON line under
+   ell_bucket_dd_valued's and ell_bucket_dd's ``longest_launches``), host
    build seconds, per-product times, launches, device busy time and idle
    share.
 11. SMEM-blocked gather phase: config A (``operator(mA)``) and config B
@@ -169,7 +173,7 @@ version, the least time the card could take for the same work (bytes over
 where one PyTorch call computes the same function, that call's time. It
 prints the card's name and power limit, the ptxas report (registers,
 spills) of the s8 engine's bodies, the ELL narrow bodies (ell_bucket's
-and ell_bucket_smem's), the valued dd kernel and bucket_spmv,
+and ell_bucket_smem's), the dd kernels and bucket_spmv,
 the engine's dynamic shared memory, a JSON line
 of per-kernel results and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without a CUDA device, or without the
@@ -325,8 +329,8 @@ def check_body(name, fn, want, other):
 
 def engine_report(lib, ptxas_report):
     """ptxas's registers and spills of each s8 engine body, the ELL narrow
-    bodies, the valued dd kernel and bucket_spmv, and the dynamic shared
-    memory the engine's launch asks for."""
+    bodies, the dd kernels and bucket_spmv, and the dynamic shared memory
+    the engine's launch asks for."""
     import ctypes
 
     for kern, lines in ptxas_report("s8_engine_kernel").items():
@@ -336,7 +340,7 @@ def engine_report(lib, ptxas_report):
               flush=True)
     for pat, src in (("ell_narrow_kernel", "ell_spmm.cu"),
                      ("ell_smem_narrow_kernel", "ell_spmm.cu"),
-                     ("ell_dd_valued", "ell_dd.cu"),
+                     ("ell_dd_", "ell_dd.cu"),
                      ("bucket_spmv_kernel", "bsr_tiles.cu")):
         for kern, lines in ptxas_report(pat).items():
             tmpl = kern.split(pat, 1)[1].split("EEEv", 1)[0]
@@ -380,9 +384,9 @@ def ell_body_phase(EK, DK):
     N = 1 and 8 and the lane-split body at N = 128 in every mode; ell_sweep
     runs its own kernel at N = 1 and 128; ell_bucket_smem its narrow body
     at N = 1 and 8 and its lane-split body at N = 128; the dd gathers
-    their own kernels (the valued one on config 2-fp64's longest-row and
-    largest shapes, the unit one on config B's). Each bit-exact against
-    its plain version."""
+    the split kernel on few long rows and the rows kernel on many rows, in
+    either value form (config 2-fp64's and config B's longest-row and
+    largest shapes). Each bit-exact against its plain version."""
     import torch
 
     gen = torch.Generator("cuda").manual_seed(11)
@@ -434,16 +438,17 @@ def ell_body_phase(EK, DK):
         check(torch.equal(EK.ell_bucket_spmm_smem(cols, vals, x),
                           EK.ell_bucket_spmm_smem_plain(cols, vals, x)),
               f"ell_bucket_smem[N={N}]: not bit-exact")
-    # dd: (rows, slots, lanes) of config 2-fp64's longest-row bucket (few
-    # long rows: the split kernel) and largest bucket (many rows: every
-    # thread a chain), and of config B's largest unit bucket
+    # dd: (rows, slots, lanes) of config 2-fp64's and config B's
+    # longest-row buckets (few long rows: the split kernel) and largest
+    # buckets (many rows: every thread a chain)
     k_rows = 20_008
-    dd_bodies = ("ell_dd_valued_kernel", "ell_dd_valued_rows_kernel",
-                 "ell_dd_kernel")
+    dd_bodies = ("ell_dd_split_kernel", "ell_dd_rows_kernel")
     for valued, nb, K, N, want in (
-            (True, 8, 2048, 1, "ell_dd_valued_kernel"),
-            (True, 5048, 32, 32, "ell_dd_valued_rows_kernel"),
-            (False, 18_864, 32, 32, "ell_dd_kernel")):
+            (True, 8, 2048, 1, "ell_dd_split_kernel"),
+            (True, 5048, 32, 32, "ell_dd_rows_kernel"),
+            (False, 16, 2048, 1, "ell_dd_split_kernel"),
+            (False, 16, 2048, 32, "ell_dd_split_kernel"),
+            (False, 18_864, 32, 32, "ell_dd_rows_kernel")):
         c = torch.randint(0, ncol, (nb, K), device="cuda", generator=gen,
                           dtype=torch.int32)
         x2 = torch.randn((2 * k_rows, N), device="cuda", generator=gen)
@@ -675,18 +680,6 @@ def x_panel(X, rows_pad):
     return Xp
 
 
-def gather_csr(cols, vals, nx_rows):
-    """A CUDA sparse CSR of the rows a gather computes: ``(n, nx_rows)``,
-    row r holding ``vals[r, k]`` at ``cols[r, k]`` (the cuSPARSE yardstick
-    of the same function)."""
-    import torch
-
-    n, K = cols.shape
-    crow = torch.arange(0, n * K + 1, K, dtype=torch.int64, device=cols.device)
-    return torch.sparse_csr_tensor(crow, cols.reshape(-1).long(),
-                                   vals.reshape(-1), size=(n, nx_rows))
-
-
 def ell_gather_bound(cols, vals_bytes_per_slot, idx_bytes_per_slot, x, unit):
     """Bytes: the slots' indices (and values) once, each X row the bucket
     references once, each output row once; operations: a multiply-add (or
@@ -707,6 +700,7 @@ def ell_kernel_phase(EK, opA, A_unsplit, A_unsplit_bin, opB, time_cuda):
     import numpy as np
     import torch
 
+    from fastsparse_torch.bench.spmv_kernels import gather_csr
     from fastsparse_torch.ops import ell_ops
 
     g = np.random.default_rng(7)
@@ -1624,7 +1618,7 @@ def dd_kernel_run(DK, name, cols, vh, vl, x2, time_cuda, device=False):
     f64 product of the same rows (``device``: also both device times)."""
     import torch
 
-    from fastsparse_torch.bench.spmv_kernels import dd_work
+    from fastsparse_torch.bench.spmv_kernels import dd_work, gather_csr
 
     valued = vh is not None
     if valued:
@@ -1667,9 +1661,8 @@ def dd_kernel_run(DK, name, cols, vh, vl, x2, time_cuda, device=False):
           f"{r['plain_ms']!r} bound_ms={r['bound_ms']!r} ({r['bound_by']}) "
           f"cuSPARSE f64 {r['library_ms']!r}", flush=True)
     if device:
-        r.update(device_pair(
-            name, kern, lambda: torch.sparse.mm(Acsr, X64),
-            ("ell_dd_valued",) if valued else ("ell_dd_kernel",)))
+        r.update(device_pair(name, kern, lambda: torch.sparse.mm(Acsr, X64),
+                             ("ell_dd_split_kernel", "ell_dd_rows_kernel")))
     return r
 
 
@@ -1677,7 +1670,7 @@ def dd_kernel_phase(DK, A1, A2d, opBu, time_cuda):
     """Each dd kernel against its plain version at the main path's shapes:
     #13 on config 1's and config 2-fp64's largest DdEll bucket and on
     config 2-fp64's longest-row bucket, #12 on config B's largest unsplit
-    unit bucket."""
+    unit bucket and on its longest-row one."""
     import numpy as np
     import torch
 
@@ -1714,13 +1707,17 @@ def dd_kernel_phase(DK, A1, A2d, opBu, time_cuda):
     valued = dict(modes["config 1,N=1"])
     valued["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
     valued["modes"] = modes
-    off, seg, b, _ = largest_dd_bucket(opBu.fwd, False)
-    print(f"config B largest unit bucket {tuple(b.cols.shape)} (segment at "
-          f"column {off})", flush=True)
-    modes = {f"N={N}": dd_kernel_run(DK, f"ell_bucket_dd[config B,N={N}]",
-                                     b.cols, None, None, panel(off, seg, N),
-                                     time_cuda, device=N == 32)
-             for N in (1, 32)}
+    modes = {}
+    for what, key in (("largest", lambda b: b.cols.numel()),
+                      ("longest", lambda b: b.cols.shape[::-1])):
+        off, seg, b, _ = largest_dd_bucket(opBu.fwd, False, key=key)
+        print(f"config B {what} unit bucket {tuple(b.cols.shape)} (segment "
+              f"at column {off})", flush=True)
+        tag = "" if what == "largest" else f"{what},"
+        for N in (1, 32):
+            modes[f"{tag}N={N}"] = dd_kernel_run(
+                DK, f"ell_bucket_dd[config B {what},N={N}]", b.cols, None,
+                None, panel(off, seg, N), time_cuda, device=N == 32)
     unit = dict(modes["N=32"])
     unit["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
     unit["modes"] = modes
@@ -1856,8 +1853,12 @@ def fp64_main_phase(ft, counters, DK, m1, m2d, mB, op1, A1, A2d, opBu,
     for name in ("ell_bucket_dd", "ell_bucket_dd_valued"):
         check(counts[name] > 0, f"kernel {name} never launched on the fp64 path")
 
-    longest = longest_dd_launches(lambda v: ft.spmm_dd(A2d, v), x2, A2d.hi,
-                                  "config2-fp64.spmm_dd")
+    longest = {
+        "ell_bucket_dd_valued": longest_dd_launches(
+            lambda v: ft.spmm_dd(A2d, v), x2, A2d.hi, "config2-fp64.spmm_dd"),
+        "ell_bucket_dd": longest_dd_launches(
+            lambda v: ft.spmm_dd(opBu, v), XB, opBu.fwd,
+            "configB-unit.spmm_dd N=32")}
     products = {
         "config1.operator.matvec": (op1.matvec, x1),
         "config1.spmm_dd": (lambda v: ft.spmm_dd(A1, v), x1[:, None]),
@@ -1929,6 +1930,7 @@ def smem_kernel_phase(EK, opA_s, opB_s, time_cuda):
     import numpy as np
     import torch
 
+    from fastsparse_torch.bench.spmv_kernels import gather_csr
     from fastsparse_torch.ops import ell_ops
 
     g = np.random.default_rng(37)
@@ -2350,7 +2352,8 @@ def main() -> int:
     kres.update(dd_kernel_phase(DK, A1, A2d, opBu, time_cuda))
     dd_counts, longest = fp64_main_phase(ft, (K, EK, TT, DK), DK, m1, m2d,
                                          mB, op1, A1, A2d, opBu, time_cuda)
-    kres["ell_bucket_dd_valued"]["longest_launches"] = longest
+    for name, rec in longest.items():
+        kres[name]["longest_launches"] = rec
     counts.update({k: dd_counts[k]
                    for k in ("ell_bucket_dd", "ell_bucket_dd_valued")})
     del op1, A1, A2d, opBu

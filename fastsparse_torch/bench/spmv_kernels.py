@@ -2,7 +2,7 @@
 timed on one card.
 
     python3 fastsparse_torch/bench/spmv_kernels.py [--root DIR]
-        [--groups spmv,smem,dd]
+        [--groups spmv,smem,dd,others]
 
 Group ``spmv``, each kernel through its wrapper at the main path's shapes:
 ell_bucket (#9) on config A's largest bucket (BASELINE config 2, 7,808 x
@@ -10,11 +10,11 @@ ell_bucket (#9) on config A's largest bucket (BASELINE config 2, 7,808 x
 bucket at N = 1 and 128, and in the chunked modes at N=1 (valued and
 packed on config A built unsplit, unit with plain columns against a
 65,544-row X); ell_sweep (#10) on config B's first sweep item at N = 1
-and 128; ell_bucket_smem (#11) on config A's 7,808 x 64 bucket at N = 1
-and 128; bucket_spmv (#8) on the ECFP transpose tiling's largest segment
-(5 launches, as a set and each alone) and on config B's tile segment
-(``reorder="degree"``, 1 launch). Products: config A SpMV
-(``operator(m)``), config 2 SpMV (``reorder="auto", transpose=False``),
+and 128, with its bound; ell_bucket_smem (#11) on config A's 7,808 x 64
+bucket at N = 1 and 128; bucket_spmv (#8) on the ECFP transpose
+tiling's largest segment (5 launches, as a set and each alone) and on
+config B's tile segment (``reorder="degree"``, 1 launch). Products:
+config A SpMV (``operator(m)``), config 2 SpMV (``reorder="auto", transpose=False``),
 config B SpMV (``format="ell"``), ECFP matvec (``operator(m)``) and config
 B ``reorder="degree"`` matvec, each with its error against scipy in
 float64.
@@ -25,11 +25,20 @@ product of the same rows at N=1; the product config A SpMV with the flag
 on.
 
 Group ``dd``: ell_bucket_dd_valued (#13) on every bucket of config 2 in
-fp64 (``build_ell_dd``, 60 buckets) at N=1, each with its bound; the dd
-launches of one ``spmm_dd`` as a set (the buckets' launches on their
-segments' panels, without the merges): #13 on config 2-fp64 (N=1) and
-BASELINE config 1 (N=1), #12 on config B's unsplit unit layout (N=32);
-and those three ``spmm_dd`` products, with their error against scipy.
+fp64 (``build_ell_dd``, 60 buckets) at N=1 and ell_bucket_dd (#12) on
+every bucket of config B's unsplit unit layout (61 buckets) at N=32, and
+at N=1 on its largest bucket and its longest rows, each with its bound
+(and cuSPARSE's f64 product of those three buckets' rows at N = 1, 32);
+the dd launches of one ``spmm_dd`` as a set (the buckets' launches on
+their segments' panels, without the merges): #13 on config 2-fp64 (N=1)
+and BASELINE config 1 (N=1), #12 on config B unit (N=32); and those
+three ``spmm_dd`` products, with their error against scipy.
+
+Group ``others``: colmax (#1) and quant3_planes (#2) on the headline's X
+(N=128), colmax also with the L2 flushed between calls (a 128 MB write,
+which its event and queued times include; its device time does not),
+and ell_sweep (#10) on config B's first sweep item at N=128, each with
+its bound.
 
 Run as a script it prints the card's name and power limit, then one JSON
 line per item: the CUDA-event minimum and median in ms (20 calls a batch,
@@ -54,7 +63,7 @@ import sys
 from pathlib import Path
 
 ELL_KEYS = ("ell_narrow_kernel", "ell_bucket_kernel")
-GROUPS = ("spmv", "smem", "dd")
+GROUPS = ("spmv", "smem", "dd", "others")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12
 
@@ -150,6 +159,8 @@ def setup(ft, groups=GROUPS):
         _smem_items(ft, g, mat, kernels, products)
     if "dd" in groups:
         _dd_items(ft, g, mat, kernels, products)
+    if "others" in groups:
+        _other_items(ft, g, mat, kernels)
     return kernels, products
 
 
@@ -222,19 +233,8 @@ def _spmv_items(ft, g, mat, kernels, products):
         bucket(wideb, lanes[1][0], True, wideb.packed))
     kernels[f"ell_bucket unit_chunked {tuple(wideb.cols.shape)} N=1"] = (
         bucket(wideb, X_plain, True))
-    item = next(b for b, mode, *_ in ell_ops._seg_layout(segB)
-                if mode == "sweep")
-    flats, meta = [], []
-    for bb, t0, t1, np_ in item:
-        pp = ell_ops._slice_chunk(bb, segB, t0, t1, np_)[3]
-        flats.append(pp.reshape(-1))
-        meta.append((np_, bb.cols.shape[1] // 2))
-    flat, meta = torch.cat(flats), tuple(meta)
+    _sweep_items(segB, {N: lanes[N][1] for N in (1, 128)}, kernels)
     for N in (1, 128):
-        x = lanes[N][1]
-        kernels[f"ell_sweep config B item {len(meta)} parts N={N}"] = (
-            lambda x=x: EK.ell_sweep_spmm(flat, x, parts=meta),
-            ("ell_sweep_kernel",), 1, {})
         x = lanes[N][0]
         kernels[f"ell_bucket_smem {tuple(big.cols.shape)} N={N}"] = (
             lambda x=x: EK.ell_bucket_spmm_smem(big.cols, big.vals, x),
@@ -265,6 +265,56 @@ def _spmv_items(ft, g, mat, kernels, products):
         xn = g.standard_normal(m.shape[1]).astype(np.float32)
         products[name] = (op.matvec, torch.from_numpy(xn).cuda(),
                           m.astype(np.float64) @ xn.astype(np.float64))
+
+
+def gather_csr(cols, vals, nx_rows):
+    """A sparse CSR of the rows a gather computes: ``(n, nx_rows)``, row r
+    holding ``vals[r, k]`` at ``cols[r, k]`` (the cuSPARSE yardstick of
+    the same function)."""
+    import torch
+
+    n, K = cols.shape
+    crow = torch.arange(0, n * K + 1, K, dtype=torch.int64, device=cols.device)
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1).long(),
+                                   vals.reshape(-1), size=(n, nx_rows))
+
+
+def _csr_f64(cols, x2):
+    """cuSPARSE's f64 product of a unit bucket's rows with the f64 X that
+    the panel ``x2`` holds as two planes: a yardstick item."""
+    import torch
+
+    k_rows = x2.shape[0] // 2
+    A = gather_csr(cols, torch.ones(cols.shape, dtype=torch.float64,
+                                    device=cols.device), k_rows)
+    X64 = (x2[:k_rows].double() + x2[k_rows:].double()).contiguous()
+    return lambda: torch.sparse.mm(A, X64), ("",), None, {}
+
+
+def _sweep_items(seg, xs, kernels):
+    """ell_sweep on a segment's first sweep item, as `ell_ops` launches
+    it, for each X panel of ``xs`` (N -> panel), with its bound."""
+    import torch
+
+    from fastsparse_torch.ops import ell_ops
+    from fastsparse_torch.ops.kernels import ell_spmm as EK
+
+    item = next(b for b, mode, *_ in ell_ops._seg_layout(seg)
+                if mode == "sweep")
+    flats, meta, cols = [], [], []
+    for bb, t0, t1, np_ in item:
+        _, cc, _, pp = ell_ops._slice_chunk(bb, seg, t0, t1, np_)
+        flats.append(pp.reshape(-1))
+        meta.append((np_, bb.cols.shape[1] // 2))
+        cols.append(cc.reshape(-1))
+    flat, meta, cols = torch.cat(flats), tuple(meta), torch.cat(cols)
+    used, rows = int(torch.unique(cols).numel()), sum(n for n, _ in meta)
+    for N, x in xs.items():
+        kernels[f"ell_sweep config B item {len(meta)} parts N={N}"] = (
+            lambda x=x: EK.ell_sweep_spmm(flat, x, parts=meta),
+            ("ell_sweep_kernel",), 1,
+            {"bound_ms": bound_ms(cols.numel() * 2 + (used + rows) * N * 4,
+                                  cols.numel() * N)})
 
 
 @contextlib.contextmanager
@@ -333,21 +383,30 @@ def _dd_items(ft, g, mat, kernels, products):
 
     def launches(A, N):
         """[(cols, vh or None, vl or None, x2)] of one product, in the
-        order `ell_spmm_dd` launches them, and the f64 X."""
+        order `ell_spmm_dd` launches them, the f64 X, and each launch's
+        segment."""
         valued = hasattr(A, "lo")
         tiling = A.hi if valued else A
         X = torch.from_numpy(g.standard_normal((tiling.shape[1], N))).cuda()
         xh = X.float()
         xl = (X - xh.double()).float()
-        out = []
+        out, seg_of = [], []
         segs = (zip(_segments(A.hi), _segments(A.lo)) if valued
                 else ((s, (None, None)) for s in _segments(A)))
-        for (off, seg), (_, seg_lo) in segs:
+        for si, ((off, seg), (_, seg_lo)) in enumerate(segs):
             x2 = _dd_panel(xh, xl, off, seg.shape[1])
             for i, b in enumerate(seg.buckets):
                 out.append((b.cols, b.vals if valued else None,
                             seg_lo.buckets[i].vals if valued else None, x2))
-        return out, X
+                seg_of.append(si)
+        return out, X, seg_of
+
+    def one(name, cols, vh, vl, x2):
+        """One launch's item, with its bound."""
+        fn = ((lambda: DK.ell_bucket_spmm_dd(cols, x2)) if vh is None else
+              (lambda: DK.ell_bucket_spmm_dd_valued(cols, vh, vl, x2)))
+        work = dd_work(cols, x2.shape[1], vh is not None)
+        kernels[name] = (fn, ("ell_dd",), 1, {"bound_ms": bound_ms(*work)})
 
     def run_all(items):
         for cols, vh, vl, x2 in items:
@@ -361,18 +420,31 @@ def _dd_items(ft, g, mat, kernels, products):
     A1 = ft.build_ell_dd(m1)
     opBu = ft.operator(mB, format="ell", transpose=False,
                        config=ft.Config(ell_split_rows=0))
-    items2, X2 = launches(A2d, 1)
-    seg_of = [si for si, (_, seg) in enumerate(_segments(A2d.hi))
-              for _ in seg.buckets]
+    items2, X2, seg_of = launches(A2d, 1)
     for si, (cols, vh, vl, x2) in zip(seg_of, items2):
-        kernels[f"dd_valued config2-fp64 seg{si} {tuple(cols.shape)} N=1"] = (
-            lambda c=cols, h=vh, l=vl, x=x2:
-                DK.ell_bucket_spmm_dd_valued(c, h, l, x),
-            ("ell_dd",), 1, {"bound_ms": bound_ms(*dd_work(cols, 1, True))})
-    for name, A, N, m in (("dd_valued config2-fp64", A2d, 1, m2d),
-                          ("dd_valued config1", A1, 1, m1),
-                          ("dd_unit configB", opBu.fwd, 32, mB)):
-        items, X = (items2, X2) if A is A2d else launches(A, N)
+        one(f"dd_valued config2-fp64 seg{si} {tuple(cols.shape)} N=1",
+            cols, vh, vl, x2)
+    itemsB, XB, seg_of = launches(opBu.fwd, 32)
+    for si, (cols, _, _, x2) in zip(seg_of, itemsB):
+        one(f"dd_unit configB seg{si} {tuple(cols.shape)} N=32", cols, None,
+            None, x2)
+    # at N=1 too: the largest unit bucket and the longest rows; cuSPARSE's
+    # f64 product of the same rows beside them
+    itemsB1, _, _ = launches(opBu.fwd, 1)
+    K_max = max(c.shape[1] for c, *_ in itemsB)
+    big = max(range(len(itemsB)), key=lambda i: itemsB[i][0].numel())
+    for i, (cols, _, _, x2) in enumerate(itemsB1):
+        if i == big or cols.shape[1] == K_max:
+            one(f"dd_unit configB seg{seg_of[i]} {tuple(cols.shape)} N=1",
+                cols, None, None, x2)
+            for N, x in ((1, x2), (32, itemsB[i][3])):
+                kernels[f"cuSPARSE f64 configB seg{seg_of[i]} "
+                         f"{tuple(cols.shape)} N={N}"] = _csr_f64(cols, x)
+    items1, X1, _ = launches(A1, 1)
+    for name, (items, X), N, A, m in (
+            ("dd_valued config2-fp64", (items2, X2), 1, A2d, m2d),
+            ("dd_valued config1", (items1, X1), 1, A1, m1),
+            ("dd_unit configB", (itemsB, XB), 32, opBu.fwd, mB)):
         work = [dd_work(c, N, vh is not None) for c, vh, _, _ in items]
         kernels[f"{name} all {len(items)} launches N={N}"] = (
             lambda items=items: run_all(items), ("ell_dd",), len(items),
@@ -381,6 +453,47 @@ def _dd_items(ft, g, mat, kernels, products):
         ref = m.astype(np.float64) @ X.cpu().numpy()
         products[f"{name.split()[1]} spmm_dd N={N}"] = (
             lambda v, A=A: ft.spmm_dd(A, v), X, ref)
+
+
+def _other_items(ft, g, mat, kernels):
+    """#1 and #2 on the headline's X at N=128 (#1 also behind an L2
+    flush), #10 on config B's first sweep item at N=128, each with its
+    bound."""
+    import torch
+
+    from fastsparse_torch.bench.matrices import banded
+    from fastsparse_torch.bench.mono_products import mono_setup
+    from fastsparse_torch.ops import ell_ops
+    from fastsparse_torch.ops.kernels import bsr_spmm as K
+
+    ms = mono_setup(ft, banded)
+    b = ms.op.fwd.buckets[0]
+    K_pad = b.n_windows * b.win_slabs * ms.op.fwd.tile_k
+    Xp = torch.zeros((K_pad, 128), dtype=torch.float32, device="cuda")
+    Xp[: ms.X.shape[0]] = ms.X
+    mx = K.colmax(Xp)
+    sinv = 1.0 / (torch.where(mx > 0, mx, 1.0) * (1.0 / (127.0 * 65536.0)))
+    n = Xp.numel()
+    colmax_bound = {"bound_ms": bound_ms(n * 4 + 128 * 4, n)}
+    kernels[f"colmax headline {tuple(Xp.shape)}"] = (
+        lambda: K.colmax(Xp), ("colmax_kernel",), 1, colmax_bound)
+    # 128 MB written between calls: the X the headline left in the 50 MB
+    # L2 is gone (event and queued times include the write)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+
+    def cold():
+        flush.zero_()
+        return K.colmax(Xp)
+
+    kernels[f"colmax headline {tuple(Xp.shape)} L2 flushed"] = (
+        cold, ("colmax_kernel",), 1, colmax_bound)
+    kernels[f"quant3_planes headline {tuple(Xp.shape)}"] = (
+        lambda: K.quant3_planes(Xp, sinv, n_block=128), ("quant3",), 1,
+        {"bound_ms": bound_ms(n * 7 + 128 * 4, n)})
+    segB = ft.operator(mat("B"), format="ell", transpose=False).fwd.segments[0]
+    XB = _x_panel(g, segB.shape[1], ell_ops._round_up(segB.shape[1] + 1, 8),
+                  128)
+    _sweep_items(segB, {128: XB}, kernels)
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the fp64-class ELL gather: the
 // CUDA counterparts of two Pallas TPU kernels in
-// fastsparse/ops/pallas/ell_spmm.py.
+// fastsparse/ops/pallas/ell_spmm.py, on one pair of kernels templated on
+// the value form.
 //
 //   fs_ell_dd, valued = 0  <- ell_bucket_spmm_dd (#12, body _body_unit_dd)
 //       unit values: (hi, lo)[r] = TwoSum chain of x[col[r,k]] over k
@@ -29,40 +30,44 @@
 //
 // Design. The TPU kernel carries (hi, lo) across an in-order
 // ("arbitrary") grid axis over the row's K slots. Only hi and lo carry
-// from one slot to the next: a slot's Dekker splits, its product p1 =
-// vh·xh and q = perr + cross depend on that slot's inputs alone.
+// from one slot to the next: a slot's terms depend on that slot's inputs
+// alone. Unit values: the terms are the gathered (xh, xl); valued: the
+// Dekker splits, p1 = vh·xh and q = perr + cross (dd_terms).
 //
-// #12 (ell_dd_kernel): one thread owns one (bucket row, lane), walks the
-// row's slots in order with (hi, lo) in registers, and writes each output
-// once. A row's lanes split over TPR = min(32, next_pow2(N)) threads, so
-// at N >= 32 a warp reads 32 consecutive floats of each gathered X row.
-//
-// #13: what bounds it on this card is the chain, not the bytes. One
-// thread a row walked 2,048 slots of config 2-fp64's longest bucket, each
-// an index load, then a dependent gather, then ~29 operations (0.25 ms
-// for 8 rows while the card idled), and short rows read cols, vh and vl
-// at a stride of K·4 B between threads. Two kernels now, chosen by the
-// launcher:
-// - ell_dd_valued_kernel (few rows, or long ones): a block owns R rows
-//   and TPR lanes and walks K in slices. The slice's cols, vh and vl for
-//   its rows are staged in shared memory by cp.async (16, 8 or 4 bytes,
-//   coalesced along each row), the next slice in flight while this one is
-//   used. Every thread computes the terms (p1, q) of many (row, slot,
-//   lane) items at once, all gathers of a batch issued before use, into a
-//   contiguous row of shared memory per (row, lane). Then thread (row,
-//   lane) runs the exact chain over them, its reads DD_STEP slots ahead:
-//   per slot one shared-memory read and the TwoSum's eight adds, of which
-//   only s = hi + p1 and lo + (e + q) carry. R is halved from 256 / TPR
-//   while the grid holds fewer than two blocks an SM and a block has more
-//   than DD_THREADS·DD_BATCH items a slice, so a bucket of a few long
-//   rows runs a block a row.
-// - ell_dd_valued_rows_kernel (many rows, or rows of at most DD_SHORT_K
-//   slots): one thread per (row, lane) as #12, each step's indices,
-//   values and X gathers issued before its terms and chain steps.
-// The operations and their nesting are _body_dd_valued's in both
-// (dd_terms, dd_chain), so the outputs are bit-equal whichever runs. A
-// lone thread's chain step still takes ~18 cycles here (PERF.md): the
-// chain, not the bytes, sets the time of a 2,048-slot row.
+// What bounds both forms on this card is the chain, not the bytes. One
+// thread a chain walking a long row pays, per slot, an index load, then a
+// dependent gather, then the chain's adds: #13 took 0.25 ms for config
+// 2-fp64's 8 rows of 2,048 slots, #12 0.15 ms for config B's 16 such
+// rows at N=32, while the card idled. So one pair of kernels, templated
+// on the value form (DdForm: the staged arrays and the constants that
+// differ between the forms), chosen by one launcher (launch_dd):
+// - ell_dd_split_kernel (few rows, or long ones): a block owns R rows
+//   and TPR lanes and walks K in slices. The slice's staged arrays (cols,
+//   and vh, vl when valued) for its rows are copied into shared memory by
+//   cp.async (16, 8 or 4 bytes, coalesced along each row), the next slice
+//   in flight while this one is used. Every thread computes the terms of
+//   many (row, slot, lane) items at once, all gathers of a batch sent
+//   before use, into a contiguous row of shared memory per (row, lane).
+//   Then thread (row, lane) runs the exact chain over them, its reads
+//   DD_AHEAD slots ahead: per slot one shared-memory read and the TwoSum's
+//   eight adds, of which only s = hi + a and lo + (e + b) carry. R is
+//   halved from 256 / TPR while the grid holds fewer than two blocks an
+//   SM and a block has more than DD_THREADS·kBatch items a slice, so a
+//   bucket of a few long rows runs a block a row.
+// - ell_dd_rows_kernel (many rows, or rows of at most DD_SHORT_K slots):
+//   one thread per (row, lane), each step's indices (and value planes)
+//   and X gathers, kStep slots of them, loaded before its terms and
+//   chain steps.
+// Config B's unit buckets at N=32 run the rows kernel from 528 rows up
+// (its 18,864 x 32 bucket, say: there the L2 read rate bounds it, and
+// loading further ahead only slowed it) and the split kernel below,
+// 8 lanes a block (its rows of 48 to 2,048 slots); config 2-fp64's (N=1)
+// the split kernel on every bucket but those of at most 8 slots. The
+// operations and their nesting are the reference's (_body_unit_dd,
+// _body_dd_valued) in both kernels, so the outputs are bit-equal
+// whichever runs. A lone thread's chain step takes ~16-18 cycles in
+// either form (PERF.md): the chain, not the bytes, sets the time of a
+// 2,048-slot row.
 //
 // Bound on this card: bytes, by the bound's rule. #12 reads 4 B of index
 // per slot, #13 12 B (index, vh, vl), plus each gathered X row in both
@@ -70,7 +75,7 @@
 // operations per slot and lane, #13 25 (plus 4 per slot for the split of
 // vh); against 67 TFLOP/s that is below the time of the bytes at 3.35
 // TB/s at the main path's shapes. The gathered rows are scattered, so
-// they come through L2.
+// they come through L2: at N=32 each slot reads 256 B of X there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,14 +85,40 @@
 namespace {
 
 constexpr int DD_THREADS = 256;
-// #13: dynamic shared memory per block of the split kernel (no opt-in
-// needed); the items a thread's term pass takes at once and the slots a
-// chain step loads ahead (loads issued first); the longest rows that go to
-// the kernel of one thread a chain whatever the grid
+// dynamic shared memory per block of the split kernel (no opt-in needed);
+// the slots the split kernel's chain reads ahead of its adds; the longest
+// rows that go to the rows kernel whatever the grid
 constexpr int DD_SMEM_BYTES = 48 * 1024;
-constexpr int DD_BATCH = 4;
-constexpr int DD_STEP = 8;
+constexpr int DD_AHEAD = 8;
 constexpr int DD_SHORT_K = 8;
+
+// Each value form's constants (template parameters, not runtime flags):
+// kArrays, the arrays staged per slot (cols, and vh, vl when valued);
+// kBatch, the items a thread's term pass takes at once; kStep, the slots
+// a rows-kernel step loads before its chain steps; kRowsBlocksPerSm, the
+// least grid, in blocks an SM, that goes to the rows kernel;
+// kSplitLanesLog2, log2 of the most lanes a split block takes.
+template <bool VALUED>
+struct DdForm {
+  static constexpr int kArrays = 3;
+  static constexpr int kBatch = 4;
+  static constexpr int kStep = 8;
+  static constexpr float kRowsBlocksPerSm = 2.0f;
+  static constexpr int kSplitLanesLog2 = 5;
+};
+// Unit (measured, PERF.md): a term is a gather and a copy, so more of them
+// in flight; a rows-kernel step of one slot (steps of 8 slowed config B's
+// many-row buckets, held by the L2 read rate, 0.021 -> 0.027 ms), and
+// that kernel from half a block an SM; split blocks of 8 lanes, so that a
+// few long rows at N=32 spread their term passes over 4x the SMs.
+template <>
+struct DdForm<false> {
+  static constexpr int kArrays = 1;
+  static constexpr int kBatch = 16;
+  static constexpr int kStep = 1;
+  static constexpr float kRowsBlocksPerSm = 0.5f;
+  static constexpr int kSplitLanesLog2 = 3;
+};
 
 // Dekker split at 4097 (12/12 bits): hi + lo == a exactly
 __device__ __forceinline__ void split4097(float a, float& hi, float& lo) {
@@ -108,26 +139,26 @@ __device__ __forceinline__ void dd_chain(float& hi, float& lo, float a,
   lo = __fadd_rn(lo, __fadd_rn(e, b));
 }
 
-// A chain over the terms t[0 .. n) in slot order, its reads DD_STEP slots
-// ahead of its steps (the chain waits on its adds, not on its reads); t
-// must be readable up to t[n + DD_STEP - 1].
+// A chain over the terms t[0 .. n) in slot order, its reads DD_AHEAD
+// slots ahead of its steps (the chain waits on its adds, not on its
+// reads); t must be readable up to t[n + DD_AHEAD - 1].
 __device__ __forceinline__ void chain_walk(const float2* t, int n, float& hi,
                                            float& lo) {
-  const int nfull = n - n % DD_STEP;
-  float2 cur[DD_STEP];
+  const int nfull = n - n % DD_AHEAD;
+  float2 cur[DD_AHEAD];
 #pragma unroll
-  for (int u = 0; u < DD_STEP; ++u) cur[u] = t[u];
-  for (int k = 0; k < nfull; k += DD_STEP) {
-    float2 nxt[DD_STEP];
+  for (int u = 0; u < DD_AHEAD; ++u) cur[u] = t[u];
+  for (int k = 0; k < nfull; k += DD_AHEAD) {
+    float2 nxt[DD_AHEAD];
 #pragma unroll
-    for (int u = 0; u < DD_STEP; ++u) nxt[u] = t[k + DD_STEP + u];
+    for (int u = 0; u < DD_AHEAD; ++u) nxt[u] = t[k + DD_AHEAD + u];
 #pragma unroll
-    for (int u = 0; u < DD_STEP; ++u) dd_chain(hi, lo, cur[u].x, cur[u].y);
+    for (int u = 0; u < DD_AHEAD; ++u) dd_chain(hi, lo, cur[u].x, cur[u].y);
 #pragma unroll
-    for (int u = 0; u < DD_STEP; ++u) cur[u] = nxt[u];
+    for (int u = 0; u < DD_AHEAD; ++u) cur[u] = nxt[u];
   }
 #pragma unroll
-  for (int u = 0; u < DD_STEP; ++u) {
+  for (int u = 0; u < DD_AHEAD; ++u) {
     if (nfull + u < n) dd_chain(hi, lo, cur[u].x, cur[u].y);
   }
 }
@@ -151,38 +182,30 @@ __device__ __forceinline__ float2 dd_terms(float v_h, float v_l, float xh,
   return make_float2(p1, __fadd_rn(perr, cross));
 }
 
-// #12: one thread per (bucket row, lane) walks the row's slots in order.
-__global__ void __launch_bounds__(DD_THREADS)
-ell_dd_kernel(const int32_t* __restrict__ cols, const float* __restrict__ x2,
-              float* __restrict__ out_hi, float* __restrict__ out_lo, int nb,
-              int K, int k_rows, int ldx, int tpr_log2) {
-  const int tpr = 1 << tpr_log2;
-  const int r = blockIdx.x * (DD_THREADS >> tpr_log2) + (threadIdx.x >> tpr_log2);
-  const int lane = blockIdx.y * tpr + (threadIdx.x & (tpr - 1));
-  if (r >= nb || lane >= ldx) return;
-  const size_t row0 = (size_t)r * K;
-  const size_t lo_plane = (size_t)k_rows * ldx;
-  float hi = 0.0f, lo = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const size_t xo = (size_t)__ldg(cols + row0 + k) * ldx + lane;
-    dd_chain(hi, lo, __ldg(x2 + xo), __ldg(x2 + lo_plane + xo));
+// A slot's chain terms: the gathered (xh, xl) for unit values (a padding
+// slot reads the sentinel's zeros), dd_terms(...) for valued ones.
+template <bool VALUED>
+__device__ __forceinline__ float2 slot_terms(float v_h, float v_l, float xh,
+                                             float xl) {
+  if constexpr (VALUED) {
+    return dd_terms(v_h, v_l, xh, xl);
+  } else {
+    return make_float2(xh, xl);
   }
-  out_hi[(size_t)r * ldx + lane] = hi;
-  out_lo[(size_t)r * ldx + lane] = lo;
 }
 
-// #13 where every thread owns a chain (ell_dd_valued_rows_kernel): one
-// thread per (bucket row, lane), as #12, walking the row's slots DD_STEP
-// at a time: the step's indices and value planes, then all of its X
-// gathers, then its terms and chain steps in slot order.
+// The rows kernel (every thread a chain): one thread per (bucket row,
+// lane) walks the row's slots STEP at a time: the step's indices (and
+// value planes), then all of its X gathers, then its terms and chain
+// steps in slot order. vh, vl unused when unit.
+template <bool VALUED>
 __global__ void __launch_bounds__(DD_THREADS)
-ell_dd_valued_rows_kernel(const int32_t* __restrict__ cols,
-                          const float* __restrict__ vh,
-                          const float* __restrict__ vl,
-                          const float* __restrict__ x2,
-                          float* __restrict__ out_hi,
-                          float* __restrict__ out_lo, int nb, int K,
-                          int k_rows, int ldx, int tpr_log2) {
+ell_dd_rows_kernel(const int32_t* __restrict__ cols,
+                   const float* __restrict__ vh, const float* __restrict__ vl,
+                   const float* __restrict__ x2, float* __restrict__ out_hi,
+                   float* __restrict__ out_lo, int nb, int K, int k_rows,
+                   int ldx, int tpr_log2) {
+  constexpr int STEP = DdForm<VALUED>::kStep;
   const int tpr = 1 << tpr_log2;
   const int r = blockIdx.x * (DD_THREADS >> tpr_log2) + (threadIdx.x >> tpr_log2);
   const int lane = blockIdx.y * tpr + (threadIdx.x & (tpr - 1));
@@ -190,27 +213,31 @@ ell_dd_valued_rows_kernel(const int32_t* __restrict__ cols,
   const size_t row0 = (size_t)r * K;
   const size_t lo_plane = (size_t)k_rows * ldx;
   float hi = 0.0f, lo = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += DD_STEP) {
-    int c[DD_STEP];
-    float a[DD_STEP], b[DD_STEP], xh[DD_STEP], xl[DD_STEP];
+  for (int k0 = 0; k0 < K; k0 += STEP) {
+    int c[STEP];
+    float a[STEP], b[STEP], xh[STEP], xl[STEP];
 #pragma unroll
-    for (int u = 0; u < DD_STEP; ++u) {
+    for (int u = 0; u < STEP; ++u) {
       const bool ok = k0 + u < K;
       c[u] = ok ? __ldg(cols + row0 + k0 + u) : 0;
-      a[u] = ok ? __ldg(vh + row0 + k0 + u) : 0.0f;
-      b[u] = ok ? __ldg(vl + row0 + k0 + u) : 0.0f;
+      if constexpr (VALUED) {
+        a[u] = ok ? __ldg(vh + row0 + k0 + u) : 0.0f;
+        b[u] = ok ? __ldg(vl + row0 + k0 + u) : 0.0f;
+      } else {
+        a[u] = b[u] = 0.0f;
+      }
     }
 #pragma unroll
-    for (int u = 0; u < DD_STEP; ++u) {
+    for (int u = 0; u < STEP; ++u) {
       const size_t xo = (size_t)c[u] * ldx + lane;
       const bool ok = k0 + u < K;
       xh[u] = ok ? __ldg(x2 + xo) : 0.0f;
       xl[u] = ok ? __ldg(x2 + lo_plane + xo) : 0.0f;
     }
 #pragma unroll
-    for (int u = 0; u < DD_STEP; ++u) {
+    for (int u = 0; u < STEP; ++u) {
       if (k0 + u < K) {
-        const float2 pq = dd_terms(a[u], b[u], xh[u], xl[u]);
+        const float2 pq = slot_terms<VALUED>(a[u], b[u], xh[u], xl[u]);
         dd_chain(hi, lo, pq.x, pq.y);
       }
     }
@@ -219,31 +246,35 @@ ell_dd_valued_rows_kernel(const int32_t* __restrict__ cols,
   out_lo[(size_t)r * ldx + lane] = lo;
 }
 
-// #13 on few long rows (ell_dd_valued_kernel): a block owns R =
-// 2^r_log2 bucket rows and TPR = 2^tpr_log2 lanes, R·TPR < DD_THREADS,
-// and walks K in slices of ks slots. Per slice: the rows' cols, vh and vl
-// are staged in shared memory (cp.async of CPB bytes, the next slice in
-// flight while this one is used); every thread computes the terms (p1, q)
-// of (row, slot, lane) items, lane fastest, into one row of rs >= ks
-// float2 per chain (rs odd: the chains' reads at one slot hit different
-// banks; a chain's slots are contiguous, so its reads need no address
-// arithmetic); then thread (row, lane) runs its chain over the slice in
-// slot order, its reads DD_STEP slots ahead of its adds.
-template <int CPB>
+// The split kernel (few rows, or long ones): a block owns R = 2^r_log2
+// bucket rows and TPR = 2^tpr_log2 lanes, R·TPR <= DD_THREADS, and walks
+// K in slices of ks slots. Per slice: the rows' staged arrays (cols, and
+// vh, vl when valued) are copied into shared memory (cp.async of CPB
+// bytes, the next slice in flight while this one is used); every thread
+// computes the terms of (row, slot, lane) items, lane fastest, BATCH at a
+// time with their gathers sent first, into one row of rs >= ks float2
+// per chain (rs odd: the chains' reads at one slot hit different banks; a
+// chain's slots are contiguous, so its reads need no address arithmetic);
+// then thread (row, lane) runs its chain over the slice in slot order,
+// its reads STEP slots ahead of its adds.
+template <bool VALUED, int CPB>
 __global__ void __launch_bounds__(DD_THREADS)
-ell_dd_valued_kernel(const int32_t* __restrict__ cols,
-                     const float* __restrict__ vh, const float* __restrict__ vl,
-                     const float* __restrict__ x2, float* __restrict__ out_hi,
-                     float* __restrict__ out_lo, int nb, int K, int k_rows,
-                     int ldx, int tpr_log2, int r_log2, int ks) {
+ell_dd_split_kernel(const int32_t* __restrict__ cols,
+                    const float* __restrict__ vh, const float* __restrict__ vl,
+                    const float* __restrict__ x2, float* __restrict__ out_hi,
+                    float* __restrict__ out_lo, int nb, int K, int k_rows,
+                    int ldx, int tpr_log2, int r_log2, int ks) {
+  using F = DdForm<VALUED>;
+  constexpr int NA = F::kArrays;
+  constexpr int BATCH = F::kBatch;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tpr = 1 << tpr_log2;
   const int nst = K > ks ? 2 : 1;
   const int sw = (1 << r_log2) * ks;  // staged words per array
   const int rs = ks | 1;              // terms per chain
-  int32_t* s_in = reinterpret_cast<int32_t*>(smem_raw);  // [nst][3][sw]
+  int32_t* s_in = reinterpret_cast<int32_t*>(smem_raw);  // [nst][NA][sw]
   float2* terms = reinterpret_cast<float2*>(
-      smem_raw + (((size_t)nst * 3 * sw * 4 + 15) & ~(size_t)15));
+      smem_raw + (((size_t)nst * NA * sw * 4 + 15) & ~(size_t)15));
   const int row0 = blockIdx.x << r_log2;
   const int nrows = min(1 << r_log2, nb - row0);
   const int lane0 = blockIdx.y * tpr;
@@ -257,9 +288,9 @@ ell_dd_valued_kernel(const int32_t* __restrict__ cols,
   const int P = DD_THREADS >> tpr_log2;
   float hi = 0.0f, lo = 0.0f;
 
-  // the rows' slots [k0, k0 + kw) into stage st: cols, vh, vl
+  // the rows' slots [k0, k0 + kw) into stage st
   auto stage = [&](int st, int k0, int kw) {
-    int32_t* d = s_in + st * 3 * sw;
+    int32_t* d = s_in + st * NA * sw;
     constexpr int E = CPB / 4;
     const int per_row = kw / E;
     for (int i = threadIdx.x; i < nrows * per_row; i += DD_THREADS) {
@@ -268,8 +299,10 @@ ell_dd_valued_kernel(const int32_t* __restrict__ cols,
       const size_t g = (size_t)(row0 + rr) * K + k0 + c;
       const int o = rr * ks + c;
       acp::cp_async<CPB>(d + o, cols + g);
-      acp::cp_async<CPB>(d + sw + o, vh + g);
-      acp::cp_async<CPB>(d + 2 * sw + o, vl + g);
+      if constexpr (VALUED) {
+        acp::cp_async<CPB>(d + sw + o, vh + g);
+        acp::cp_async<CPB>(d + 2 * sw + o, vl + g);
+      }
     }
     acp::cp_async_commit();
   };
@@ -287,25 +320,29 @@ ell_dd_valued_kernel(const int32_t* __restrict__ cols,
       acp::cp_async_wait<0>();
     }
     __syncthreads();
-    const int32_t* s_col = s_in + st * 3 * sw;
+    const int32_t* s_col = s_in + st * NA * sw;
     const float* s_vh = reinterpret_cast<const float*>(s_col + sw);
     const float* s_vl = reinterpret_cast<const float*>(s_col + 2 * sw);
     // pair p's (row, slot) advance by P pairs without a division
     const int npairs = nrows * kw;
     const int dr = P / kw, dk = P - (P / kw) * kw;
     const int p0 = threadIdx.x >> tpr_log2;
-    // the slice's terms, DD_BATCH items a thread at a time
+    // the slice's terms, BATCH items a thread at a time
     for (int p = p0, rr = p0 / kw, k = p0 - (p0 / kw) * kw; p < npairs;) {
-      float xh[DD_BATCH], xl[DD_BATCH], a[DD_BATCH], b[DD_BATCH];
-      int at[DD_BATCH];
+      float xh[BATCH], xl[BATCH], a[BATCH], b[BATCH];
+      int at[BATCH];
 #pragma unroll
-      for (int u = 0; u < DD_BATCH; ++u) {
+      for (int u = 0; u < BATCH; ++u) {
         const bool ok = p < npairs && lane_ok;
         const int si = rr * ks + k;
         at[u] = ok ? ((rr << tpr_log2) + cl) * rs + k : -1;
         const int c = ok ? s_col[si] : 0;
-        a[u] = ok ? s_vh[si] : 0.0f;
-        b[u] = ok ? s_vl[si] : 0.0f;
+        if constexpr (VALUED) {
+          a[u] = ok ? s_vh[si] : 0.0f;
+          b[u] = ok ? s_vl[si] : 0.0f;
+        } else {
+          a[u] = b[u] = 0.0f;
+        }
         const size_t xo = (size_t)c * ldx + lane0 + cl;
         xh[u] = ok ? __ldg(x2 + xo) : 0.0f;
         xl[u] = ok ? __ldg(x2 + lo_plane + xo) : 0.0f;
@@ -318,8 +355,10 @@ ell_dd_valued_kernel(const int32_t* __restrict__ cols,
         }
       }
 #pragma unroll
-      for (int u = 0; u < DD_BATCH; ++u) {
-        if (at[u] >= 0) terms[at[u]] = dd_terms(a[u], b[u], xh[u], xl[u]);
+      for (int u = 0; u < BATCH; ++u) {
+        if (at[u] >= 0) {
+          terms[at[u]] = slot_terms<VALUED>(a[u], b[u], xh[u], xl[u]);
+        }
       }
     }
     __syncthreads();
@@ -347,70 +386,82 @@ int sm_count() {
   return n;
 }
 
-// #13's launch. Every thread a chain (ell_dd_valued_rows_kernel, 256 /
-// TPR rows a block) when that grid holds two blocks an SM, or the rows
-// are at most DD_SHORT_K slots (one step of loads). Else the split
-// kernel, R halved from 256 / TPR while the grid holds fewer than two
-// blocks an SM and a block has more than DD_THREADS·DD_BATCH items a
-// slice (a bucket of a few long rows runs a block a row). Its copy:
-// 16-byte cp.async where the rows and buffers allow it, else 8 or 4. Its
-// slice: all of K when the staged inputs, terms and his fit DD_SMEM_BYTES, else
-// the fewest equal slices that fit, each a multiple of the copy's entries.
-int launch_dd_valued(const int32_t* cols, const float* vh, const float* vl,
-                     const float* x2, float* out_hi, float* out_lo, int nb,
-                     int K, int k_rows, int ldx, int tpr_log2,
-                     int n_lane_blocks, cudaStream_t st) {
+// One bucket's launch, for either value form. Every thread a chain (the
+// rows kernel, 256 / TPR rows a block) when that grid holds
+// kRowsBlocksPerSm blocks an SM (two valued, half a block unit), or the
+// rows are at most DD_SHORT_K slots. Else the split kernel, at most
+// 2^kSplitLanesLog2 lanes a block (more lane blocks when X is wider), R
+// halved from 256 / TPR while the grid holds fewer than two blocks an SM
+// and a block has more than DD_THREADS·kBatch items a slice (a bucket of
+// a few long rows runs a block a row and lane block). Its copy:
+// 16-byte cp.async where the rows and the staged buffers allow it, else 8
+// or 4. Its slice: all of K when the staged arrays, terms and read-ahead
+// fit DD_SMEM_BYTES, else the fewest equal slices that fit, each a
+// multiple of the copy's entries.
+template <bool VALUED>
+int launch_dd(const int32_t* cols, const float* vh, const float* vl,
+              const float* x2, float* out_hi, float* out_lo, int nb, int K,
+              int k_rows, int ldx, int tpr_log2, int n_lane_blocks,
+              cudaStream_t st) {
+  using F = DdForm<VALUED>;
   auto blocks = [&](int r_log2) {
     return (long long)((nb + (1 << r_log2) - 1) >> r_log2) * n_lane_blocks;
   };
   int r_log2 = 8 - tpr_log2;
-  if (K <= DD_SHORT_K || blocks(r_log2) >= 2LL * sm_count()) {
+  if (K <= DD_SHORT_K ||
+      (double)blocks(r_log2) >= (double)F::kRowsBlocksPerSm * sm_count()) {
     dim3 grid((unsigned)blocks(r_log2) / n_lane_blocks, n_lane_blocks);
-    ell_dd_valued_rows_kernel<<<grid, DD_THREADS, 0, st>>>(
+    ell_dd_rows_kernel<VALUED><<<grid, DD_THREADS, 0, st>>>(
         cols, vh, vl, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2);
     return 0;
   }
+  if (tpr_log2 > F::kSplitLanesLog2) {
+    tpr_log2 = F::kSplitLanesLog2;
+    n_lane_blocks = (ldx + (1 << tpr_log2) - 1) >> tpr_log2;
+    if (n_lane_blocks > 65535) return (int)cudaErrorInvalidValue;
+    r_log2 = 8 - tpr_log2;
+  }
   while (r_log2 > 0 && blocks(r_log2) < 2LL * sm_count() &&
-         ((long long)K << (r_log2 + tpr_log2)) > DD_THREADS * DD_BATCH) {
+         ((long long)K << (r_log2 + tpr_log2)) > DD_THREADS * F::kBatch) {
     --r_log2;
   }
   const int R = 1 << r_log2, tpr = 1 << tpr_log2;
   auto aligned = [&](int b) {
     return (K * 4) % b == 0 && (uintptr_t)cols % b == 0 &&
-           (uintptr_t)vh % b == 0 && (uintptr_t)vl % b == 0;
+           (!VALUED || ((uintptr_t)vh % b == 0 && (uintptr_t)vl % b == 0));
   };
   const int cpb = aligned(16) ? 16 : aligned(8) ? 8 : 4;
   const int E = cpb / 4;
-  // staged inputs, then (p1, q) of each slot of each chain, and the
+  // staged arrays, then the terms of each slot of each chain, and the
   // chain's read-ahead past the last
   auto smem_of = [&](int ks, int nst) {
-    return (((size_t)nst * 3 * R * ks * 4 + 15) & ~(size_t)15) +
-           ((size_t)R * tpr * (ks | 1) + DD_STEP) * 8;
+    return (((size_t)nst * F::kArrays * R * ks * 4 + 15) & ~(size_t)15) +
+           ((size_t)R * tpr * (ks | 1) + DD_AHEAD) * 8;
   };
   int ks = K;
   if (smem_of(K, 1) > (size_t)DD_SMEM_BYTES) {
-    // per slot and row: two stages of three words, TPR terms
+    // per slot and row: two stages of kArrays words, TPR terms
     const int ks_max =
-        ((DD_SMEM_BYTES - 16 - DD_STEP * 8) / R - 8 * tpr) /
-        (24 + 8 * tpr) / E * E;
+        ((DD_SMEM_BYTES - 16 - DD_AHEAD * 8) / R - 8 * tpr) /
+        (8 * F::kArrays + 8 * tpr) / E * E;
     if (ks_max <= 0) return (int)cudaErrorInvalidValue;
     const int n = (K + ks_max - 1) / ks_max;
     ks = ((K + n - 1) / n + E - 1) / E * E;
   }
   const size_t smem = smem_of(ks, K > ks ? 2 : 1);
   dim3 grid((unsigned)blocks(r_log2) / n_lane_blocks, n_lane_blocks);
-#define FS_DD_VALUED(C)                                                    \
-  ell_dd_valued_kernel<C><<<grid, DD_THREADS, smem, st>>>(                 \
-      cols, vh, vl, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2,      \
+#define FS_DD_SPLIT(C)                                                    \
+  ell_dd_split_kernel<VALUED, C><<<grid, DD_THREADS, smem, st>>>(         \
+      cols, vh, vl, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2,     \
       r_log2, ks)
   if (cpb == 16) {
-    FS_DD_VALUED(16);
+    FS_DD_SPLIT(16);
   } else if (cpb == 8) {
-    FS_DD_VALUED(8);
+    FS_DD_SPLIT(8);
   } else {
-    FS_DD_VALUED(4);
+    FS_DD_SPLIT(4);
   }
-#undef FS_DD_VALUED
+#undef FS_DD_SPLIT
   return 0;
 }
 
@@ -430,16 +481,12 @@ int fs_ell_dd(const int32_t* cols, const float* vh, const float* vl,
     const int n_lane_blocks = (ldx + (1 << tpr_log2) - 1) >> tpr_log2;
     if (n_lane_blocks > 65535) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    if (valued) {
-      const int rc = launch_dd_valued(cols, vh, vl, x2, out_hi, out_lo, nb, K,
-                                      k_rows, ldx, tpr_log2, n_lane_blocks, st);
-      if (rc) return rc;
-    } else {
-      const int rows_per_block = DD_THREADS >> tpr_log2;
-      dim3 grid((nb + rows_per_block - 1) / rows_per_block, n_lane_blocks);
-      ell_dd_kernel<<<grid, DD_THREADS, 0, st>>>(
-          cols, x2, out_hi, out_lo, nb, K, k_rows, ldx, tpr_log2);
-    }
+    const int rc =
+        valued ? launch_dd<true>(cols, vh, vl, x2, out_hi, out_lo, nb, K,
+                                 k_rows, ldx, tpr_log2, n_lane_blocks, st)
+               : launch_dd<false>(cols, vh, vl, x2, out_hi, out_lo, nb, K,
+                                  k_rows, ldx, tpr_log2, n_lane_blocks, st);
+    if (rc) return rc;
   }
   return (int)cudaGetLastError();
 }

@@ -951,16 +951,19 @@ def _dd_x2(g, k_rows, N, sentinel):
     return x2
 
 
-@pytest.mark.parametrize("N", [1, 2, 8, 33])
+@pytest.mark.parametrize("N", [1, 2, 8, 32, 33])
 @pytest.mark.parametrize("nb,K", [(40, 24), (8, 2048), (16, 384), (24, 6),
-                                  (2056, 24)])
+                                  (2056, 24), (8, 81)])
 @pytest.mark.parametrize("valued", [False, True])
 def test_dd_kernels_match_plain(card, valued, nb, K, N):
     """ell_bucket_spmm_dd (#12) and ell_bucket_spmm_dd_valued (#13)
     against their plain versions, bit for bit in hi and lo, on short rows
-    and on long ones (#13 then takes several slices, or a block a row);
-    #13 runs its kernel of one thread a chain on the 24 rows of 6 slots
-    and, at N = 33, on the 2,056 rows, its split kernel on the others."""
+    and on long ones (the split kernel then takes several slices, or a
+    block a row; 81 slots copy 4 bytes at a time). Both forms run the
+    rows kernel (one thread a chain) on the 24 rows of 6 slots and on the
+    2,056 rows at N = 33 (unit values from N = 32, where that grid holds
+    half a block an SM), the split kernel on the others (unit values in
+    blocks of 8 lanes at N >= 9); N = 32 is a whole warp of lanes a row."""
     from fastsparse_torch.ops.kernels import ell_dd as dk
 
     g = np.random.default_rng(N + 100 * valued + K)

@@ -165,10 +165,18 @@ def _x2(g, k_rows, N, sentinel):
 DD_PLAIN_SHAPES = [(16, 24), (8, 512)]
 
 
-@pytest.mark.parametrize("nb,K", DD_PLAIN_SHAPES)
-def test_unit_dd_plain_bit_equal_to_pallas(nb, K):
+@pytest.mark.parametrize(
+    "nb,K,ragged", [(*s, False) for s in DD_PLAIN_SHAPES] + [(8, 1024, True)],
+    ids=[f"{nb}-{K}" for nb, K in DD_PLAIN_SHAPES] + ["8-1024-ragged"])
+def test_unit_dd_plain_bit_equal_to_pallas(nb, K, ragged):
+    """``ragged``: a long row's rows end at different slots, each tail
+    padded with the sentinel (as the layout pads a bucket's shorter rows),
+    the last three rows all padding as in the other cases."""
     g = np.random.default_rng(6)
     cols, _, _, sentinel = _bucket(g, nb=nb, K=K)
+    if ragged:
+        for r, n in enumerate(g.integers(1, K, nb)):
+            cols[r, n:] = sentinel
     x2 = _x2(g, 40, 8, sentinel)
     rh, rl = jk.ell_bucket_spmm_dd(jnp.asarray(cols), jnp.asarray(x2),
                                    n_block=8)
