@@ -22,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .bench.model import (
     GATHER_PAD,
     GATHER_SLOT_S,
@@ -83,39 +84,55 @@ class SparseOperator:
         )
 
     # -- permutation boundary ------------------------------------------------
+    @staticmethod
+    def _gather(x, perm):
+        if perm is None:
+            return x
+        with tracing.span("boundary"):
+            tracing.count()
+            return x[perm]
+
     def _in_cols(self, x):
-        return x if self.col_perm is None else x[self.col_perm]
+        return self._gather(x, self.col_perm)
 
     def _in_rows(self, x):
-        return x if self.row_perm is None else x[self.row_perm]
+        return self._gather(x, self.row_perm)
 
     def _out_rows(self, y):
-        return y if self.row_inv is None else y[self.row_inv]
+        return self._gather(y, self.row_inv)
 
     def _out_cols(self, y):
-        return y if self.col_inv is None else y[self.col_inv]
+        return self._gather(y, self.col_inv)
 
     def matvec(self, x):
         """``A @ x``."""
-        return self._out_rows(_spmv_mod.spmv(self.fwd, self._in_cols(x)))
+        with tracing.span("product", op="matvec", N=1):
+            return self._out_rows(_spmv_mod.spmv(self.fwd, self._in_cols(x)))
 
     def rmatvec(self, x):
         """``Aᵀ @ x``: a forward product over the dual tiling when there is
         one, else the scatter engine over ``fwd`` (tiled formats raise
         `TypeError` there)."""
-        if self.bwd is not None:
-            return self._out_cols(_spmv_mod.spmv(self.bwd, self._in_rows(x)))
-        return self._out_cols(_spmv_mod.spmv_t(self.fwd, self._in_rows(x)))
+        with tracing.span("product", op="rmatvec", N=1):
+            if self.bwd is not None:
+                y = _spmv_mod.spmv(self.bwd, self._in_rows(x))
+            else:
+                y = _spmv_mod.spmv_t(self.fwd, self._in_rows(x))
+            return self._out_cols(y)
 
     def matmat(self, X):
         """``A @ X``."""
-        return self._out_rows(_spmm_mod.spmm(self.fwd, self._in_cols(X)))
+        with tracing.span("product", op="matmat", N=X.shape[1]):
+            return self._out_rows(_spmm_mod.spmm(self.fwd, self._in_cols(X)))
 
     def rmatmat(self, X):
         """``Aᵀ @ X``, as `rmatvec`."""
-        if self.bwd is not None:
-            return self._out_cols(_spmm_mod.spmm(self.bwd, self._in_rows(X)))
-        return self._out_cols(_spmm_mod.spmm_t(self.fwd, self._in_rows(X)))
+        with tracing.span("product", op="rmatmat", N=X.shape[1]):
+            if self.bwd is not None:
+                Y = _spmm_mod.spmm(self.bwd, self._in_rows(X))
+            else:
+                Y = _spmm_mod.spmm_t(self.fwd, self._in_rows(X))
+            return self._out_cols(Y)
 
     def _mono_chainable(self, X) -> bool:
         """Both tilings mono and an operand dtype with a kernel: normal and
@@ -129,26 +146,33 @@ class SparseOperator:
             and pallas_supported(X.dtype)
         )
 
+    # the normal and gram products add ``reg·x``: two device ops
     def normal_matvec(self, x, reg=0.0):
         """``(AᵀA + reg·I) @ x``, the Macau/SMURFF CG inner product."""
-        if self._mono_chainable(x):
-            y = mono_chain(self.fwd, self.bwd, self._in_cols(x)[:, None])
-            return self._out_cols(y[:, 0]) + reg * x
-        return self.rmatvec(self.matvec(x)) + reg * x
+        with tracing.span("product", op="normal_matvec", N=1):
+            tracing.count(2)
+            if self._mono_chainable(x):
+                y = mono_chain(self.fwd, self.bwd, self._in_cols(x)[:, None])
+                return self._out_cols(y[:, 0]) + reg * x
+            return self.rmatvec(self.matvec(x)) + reg * x
 
     def normal_matmat(self, X, reg=0.0):
         """``(AᵀA + reg·I) @ X``."""
-        if self._mono_chainable(X):
-            Y = mono_chain(self.fwd, self.bwd, self._in_cols(X))
-            return self._out_cols(Y) + reg * X
-        return self.rmatmat(self.matmat(X)) + reg * X
+        with tracing.span("product", op="normal_matmat", N=X.shape[1]):
+            tracing.count(2)
+            if self._mono_chainable(X):
+                Y = mono_chain(self.fwd, self.bwd, self._in_cols(X))
+                return self._out_cols(Y) + reg * X
+            return self.rmatmat(self.matmat(X)) + reg * X
 
     def gram_matvec(self, x, reg=0.0):
         """``(AAᵀ + reg·I) @ x``."""
-        if self._mono_chainable(x):
-            y = mono_chain(self.bwd, self.fwd, self._in_rows(x)[:, None])
-            return self._out_rows(y[:, 0]) + reg * x
-        return self.matvec(self.rmatvec(x)) + reg * x
+        with tracing.span("product", op="gram_matvec", N=1):
+            tracing.count(2)
+            if self._mono_chainable(x):
+                y = mono_chain(self.bwd, self.fwd, self._in_rows(x)[:, None])
+                return self._out_rows(y[:, 0]) + reg * x
+            return self.matvec(self.rmatvec(x)) + reg * x
 
     def __matmul__(self, other):
         return self.matvec(other) if other.ndim == 1 else self.matmat(other)
@@ -393,6 +417,12 @@ def operator(
     best (`bench.model.best_tile_m`), raised from 128 to 256 when the
     taller build is still mono.
     """
+    with tracing.span("build"):
+        return _build(mat, format, transpose, config, dtype, reorder, tune,
+                      device)
+
+
+def _build(mat, format, transpose, config, dtype, reorder, tune, device):
     if format not in _FORMATS:
         raise ValueError(f"format must be one of {_FORMATS}")
     if tune:
@@ -416,28 +446,38 @@ def operator(
 
     # reorder before the format decision: the model must see the layout
     # the tilings are built from
-    coo, row_perm, col_perm = _reorder(coo, reorder)
+    with tracing.span("build.reorder"):
+        coo, row_perm, col_perm = _reorder(coo, reorder)
     if format == "auto":
-        format = _auto_format(coo, config, dtype)
+        with tracing.span("build.format"):
+            format = _auto_format(coo, config, dtype)
     if (format in ("ell", "ell-seg", "hybrid") and not transpose
             and (row_perm is not None or col_perm is not None)):
-        coo, row_perm, col_perm = _elide_perms(coo, format, config,
-                                               row_perm, col_perm)
+        with tracing.span("build.reorder"):
+            coo, row_perm, col_perm = _elide_perms(coo, format, config,
+                                                   row_perm, col_perm)
     if format == "bsr":
         fwd, bwd = _compile_bsr_pair(coo, config, dtype, device, transpose)
     elif format in ("coo", "csr"):
         if dtype is not None and not isinstance(coo, BinaryCOO):
             coo = dataclasses.replace(coo, vals=coo.vals.to(dtype))
-        fwd = _compile_scatter(coo, format)
-        bwd = _compile_scatter(_transpose(coo), format) if transpose else None
+        with tracing.span("build.fwd"):
+            fwd = _compile_scatter(coo, format)
+        with tracing.span("build.bwd"):
+            bwd = (_compile_scatter(_transpose(coo), format) if transpose
+                   else None)
     else:
         if config.tile_m is None:
             config = config.resolve()
-        fwd = _compile_gather(coo, format, config, dtype, device)
-        bwd = _compile_gather(_transpose(coo), format, config, dtype,
-                              device) if transpose else None
+        with tracing.span("build.fwd"):
+            fwd = _compile_gather(coo, format, config, dtype, device)
+        with tracing.span("build.bwd"):
+            bwd = _compile_gather(_transpose(coo), format, config, dtype,
+                                  device) if transpose else None
+    with tracing.span("build.plan"):
+        fwd, bwd = attach_plan(fwd), attach_plan(bwd)
     return SparseOperator(
-        fwd=attach_plan(fwd), bwd=attach_plan(bwd), shape=tuple(coo.shape),
+        fwd=fwd, bwd=bwd, shape=tuple(coo.shape),
         row_perm=row_perm, col_perm=col_perm,
         row_inv=None if row_perm is None else invert_perm(row_perm),
         col_inv=None if col_perm is None else invert_perm(col_perm),
@@ -458,6 +498,17 @@ def _transpose(coo):
 
 
 def _compile_bsr_pair(coo, config, dtype, device, transpose):
+    with tracing.span("build.fwd"):
+        fwd, config = _compile_bsr_fwd(coo, config, dtype, device)
+    with tracing.span("build.bwd"):
+        bwd = _compile_bsr(_transpose(coo), config, dtype, device) \
+            if transpose else None
+    return fwd, bwd
+
+
+def _compile_bsr_fwd(coo, config, dtype, device):
+    """The forward BSR tiling and the config it was built at (the tile
+    height picked here when ``config.tile_m`` is None)."""
     auto_tm = config.tile_m is None
     if auto_tm:
         tm = best_tile_m(
@@ -474,6 +525,4 @@ def _compile_bsr_pair(coo, config, dtype, device, transpose):
         fwd256 = _compile_bsr(coo, cfg256, dtype, device)
         if getattr(fwd256, "is_mono", False):
             fwd, config = fwd256, cfg256
-    bwd = _compile_bsr(_transpose(coo), config, dtype, device) \
-        if transpose else None
-    return fwd, bwd
+    return fwd, config

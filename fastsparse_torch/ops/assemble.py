@@ -27,6 +27,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import tracing
+
 __all__ = [
     "AssemblyPlan",
     "BsrStripPlan",
@@ -321,6 +323,14 @@ def build_colseg_plan(A) -> AssemblyPlan:
 def apply_plan(plan: AssemblyPlan, parts_cat):
     """parts_cat f32 ``(n_slots, L)`` -> Y f32 ``(nrow, L)`` through the
     plan's gathers (no scatter)."""
+    with tracing.span("assemble"):
+        # per class an index cast, w gathers and w - 1 adds; the zero row,
+        # the concatenation, and the row order's cast and gather
+        tracing.count(2 * sum(plan.widths) + 4)
+        return _apply_plan(plan, parts_cat)
+
+
+def _apply_plan(plan, parts_cat):
     ys = []
     for c, pos_c in zip(plan.widths, plan.classes):
         pos = pos_c.long()

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..formats.bsr import BsrMatrix, MonoPanelBucket, PanelBucket
 from .kernels.bsr_spmm import (
     colmax,
@@ -141,11 +142,15 @@ def _require_int8_path(A, x_dtype, precision):
 
 
 _S_UNIT = 1.0 / (127.0 * 65536.0)
+# device ops `_quant3_carry` enqueues (a `where` with a Python scalar is two:
+# the scalar's fill and the select)
+QUANT3_CARRY_OPS = 21
 
 
 def _quant3_carry(Xp):
     """Radix-256 3-plane quantization in torch ops: f32 -> (q0, q1, q2, s)
     int32 planes and the f32 (1, N) scale, as ``bsr_ops._quant3_carry``."""
+    tracing.count(QUANT3_CARRY_OPS)
     m = Xp.abs().amax(dim=0, keepdim=True)
     s = torch.where(m > 0, m, 1.0) * _S_UNIT
     i = torch.round(Xp * (1.0 / s)).to(torch.int32)
@@ -163,7 +168,17 @@ def _quant3_planes(Xp, NB: int, Npad: int):
     kernels."""
     m = colmax(Xp)
     s = torch.where(m > 0, m, 1.0) * _S_UNIT
+    # the compare, the `where` and its scalar's fill, the scale, and
+    # `1.0 / s`: a reciprocal and a product
+    tracing.count(6)
     return quant3_planes(Xp, 1.0 / s, n_block=NB), s
+
+
+def _pad(X, pads):
+    """``F.pad(X, pads)``, counting its device ops: a fill and a copy, or
+    one copy when no pad is positive."""
+    tracing.count(2 if any(p > 0 for p in pads) else 1)
+    return F.pad(X, pads)
 
 
 def _quant3_narrow(X, K: int, nq: int, nb: int):
@@ -175,16 +190,18 @@ def _quant3_narrow(X, K: int, nq: int, nb: int):
     Xf = X.to(torch.float32)
     if ncol > K:
         Xf = Xf[:K]
-    Xf = F.pad(Xf, (0, nq - N, 0, max(K - ncol, 0)))
+    Xf = _pad(Xf, (0, nq - N, 0, max(K - ncol, 0)))
     q0, q1, q2, s = _quant3_carry(Xf)
     qs = [q.to(torch.int8) for q in (q0, q1, q2)]
     if nb > 3 * nq:
         qs.append(Xf.new_zeros((Xf.shape[0], nb - 3 * nq), dtype=torch.int8))
+    tracing.count(len(qs) + 1)
     return torch.cat([q.t() for q in qs]), s
 
 
 def _fold_narrow_q(Y, nq: int, scale):
     """Radix-256 recombination of the narrow packing's three plane blocks."""
+    tracing.count(5)
     return (
         Y[:, :nq] * 65536.0 + Y[:, nq : 2 * nq] * 256.0 + Y[:, 2 * nq : 3 * nq]
     ) * scale
@@ -209,8 +226,10 @@ def _prep_mono_x(A, X, N, precision):
     NB = LANES
     Npad = _round_up(N, NB)
     if tuple(X.shape) == (K_pad, Npad):
+        tracing.count(int(not X.is_contiguous()))
         Xp = X.contiguous()
     else:
+        tracing.count(2)
         Xp = X.new_zeros((K_pad, Npad))
         Xp[: X.shape[0], :N] = X
     return _quant3_planes(Xp, NB, Npad), NB, Npad, "i8w", 0
@@ -298,6 +317,11 @@ def mono_chain(A, At, X, precision="highest"):
     copies between them: ``A``'s raw output is padded at build time to the
     X extent ``At``'s windows address. ``mono_chain(At, A, x)`` is the gram
     product ``AAᵀx``."""
+    with tracing.span("bsr_ops"):
+        return _mono_chain(A, At, X, precision)
+
+
+def _mono_chain(A, At, X, precision):
     N = X.shape[1]
     Y1, nq1, Npad1, scale1 = _mono_raw(A, X, precision)
     if nq1:
@@ -361,6 +385,7 @@ def _pad_part(Yb, n, n_pad, TM):
     zero panels for the padding slots."""
     Yb = Yb.reshape(n, TM, -1)
     if n_pad > n:
+        tracing.count(2)
         Yb = torch.cat([Yb, Yb.new_zeros((n_pad - n,) + tuple(Yb.shape[1:]))])
     return Yb
 
@@ -368,6 +393,7 @@ def _pad_part(Yb, n, n_pad, TM):
 def _part_sids(b, s0, s1, n_pad, nsp):
     sid = b.strip_ids[s0:s1]
     if n_pad > s1 - s0:
+        tracing.count(2)
         sid = torch.cat([sid, sid.new_full((n_pad - (s1 - s0),), nsp)])
     return sid
 
@@ -377,6 +403,7 @@ def _split_bf16_planes(Xp):
     to ~24 bits, split by masking the mantissa (as the reference does; hi
     and h1 are exact in bf16, x2 rounds once)."""
     mask = -65536  # 0xFFFF0000 as int32
+    tracing.count(7 + int(not Xp.is_contiguous()))
     hi = (Xp.contiguous().view(torch.int32) & mask).view(torch.float32)
     r1 = Xp - hi
     h1 = (r1.view(torch.int32) & mask).view(torch.float32)
@@ -390,6 +417,7 @@ def _stack_planes(Xp, NB: int, Npad: int):
     K = Xp.shape[0]
     nj = Npad // NB
     planes = _split_bf16_planes(Xp)
+    tracing.count()
     return torch.stack([p.reshape(K, nj, NB) for p in planes],
                        dim=2).reshape(K, nj * 3 * NB)
 
@@ -401,19 +429,22 @@ def _pack_narrow_planes(X, K: int, nq: int, nb: int = LANES):
     Xf = X.to(torch.float32)
     if ncol > K:
         Xf = Xf[:K]
-    Xf = F.pad(Xf, (0, nq - N, 0, max(K - ncol, 0)))
+    Xf = _pad(Xf, (0, nq - N, 0, max(K - ncol, 0)))
     planes = list(_split_bf16_planes(Xf))
     if nb > 3 * nq:
         planes.append(Xf.new_zeros((K, nb - 3 * nq), dtype=torch.bfloat16))
+    tracing.count(len(planes) - 2)
     return torch.cat(planes, dim=1)
 
 
 def _fold_narrow(Y, nq: int):
     """Fold the narrow packing's three plane blocks: (d0 + d1) + d2."""
+    tracing.count(2)
     return Y[:, :nq] + Y[:, nq : 2 * nq] + Y[:, 2 * nq : 3 * nq]
 
 
 def _padded_x(X, K: int, Npad: int):
+    tracing.count(2)
     Xp = X.new_zeros((K, Npad), dtype=torch.float32)
     Xp[: X.shape[0], : X.shape[1]] = X
     return Xp
@@ -492,6 +523,7 @@ def _assemble_rows(A, parts, Npad):
     plan = A.strip_plan
     if not _plan_ok(plan, parts, bsr_layout_key()) or plan.row_pos is None:
         return None
+    tracing.count(4)
     cat = torch.cat([p.reshape(-1, Npad) for p in parts]
                     + [parts[0].new_zeros((1, Npad))])
     return cat[plan.row_pos.long()]
@@ -505,10 +537,12 @@ def _assemble_strips(A, sids, parts, Npad):
     TM, nsp = A.tile_m, A.n_strips
     plan = A.strip_plan
     if _plan_ok(plan, parts, bsr_layout_key()):
+        tracing.count(4)
         cat = torch.cat(parts + [parts[0].new_zeros((1, TM, Npad))])
         return cat[plan.pos.long()].reshape(nsp * TM, Npad)
     Y = torch.zeros((nsp + 1, TM, Npad), dtype=torch.float32,
                     device=A.device)
+    tracing.count(5 if parts else 1)
     if parts:
         Y[torch.cat(sids).long()] = torch.cat(parts)
     return Y[:nsp].reshape(nsp * TM, Npad)
@@ -553,6 +587,11 @@ def bsr_spmm(A: BsrMatrix, X, *, n_block=None, precision: str = "highest",
     one-column fallback). ``_parts=True`` (`colseg_spmm`) returns the raw
     ``(sids, parts, Npad, nq)`` part panels instead of Y. An f64 X runs
     the COO engine over the layout's entries, as in the reference."""
+    with tracing.span("bsr_ops"):
+        return _bsr_spmm(A, X, n_block, precision, _parts)
+
+
+def _bsr_spmm(A, X, n_block, precision, _parts):
     if not pallas_supported(X.dtype):
         if _parts:
             raise TypeError("_parts requires an operand dtype with a kernel")
@@ -565,6 +604,7 @@ def bsr_spmm(A: BsrMatrix, X, *, n_block=None, precision: str = "highest",
             raise TypeError("mono layouts are never column segments")
         return _mono_impl(A, X, precision)
     if not A.buckets and not _parts:  # empty matrix
+        tracing.count()
         return X.new_zeros((A.shape[0], X.shape[1]))
     if A.buckets and A.dtype not in (torch.bfloat16, torch.int8,
                                      torch.float32):
@@ -629,6 +669,11 @@ def colseg_spmm(A, X, *, precision: str = "highest"):
     (`ops.assemble.build_colseg_plan`). None when the plan is absent or the
     segments disagree on the product's mode (the caller then sums the
     segments' own products, as the reference does)."""
+    with tracing.span("bsr_ops"):
+        return _colseg_spmm(A, X, precision)
+
+
+def _colseg_spmm(A, X, precision):
     from .assemble import colseg_layout_key
 
     segs = A.segments
@@ -658,14 +703,17 @@ def colseg_spmm(A, X, *, precision: str = "highest"):
     if plan.n_slots != sum(int(p.shape[0]) for p in parts_all):
         return None
     zero = X.new_zeros((1, Npad))
+    tracing.count()
     if plan.row_srcs:
         # row-granular: each output row sums its per-segment panels
+        tracing.count(3 * len(plan.row_srcs))
         pcat = torch.cat([p.reshape(-1, Npad) for p in parts_all] + [zero])
         Y = pcat[plan.row_srcs[0].long()]
         for src in plan.row_srcs[1:]:
             Y = Y + pcat[src.long()]
         return (_fold_narrow(Y, nq) if nq else Y)[:, :N]
     pcat = torch.cat(parts_all) if parts_all else X.new_zeros((0, TM, Npad))
+    tracing.count(2 * sum(plan.widths) + 4)
     ys = []
     for c, pos_c in zip(plan.widths, plan.classes):
         pos = pos_c.long()
@@ -685,6 +733,11 @@ def bsr_spmv(A: BsrMatrix, x):
     within the reference's residency budget); otherwise a one-column
     product (panel layouts, the halo engine for mono). An f64 x runs the
     COO engine over the layout's entries, as in the reference."""
+    with tracing.span("bsr_ops"):
+        return _bsr_spmv(A, x)
+
+
+def _bsr_spmv(A, x):
     if not pallas_supported(x.dtype):
         from .spmv import spmv as coo_spmv
 
@@ -693,6 +746,7 @@ def bsr_spmv(A: BsrMatrix, x):
     nrow, ncol = A.shape
     TM, TK, nsp, nsl = A.tile_m, A.tile_k, A.n_strips, A.n_slabs
     if not A.buckets:
+        tracing.count()
         return x.new_zeros((nrow,))
     if A.is_panel:
         return bsr_spmm(A, x[:, None])[:, 0]
@@ -704,9 +758,11 @@ def bsr_spmv(A: BsrMatrix, x):
     xp[:ncol] = x
     xp = xp.reshape(nsl, TK)
     y = x.new_zeros((nsp + 1, TM))
+    tracing.count(3)
     for b in A.buckets:
         ns, T = b.slab_ids.shape
         for s0, s1, _ in _bucket_ranges(ns, T):
+            tracing.count(2)
             y[b.strip_ids[s0:s1].long()] = bucket_spmv(
                 b.slab_ids[s0:s1], b.tiles[s0:s1], xp)
     return y[:nsp].reshape(nsp * TM)[:nrow]

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..formats.ell import EllMatrix, SegmentedEll
 from . import assemble as _assemble
 from .kernels.ell_spmm import (
@@ -138,6 +139,7 @@ def _slice_chunk(b, ell, s0, s1, n_pad):
     rid, cc, vv = b.row_ids[s0:s1], b.cols[s0:s1], b.vals[s0:s1]
     pp = None if pk is None else pk[s0:s1]
     if s1 - s0 < n_pad:
+        tracing.count(6 if pk is None else 8)
         pad = n_pad - (s1 - s0)
         pad_col = ell.shape[1] if ell.unit_vals else 0
         rid = torch.cat([rid, rid.new_zeros(pad)])
@@ -163,6 +165,7 @@ def _seg_parts(ell: EllMatrix, Xseg, rids, parts):
                 flats.append(pp.reshape(-1))
                 rid_l.append(rid)
                 meta.append((np_, bb.cols.shape[1] // 2))
+            tracing.count(2)
             parts.append(ell_sweep_spmm(torch.cat(flats), Xseg,
                                         parts=tuple(meta)))
             rids.append(torch.cat(rid_l))
@@ -187,6 +190,11 @@ def _lanes(N: int) -> int:
 def ell_spmm(A, X):
     """``Y = A @ X`` through the gather kernels. A: EllMatrix or
     SegmentedEll (f32). X: f32 ``(ncol, N)`` on A's device."""
+    with tracing.span("ell_ops"):
+        return _ell_spmm(A, X)
+
+
+def _ell_spmm(A, X):
     nrow, ncol = A.shape
     N = X.shape[1]
     segs = (
@@ -202,6 +210,7 @@ def ell_spmm(A, X):
         rows_pad = _round_up(max(seg_ncol + 1, 8), 8)
         Xseg = torch.zeros((rows_pad, L), dtype=torch.float32, device=X.device)
         Xseg[:seg_ncol, :N] = X[off : off + seg_ncol]
+        tracing.count(2)
         _seg_parts(seg, Xseg, rids, parts)
     plan = A.plan
     if (
@@ -210,8 +219,10 @@ def ell_spmm(A, X):
         and plan.layout_key == _assemble.layout_key()
         and plan.n_slots == sum(int(p.shape[0]) for p in parts)
     ):
+        tracing.count()
         return _assemble.apply_plan(plan, torch.cat(parts))[:, :N]
     Y = torch.zeros((nrow, L), dtype=torch.float32, device=X.device)
+    tracing.count(5 if parts else 1)
     if parts:
         Y.index_add_(0, torch.cat(rids).long(), torch.cat(parts))
     return Y[:, :N]

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from ... import tracing
+
 __all__ = [
     "launches",
     "reset_launches",
@@ -85,10 +87,11 @@ def _launch(name, fn, *args, counts=launches):
     report it). Counts the launch in ``counts[name]``. The stream handle
     is read raw (``current_stream().cuda_stream`` without the Stream
     object): a few µs of host time per launch that the tile kernels' short
-    launches feel. A launcher returns, before any launch, -1 for a shape
-    its body does not take (`NotImplementedError`), and the s8 engine -2
-    for a TMA map `cuTensorMapEncodeTiled` refused and -3 for a ring the
-    card's shared memory cannot hold (`RuntimeError`)."""
+    launches feel. While tracing is on, the launch is also one device op
+    of the innermost open span. A launcher returns, before any launch, -1
+    for a shape its body does not take (`NotImplementedError`), and the s8
+    engine -2 for a TMA map `cuTensorMapEncodeTiled` refused and -3 for a
+    ring the card's shared memory cannot hold (`RuntimeError`)."""
     stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = fn(*args, stream)
     if rc == -1:
@@ -102,6 +105,7 @@ def _launch(name, fn, *args, counts=launches):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     counts[name] += 1
+    tracing.count()
 
 
 def _library_for(t):
@@ -129,6 +133,7 @@ def colmax(x):
         return colmax_plain(x)
     K, N = x.shape
     out = torch.zeros((1, N), dtype=torch.float32, device=x.device)
+    tracing.count()
     _launch("colmax", lib.fs_colmax, _ptr(x), K, N, _ptr(out))
     return out
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import tracing
 from .bsr_spmm import _check, _launch, _library_for, _ptr
 
 __all__ = [
@@ -161,6 +162,7 @@ def bucket_spmm(slab_ids, tiles, x, *, n_block, planes):
                 n_block, planes, _DTYPE_CODE[tiles.dtype],
                 _DTYPE_CODE[x.dtype], counts=launches)
     elif ns:
+        tracing.count()
         out.zero_()
     return out
 
@@ -270,6 +272,7 @@ def bucket_spmv(slab_ids, tiles, x):
         return bucket_spmv_plain(slab_ids, tiles, x)
     _check("bucket_spmv.tiles", tiles, tiles.dtype, 4, dev)
     if not T:
+        tracing.count()
         return torch.zeros((ns, TM), dtype=torch.float32, device=dev)
     out = torch.empty((ns, TM), dtype=torch.float32, device=dev)
     if ns:  # the kernel writes every row

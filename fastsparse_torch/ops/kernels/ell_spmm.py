@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from ... import tracing
 from .bsr_spmm import _check, _launch, _library_for, _ptr
 
 __all__ = [
@@ -79,6 +80,10 @@ def _pick_kb(K: int) -> int:
         if K % kb == 0:
             return kb
     return 1
+
+
+# device ops `_pack_pairs` enqueues
+_PACK_OPS = 8
 
 
 def _pack_pairs(cols):
@@ -170,6 +175,8 @@ def ell_bucket_spmm(cols, vals, x, *, unit: bool = False, packed=None):
     lib = _library_for(x)
     if lib is None:
         return ell_bucket_spmm_plain(cols, vals, x, unit=unit, packed=packed)
+    if use_packed and packed is None:
+        tracing.count(_PACK_OPS)
     idx = _bucket_words(cols, packed).contiguous() if use_packed else cols
     out = torch.empty((nb, x.shape[1]), dtype=torch.float32, device=dev)
     _launch(

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..formats.bsr import BsrMatrix
 from ..formats.coo import COO, BinaryCOO
 from ..formats.csr import CSR, BinaryCSR
@@ -121,6 +122,7 @@ def densecols_planes(Xs):
     from .bsr_ops import _quant3_carry
 
     q0, q1, q2, s = _quant3_carry(Xs)
+    tracing.count(4)
     return torch.cat([q.t().to(torch.int8) for q in (q0, q1, q2)]), s
 
 
@@ -140,23 +142,17 @@ def dense_cols_spmm(dc, X):
         )
     from .kernels.bsr_spmm import densecols_spmm
 
-    q3t, s = densecols_planes(X[dc.col_ids.long()])
-    return densecols_spmm(dc.block, q3t, s)[: dc.shape[0]]
+    with tracing.span("densecols"):
+        tracing.count(2)
+        q3t, s = densecols_planes(X[dc.col_ids.long()])
+        return densecols_spmm(dc.block, q3t, s)[: dc.shape[0]]
 
 
 def spmm(A, X):
     """``Y = A @ X``. ``X``: dtype[ncol, N] -> dtype[nrow, N]."""
     if isinstance(A, HybridMatrix):
-        # the reference's order of adds: ((0 + dense) + sparse) + dense_cols
-        Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype,
-                        device=X.device)
-        if A.dense is not None:
-            Y = Y + spmm(A.dense, X)
-        if A.sparse is not None:
-            Y = Y + spmm(A.sparse, X)
-        if A.dense_cols is not None:
-            Y = Y + dense_cols_spmm(A.dense_cols, X)
-        return Y
+        with tracing.span("hybrid"):
+            return _hybrid_spmm(A, X)
     if isinstance(A, ColSegmented):
         from .bsr_ops import colseg_spmm
 
@@ -165,6 +161,7 @@ def spmm(A, X):
             return Y
         Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype,
                         device=X.device)
+        tracing.count(1 + len(A.segments))
         for off, seg in zip(A.col_offsets, A.segments):
             Y = Y + spmm(seg, X[off : off + seg.shape[1]])
         return Y
@@ -189,6 +186,22 @@ def spmm(A, X):
         return Y
     rows, cols, vals = _coo_like(A)
     return _stream_scatter(rows, cols, vals, X, A.shape[0])
+
+
+def _hybrid_spmm(A, X):
+    # the reference's order of adds: ((0 + dense) + sparse) + dense_cols
+    Y = torch.zeros((A.shape[0], X.shape[1]), dtype=X.dtype, device=X.device)
+    tracing.count()
+    if A.dense is not None:
+        tracing.count()
+        Y = Y + spmm(A.dense, X)
+    if A.sparse is not None:
+        tracing.count()
+        Y = Y + spmm(A.sparse, X)
+    if A.dense_cols is not None:
+        tracing.count()
+        Y = Y + dense_cols_spmm(A.dense_cols, X)
+    return Y
 
 
 def spmm_t(A, X):

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..formats.bsr import BsrMatrix
 from ..formats.ell import EllMatrix, SegmentedEll
 from ..formats.hybrid import HybridMatrix
@@ -34,14 +35,8 @@ __all__ = ["spmv", "spmv_t"]
 def spmv(A, x):
     """``y = A @ x``. ``x``: dtype[ncol] -> dtype[nrow]."""
     if isinstance(A, HybridMatrix):
-        y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
-        if A.dense is not None:
-            y = y + spmv(A.dense, x)
-        if A.sparse is not None:
-            y = y + spmv(A.sparse, x)
-        if A.dense_cols is not None:
-            y = y + dense_cols_spmm(A.dense_cols, x[:, None])[:, 0]
-        return y
+        with tracing.span("hybrid"):
+            return _hybrid_spmv(A, x)
     if isinstance(A, ColSegmented):
         from .bsr_ops import colseg_spmm
 
@@ -49,6 +44,7 @@ def spmv(A, x):
         if y is not None:
             return y[:, 0]
         y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
+        tracing.count(1 + len(A.segments))
         for off, seg in zip(A.col_offsets, A.segments):
             y = y + spmv(seg, x[off : off + seg.shape[1]])
         return y
@@ -76,6 +72,21 @@ def spmv(A, x):
         return y
     rows, cols, vals = _coo_like(A)
     return _stream_scatter(rows, cols, vals, x[:, None], A.shape[0])[:, 0]
+
+
+def _hybrid_spmv(A, x):
+    y = torch.zeros((A.shape[0],), dtype=x.dtype, device=x.device)
+    tracing.count()
+    if A.dense is not None:
+        tracing.count()
+        y = y + spmv(A.dense, x)
+    if A.sparse is not None:
+        tracing.count()
+        y = y + spmv(A.sparse, x)
+    if A.dense_cols is not None:
+        tracing.count()
+        y = y + dense_cols_spmm(A.dense_cols, x[:, None])[:, 0]
+    return y
 
 
 def spmv_t(A, x):
