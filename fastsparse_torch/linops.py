@@ -17,12 +17,14 @@ orderings with their permutation boundary.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from . import tracing
+from .graphs import ProductGraphs
 from .bench.model import (
     GATHER_PAD,
     GATHER_SLOT_S,
@@ -53,6 +55,24 @@ from .reorder.cluster import invert_perm
 __all__ = ["SparseOperator", "operator"]
 
 
+def _product(fn):
+    """A product of `SparseOperator`: its ``product`` span around the
+    operator's graph cache (`graphs.ProductGraphs.run`), which runs the
+    eager body ``fn`` or replays it; ``reg``, where the product takes one,
+    is part of the cache's key."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def product(self, X, reg=None):
+        with tracing.span("product", op=name,
+                          N=X.shape[1] if X.ndim > 1 else 1):
+            if reg is None:
+                return self.graphs.run(self, name, X, lambda X: fn(self, X))
+            return self.graphs.run(self, name, X, lambda X: fn(self, X, reg),
+                                   reg)
+    return product
+
+
 @dataclasses.dataclass(frozen=True)
 class SparseOperator:
     """A sparse matrix with a forward tiling ``fwd`` (``A·_``) and,
@@ -63,7 +83,11 @@ class SparseOperator:
     ``P_r A P_cᵀ``, and operands are permuted at the boundary by row
     gathers: ``row_perm``/``col_perm`` (old index of the k-th permuted
     row/column) and their inverses, int32 tensors on the operator's device,
-    or None."""
+    or None.
+
+    On the card, a product called again with the same operand shape is
+    replayed as one CUDA graph (`graphs.ProductGraphs`, ``graphs``: shared
+    with ``T``)."""
 
     fwd: Any
     bwd: Optional[Any]
@@ -72,16 +96,20 @@ class SparseOperator:
     col_perm: Optional[torch.Tensor] = None
     row_inv: Optional[torch.Tensor] = None
     col_inv: Optional[torch.Tensor] = None
+    graphs: ProductGraphs = dataclasses.field(
+        default_factory=ProductGraphs, init=False, repr=False, compare=False)
 
     @property
     def T(self) -> "SparseOperator":
         if self.bwd is None:
             raise ValueError("operator built without transpose=True")
-        return SparseOperator(
+        t = SparseOperator(
             fwd=self.bwd, bwd=self.fwd, shape=(self.shape[1], self.shape[0]),
             row_perm=self.col_perm, col_perm=self.row_perm,
             row_inv=self.col_inv, col_inv=self.row_inv,
         )
+        object.__setattr__(t, "graphs", self.graphs)
+        return t
 
     # -- permutation boundary ------------------------------------------------
     @staticmethod
@@ -104,35 +132,35 @@ class SparseOperator:
     def _out_cols(self, y):
         return self._gather(y, self.col_inv)
 
+    @_product
     def matvec(self, x):
         """``A @ x``."""
-        with tracing.span("product", op="matvec", N=1):
-            return self._out_rows(_spmv_mod.spmv(self.fwd, self._in_cols(x)))
+        return self._out_rows(_spmv_mod.spmv(self.fwd, self._in_cols(x)))
 
+    @_product
     def rmatvec(self, x):
         """``Aᵀ @ x``: a forward product over the dual tiling when there is
         one, else the scatter engine over ``fwd`` (tiled formats raise
         `TypeError` there)."""
-        with tracing.span("product", op="rmatvec", N=1):
-            if self.bwd is not None:
-                y = _spmv_mod.spmv(self.bwd, self._in_rows(x))
-            else:
-                y = _spmv_mod.spmv_t(self.fwd, self._in_rows(x))
-            return self._out_cols(y)
+        if self.bwd is not None:
+            y = _spmv_mod.spmv(self.bwd, self._in_rows(x))
+        else:
+            y = _spmv_mod.spmv_t(self.fwd, self._in_rows(x))
+        return self._out_cols(y)
 
+    @_product
     def matmat(self, X):
         """``A @ X``."""
-        with tracing.span("product", op="matmat", N=X.shape[1]):
-            return self._out_rows(_spmm_mod.spmm(self.fwd, self._in_cols(X)))
+        return self._out_rows(_spmm_mod.spmm(self.fwd, self._in_cols(X)))
 
+    @_product
     def rmatmat(self, X):
         """``Aᵀ @ X``, as `rmatvec`."""
-        with tracing.span("product", op="rmatmat", N=X.shape[1]):
-            if self.bwd is not None:
-                Y = _spmm_mod.spmm(self.bwd, self._in_rows(X))
-            else:
-                Y = _spmm_mod.spmm_t(self.fwd, self._in_rows(X))
-            return self._out_cols(Y)
+        if self.bwd is not None:
+            Y = _spmm_mod.spmm(self.bwd, self._in_rows(X))
+        else:
+            Y = _spmm_mod.spmm_t(self.fwd, self._in_rows(X))
+        return self._out_cols(Y)
 
     def _mono_chainable(self, X) -> bool:
         """Both tilings mono and an operand dtype with a kernel: normal and
@@ -147,32 +175,32 @@ class SparseOperator:
         )
 
     # the normal and gram products add ``reg·x``: two device ops
+    @_product
     def normal_matvec(self, x, reg=0.0):
         """``(AᵀA + reg·I) @ x``, the Macau/SMURFF CG inner product."""
-        with tracing.span("product", op="normal_matvec", N=1):
-            tracing.count(2)
-            if self._mono_chainable(x):
-                y = mono_chain(self.fwd, self.bwd, self._in_cols(x)[:, None])
-                return self._out_cols(y[:, 0]) + reg * x
-            return self.rmatvec(self.matvec(x)) + reg * x
+        tracing.count(2)
+        if self._mono_chainable(x):
+            y = mono_chain(self.fwd, self.bwd, self._in_cols(x)[:, None])
+            return self._out_cols(y[:, 0]) + reg * x
+        return self.rmatvec(self.matvec(x)) + reg * x
 
+    @_product
     def normal_matmat(self, X, reg=0.0):
         """``(AᵀA + reg·I) @ X``."""
-        with tracing.span("product", op="normal_matmat", N=X.shape[1]):
-            tracing.count(2)
-            if self._mono_chainable(X):
-                Y = mono_chain(self.fwd, self.bwd, self._in_cols(X))
-                return self._out_cols(Y) + reg * X
-            return self.rmatmat(self.matmat(X)) + reg * X
+        tracing.count(2)
+        if self._mono_chainable(X):
+            Y = mono_chain(self.fwd, self.bwd, self._in_cols(X))
+            return self._out_cols(Y) + reg * X
+        return self.rmatmat(self.matmat(X)) + reg * X
 
+    @_product
     def gram_matvec(self, x, reg=0.0):
         """``(AAᵀ + reg·I) @ x``."""
-        with tracing.span("product", op="gram_matvec", N=1):
-            tracing.count(2)
-            if self._mono_chainable(x):
-                y = mono_chain(self.bwd, self.fwd, self._in_rows(x)[:, None])
-                return self._out_rows(y[:, 0]) + reg * x
-            return self.matvec(self.rmatvec(x)) + reg * x
+        tracing.count(2)
+        if self._mono_chainable(x):
+            y = mono_chain(self.bwd, self.fwd, self._in_rows(x)[:, None])
+            return self._out_rows(y[:, 0]) + reg * x
+        return self.matvec(self.rmatvec(x)) + reg * x
 
     def __matmul__(self, other):
         return self.matvec(other) if other.ndim == 1 else self.matmat(other)

@@ -251,11 +251,18 @@ def spmm_dd(A, X):
     from .ell_ops import _f64_operand, ell_spmm_dd
 
     if isinstance(A, SparseOperator):
-        X = _f64_operand(X, A.fwd.device)
-        if A.col_perm is not None:
-            X = X[A.col_perm.long()]
-        Y = ell_spmm_dd(A.fwd, X)
-        if A.row_inv is not None:
-            Y = Y[A.row_inv.long()]
-        return Y
+        def body(X):
+            X = _f64_operand(X, A.fwd.device)
+            if A.col_perm is not None:
+                X = X[A.col_perm.long()]
+            Y = ell_spmm_dd(A.fwd, X)
+            if A.row_inv is not None:
+                Y = Y[A.row_inv.long()]
+            return Y
+
+        # a product of the operator: replayed as one CUDA graph when
+        # repeated; its torch ops are not counted (only the launches)
+        with tracing.span("product", op="spmm_dd",
+                          N=X.shape[1] if X.ndim > 1 else 1):
+            return A.graphs.run(A, "spmm_dd", X, body)
     return ell_spmm_dd(A, X)

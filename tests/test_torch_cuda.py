@@ -1033,3 +1033,194 @@ def test_spmm_dd_on_card_vs_scipy(card):
                       mv.T @ x[:300])):
         assert got.dtype == torch.float64
         assert _rel(got.cpu(), torch.from_numpy(ref)) < 1e-10
+
+
+# ------------------------------------------------- products replayed as graphs
+def _eager_twin(op):
+    """The same tilings with a cache that never engages: the eager path."""
+    import dataclasses
+
+    twin = dataclasses.replace(op)
+    twin.graphs.engages = lambda X, reg=None: False
+    return twin
+
+
+def _graph_case(card, monkeypatch, case):
+    """(operator, [(product, operand, keywords)]) of a small instance of
+    each path a graph replays."""
+    g = torch.Generator("cuda").manual_seed(3)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=card, generator=g, dtype=dtype)
+
+    if case == "mono":
+        monkeypatch.setattr(tbsr, "MONO_WIN_SLABS", 8)
+        monkeypatch.setattr(tbsr, "HALO_STRIDE", 16)
+        m = _banded(1, 2000, 4000, 300)
+        op = ft.operator(m, format="bsr", transpose=True, device=card)
+        X = rand(m.shape[1], 16)
+        assert op._mono_chainable(X)
+        return op, [("matmat", X, {}), ("normal_matmat", X, {"reg": 0.5})]
+    if case == "hybrid":
+        # dense columns in the forward tiling, plans in both
+        monkeypatch.setattr(tmodel, "DENSE_COL_MIN_D", 4)
+        monkeypatch.setattr(tmodel, "DENSE_COL_CELL_S", 2e-10)
+        monkeypatch.setattr(tmodel, "DENSE_COL_MIN_ROWS", 64)
+        m = ft.bench.matrices.ecfp_like(800, 2000, 24, 20, seed=2)
+        op = ft.operator(m, device=card)
+        assert op.fwd.dense_cols is not None
+        assert op.fwd.sparse.plan is not None and op.bwd.sparse.plan is not None
+        return op, [("matmat", rand(m.shape[1], 32), {}),
+                    ("rmatmat", rand(m.shape[0], 32), {}),
+                    ("normal_matmat", rand(m.shape[1], 32), {"reg": 50.0})]
+    if case == "segmented_ell":
+        m = ft.bench.matrices.powerlaw(2000, 60_000, 80_000, seed=2,
+                                       binary=True)
+        op = ft.operator(m, format="ell", device=card)
+        assert type(op.fwd).__name__ == "SegmentedEll"
+        return op, [("matmat", rand(m.shape[1], 16), {}),
+                    ("rmatvec", rand(m.shape[0]), {})]
+    assert case == "spmm_dd"
+    mb = _scattered01(np.random.default_rng(9), 300, 500, 6000)
+    op = ft.operator(mb.astype(np.float64), format="ell", transpose=False,
+                     config=ft.Config(ell_split_rows=0), device=card)
+    return op, [("spmm_dd", rand(500, 5, dtype=torch.float64), {})]
+
+
+def _product(op, name):
+    return (lambda X, **kw: ft.spmm_dd(op, X)) if name == "spmm_dd" else \
+        getattr(op, name)
+
+
+GRAPH_CASES = ["mono", "hybrid", "segmented_ell", "spmm_dd"]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_replay_bit_equal_to_eager(card, monkeypatch, case):
+    """Each product called three times (eager, captured, replayed) gives
+    the eager path's result bit for bit, each call a tensor of its own;
+    an operand changed in place between calls is seen."""
+    from fastsparse_torch import graphs, tracing
+
+    op, calls = _graph_case(card, monkeypatch, case)
+    twin = _eager_twin(op)
+    for name, X, kw in calls:
+        want = _product(twin, name)(X, **kw)
+        outs = []
+        with tracing.recording() as rec:
+            for _ in range(3):
+                outs.append(_product(op, name)(X, **kw))
+        torch.cuda.synchronize()
+        assert rec.counts.get("captures") == 1, (name, rec.counts)
+        assert rec.counts.get("replays") == 1, (name, rec.counts)
+        assert "graph_refused" not in rec.counts
+        for y in outs:
+            assert torch.equal(y, want), name
+        (key, g), = [(k, v) for k, v in op.graphs.graphs.items()
+                     if k[0] == name]
+        ptrs = {y.untyped_storage().data_ptr() for y in outs}
+        assert len(ptrs) == 3 and g.y.untyped_storage().data_ptr() not in ptrs
+        X.mul_(-0.5)
+        assert torch.equal(_product(op, name)(X, **kw),
+                           _product(twin, name)(X, **kw)), name
+        assert isinstance(g, graphs._Graph)
+    assert not op.graphs.refused
+
+
+def test_replay_launches_the_eager_kernels(card, monkeypatch):
+    """A replayed normal_matmat of the hybrid runs the eager path's
+    kernels, as many of each, seen by the profiler inside the graph."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    op, calls = _graph_case(card, monkeypatch, "hybrid")
+    twin = _eager_twin(op)
+    _, X, kw = calls[2]
+
+    def kernels(fn):
+        # the most of each name over a few sessions: the profiler drops
+        # records now and then, in spells
+        most = collections.Counter()
+        for i in range(4):
+            if i:
+                time.sleep(0.3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(X, **kw)
+                torch.cuda.synchronize()
+            most |= collections.Counter(
+                e.name() for e in prof.profiler.kineto_results.events()
+                if str(e.device_type()).endswith("CUDA")
+                and not e.name().lower().startswith("memcpy"))
+        return most
+
+    for _ in range(3):
+        op.normal_matmat(X, **kw)
+    twin.normal_matmat(X, **kw)
+    torch.cuda.synchronize()
+    assert op.graphs.graphs
+    replayed, eager = kernels(op.normal_matmat), kernels(twin.normal_matmat)
+    assert replayed == eager, (replayed - eager, eager - replayed)
+    assert any("densecols" in k or "s8_engine" in k for k in eager)
+    assert any("ell_" in k for k in eager)
+
+
+def test_cg_normal_replayed_equals_eager(card, monkeypatch):
+    """cg_normal(reg=50, tol=0, maxiter=30) on the ECFP-like instance:
+    the same iterations and a bit-equal x with the products replayed."""
+    op, calls = _graph_case(card, monkeypatch, "hybrid")
+    twin = _eager_twin(op)
+    _, R, _ = calls[1]
+    b = twin.rmatmat(R)
+    want = ft.cg_normal(twin, b, reg=50.0, tol=0.0, maxiter=30)
+    got = ft.cg_normal(op, b, reg=50.0, tol=0.0, maxiter=30)
+    assert got.iters == want.iters == 30
+    assert torch.equal(got.x, want.x)
+    assert torch.equal(got.resnorm, want.resnorm)
+    assert len(op.graphs.graphs) == 1
+
+
+def test_replay_span_counts(card, monkeypatch):
+    """Under a recording, a replayed product's ``replay`` span counts the
+    copy-in, the graph launch and the clone, and one ``replays``."""
+    from fastsparse_torch import tracing
+
+    op, calls = _graph_case(card, monkeypatch, "mono")
+    name, X, kw = calls[1]
+    for _ in range(2):
+        op.normal_matmat(X, **kw)
+    with tracing.recording() as rec:
+        op.normal_matmat(X, **kw)
+    prod, rep = rec.spans
+    assert (prod.name, rep.name, rep.parent) == ("product", "replay", prod)
+    assert rep.attrs == {"op": "normal_matmat", "N": X.shape[1]}
+    assert rep.counts == {"ops": 3, "replays": 1}
+    assert rec.counts == {"ops": 3, "replays": 1}
+
+
+def test_capture_that_reads_the_device_stays_eager(card, monkeypatch):
+    """A product that reads device data on the host cannot be captured:
+    the capture raises, the key runs eagerly from then on, counted once,
+    and the card, the current stream and the other keys work on."""
+    from fastsparse_torch import tracing
+
+    op, calls = _graph_case(card, monkeypatch, "mono")
+    _, X, _ = calls[0]
+    stream = torch.cuda.current_stream()
+
+    def reads_back(X):
+        return X * float(X.abs().max())
+
+    want = reads_back(X)
+    with tracing.recording() as rec:
+        got = [op.graphs.run(op, "reads_back", X, reads_back)
+               for _ in range(4)]
+    assert all(torch.equal(y, want) for y in got)
+    assert rec.counts["graph_refused"] == 1
+    assert len(op.graphs.refused) == 1 and not op.graphs.graphs
+    assert torch.cuda.current_stream() == stream
+    assert not torch.cuda.is_current_stream_capturing()
+    twin = _eager_twin(op)
+    for _ in range(3):
+        Y = op.matmat(X)
+    assert torch.equal(Y, twin.matmat(X)) and len(op.graphs.graphs) == 1
