@@ -32,6 +32,8 @@ from fastsparse_torch.ops.kernels import bsr_spmm as tk
 from fastsparse_torch.ops.kernels import bsr_tiles as tt
 from fastsparse_torch.ops.kernels import ell_spmm as ek
 
+import rmat_layout
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1073,6 +1075,17 @@ def _graph_case(card, monkeypatch, case):
         return op, [("matmat", rand(m.shape[1], 32), {}),
                     ("rmatmat", rand(m.shape[0], 32), {}),
                     ("normal_matmat", rand(m.shape[1], 32), {"reg": 50.0})]
+    if case == "rmat":
+        # the Graph 500 layout: the boundary gathers, dense columns,
+        # column-segmented tiles and a segmented ELL with its plan's adds
+        rmat_layout.shrink(monkeypatch)
+        m = rmat_layout.matrix()
+        op = ft.operator(m, reorder="auto", transpose=False, device=card)
+        p = rmat_layout.parts(op.fwd)
+        assert p["dense_cols"] and p["tile_segments"] and p["plan_adds"], p
+        assert p["ell_segments"] >= 2 and op.col_perm is not None, p
+        return op, [("matmat", rand(m.shape[1], 128), {}),
+                    ("matvec", rand(m.shape[1]), {})]
     if case == "segmented_ell":
         m = ft.bench.matrices.powerlaw(2000, 60_000, 80_000, seed=2,
                                        binary=True)
@@ -1092,7 +1105,7 @@ def _product(op, name):
         getattr(op, name)
 
 
-GRAPH_CASES = ["mono", "hybrid", "segmented_ell", "spmm_dd"]
+GRAPH_CASES = ["mono", "hybrid", "segmented_ell", "spmm_dd", "rmat"]
 
 
 @pytest.mark.parametrize("case", GRAPH_CASES)

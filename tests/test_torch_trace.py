@@ -9,16 +9,15 @@ the kernels' plain versions).
   checked against the aten ops PyTorch dispatches inside it (with the
   kernels' plain versions, which stand in for one launch on the card,
   left out), over the mono, tile, panel, ELL, hybrid, dense-column,
-  permutation-boundary and CG paths; an ``assemble`` span's equals what
+  permutation-boundary and CG paths, and over the R-MAT graph's layout,
+  which holds all of them but mono; an ``assemble`` span's equals what
   its plan's widths imply.
 * ``cg.sync`` spans, and the ``syncs`` counter, count the solve's
   read-backs: one an iteration, and one more when the tolerance stops it.
 """
 import collections
 import importlib
-import importlib.util
 import pkgutil
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,8 +30,9 @@ from fastsparse_torch import tracing
 from fastsparse_torch.bench import model as tmodel
 from fastsparse_torch.bench.matrices import ecfp_like
 
+import rmat_layout
+
 torch.set_num_threads(1)
-ROOT = Path(__file__).resolve().parents[1]
 
 
 def _clock(monkeypatch, start=1000, step=10):
@@ -236,12 +236,16 @@ CASES = {
     "hybrid_densecols": (lambda: ecfp_like(800, 2000, 24, 20, seed=2), {}),
     "tilepack_boundary": (_clustered, {"reorder": "tilepack"}),
     "degree_boundary": (_powerlaw, {"reorder": "degree", "format": "ell"}),
+    # every part kind of the scale-18 Graph 500 layout (`rmat_layout`)
+    "rmat_auto": (rmat_layout.matrix, {"reorder": "auto"}),
 }
+SHRINK = {"rmat_auto": rmat_layout.shrink}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_span_ops_equal_dispatched_ops(monkeypatch, small_dense_cols, case):
     make, kw = CASES[case]
+    SHRINK.get(case, lambda mp: None)(monkeypatch)
     m = make()
     op = ft.operator(m, device="cpu", **kw)
     g = torch.Generator().manual_seed(5)
@@ -276,14 +280,9 @@ def test_span_ops_equal_dispatched_ops(monkeypatch, small_dense_cols, case):
         assert {"hybrid", "ell_ops", "assemble", "densecols"} <= names
     if case.endswith("boundary"):
         assert "boundary" in names
-
-
-def _plan_ops():
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_layout", ROOT / "benchmark" / "lib" / "layout.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.plan_ops
+    if case == "rmat_auto":
+        assert {"boundary", "hybrid", "densecols", "bsr_ops", "ell_ops",
+                "assemble"} <= names
 
 
 def test_assemble_ops_follow_the_plan(small_dense_cols):
@@ -291,7 +290,7 @@ def test_assemble_ops_follow_the_plan(small_dense_cols):
     (`benchmark/lib/layout.plan_ops`, the row-order gather among them),
     an index cast per class and one for the row order, the zero row and
     the concatenation."""
-    plan_ops = _plan_ops()
+    plan_ops = rmat_layout.LAYOUT.plan_ops
     m = ecfp_like(800, 2000, 24, 20, seed=2)
     op = ft.operator(m, device="cpu")
     # the tilings' ELL parts with a plan, in the order normal_matmat runs
