@@ -5,10 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the thirteen CUDA kernels from the sources in
+It builds the fourteen CUDA kernels from the sources in
 ``fastsparse_torch/ops/kernels/csrc/`` (one nvcc per source, in parallel)
 and then runs the phases below, phase 11 right after phase 4 (it reuses
-config A's and config B's operators) and phase 12 after phase 10:
+config A's and config B's operators), phases 13 and 14 after phase 8 and
+phase 12 after phase 10:
 
 1. mono kernel phase: calls each mono-path kernel's wrapper on the card at
    the shapes the headline product gives it (banded 50,000 x 50,000,
@@ -166,6 +167,24 @@ config A's and config B's operators) and phase 12 after phase 10:
    transpose=False).rmatvec`` (the ELL scatter) and ``ata_X(coo_A, X,
    reg=50)`` at N=32 without the transpose tiling (< 1e-6). Host build
    seconds, per-product times, device busy time and idle share.
+13. R-MAT main-path phase: the Graph 500 R-MAT graph at scale 18
+   (``rmat(18, 16, seed=3)``) through ``operator(m, reorder="auto",
+   transpose=False)``: a hybrid whose tile segments are summed by a
+   cross-segment plan (``row_srcs``) and whose segmented ELL has a plan
+   of many classes. With the counts set to 0, matmat N=128 within 1e-6
+   of scipy f64, one plan kernel launch per plan; then its time, device
+   busy time and idle share.
+14. plan kernel phase: the assembly-plan kernel (``plan_sum``) against
+   its plain version (`ops.assemble.plain_sum`, the torch ops the CPU
+   runs) on the same card tensors, bit for bit with -0.0 planted, at N =
+   1, 32 and 128 on the plans the main paths apply: config A's two ELL
+   plans and config B's segmented one (phase 4), the ECFP hybrid's two
+   (phase 6), the cross-segment plan of the ECFP two-tiling operator's
+   transpose tiles (phase 8) and R-MAT's two (phase 13). Each timed
+   beside its plain version and the least time of its bytes (the
+   sources it reads and the rows it writes), and on the device clock.
+   In phases 4, 6, 8 and 13 the plan kernel must launch (in 4 and 13
+   once per plan a product applies).
 
 Every kernel is timed with CUDA events (min of batches) beside its plain
 version, the least time the card could take for the same work (bytes over
@@ -202,6 +221,7 @@ SOURCES = {
     "ell_bucket_dd": CSRC + "ell_dd.cu",
     "ell_bucket_dd_valued": CSRC + "ell_dd.cu",
     "ell_bucket_smem": CSRC + "ell_spmm.cu",
+    "plan_sum": CSRC + "assemble.cu",
 }
 REPLACES = {
     "colmax": "fastsparse/ops/pallas/bsr_spmm.py:619",
@@ -217,6 +237,8 @@ REPLACES = {
     "ell_bucket_dd": "fastsparse/ops/pallas/ell_spmm.py:551",
     "ell_bucket_dd_valued": "fastsparse/ops/pallas/ell_spmm.py:501",
     "ell_bucket_smem": "fastsparse/ops/pallas/ell_spmm.py:455",
+    # no Pallas kernel: the reference leaves the plan's gathers to XLA
+    "plan_sum": "fastsparse/ops/assemble.py:370",
 }
 MONO_KERNELS = ("colmax", "quant3_planes", "mono_panel", "mono_group")
 REL_TOL = 1e-6
@@ -886,16 +908,23 @@ def ell_main_phase(ft, K, EK, opA, mA, opB, mB, time_cuda):
     yA, XB = torch.from_numpy(yAn).cuda(), torch.from_numpy(XBn).cuda()
     torch.cuda.synchronize()
 
-    K.reset_launches()
-    EK.reset_launches()
+    from fastsparse_torch.ops.kernels import assemble as AK
+
+    for c in (K, EK, AK):
+        c.reset_launches()
     eA, eB = eager_first(opA), eager_first(opB)
     ya = eA.matvec(xA)
     za = eA.rmatvec(yA)
     Ya = eA.matmat(XA)
     Yb = eB.matmat(XB)
     torch.cuda.synchronize()
-    counts = dict(K.launches, **EK.launches)
+    counts = dict(K.launches, **EK.launches, **AK.launches)
     print(f"ELL main-path launches: {counts}", flush=True)
+    applied = sum(len(tiling_plans("", t))
+                  for t in (opA.fwd, opA.bwd, opA.fwd, opB.fwd))
+    check(applied > 0 and counts["plan_sum"] == applied,
+          f"ELL path: {counts['plan_sum']} plan kernel launches for "
+          f"{applied} plan applications")
     for name, out, shape in (("A.matvec", ya, (mA.shape[0],)),
                              ("A.rmatvec", za, (mA.shape[1],)),
                              ("A.matmat", Ya, (mA.shape[0], 128)),
@@ -1045,9 +1074,11 @@ def hybrid_main_phase(ft, K, EK, opE, mE, time_cuda):
     x2, X2 = torch.from_numpy(x2n).cuda(), torch.from_numpy(X2n).cuda()
     torch.cuda.synchronize()
 
+    from fastsparse_torch.ops.kernels import assemble as AK
+
     reg = 50.0
-    K.reset_launches()
-    EK.reset_launches()
+    for c in (K, EK, AK):
+        c.reset_launches()
     eE = eager_first(opE)
     Y = {N: eE.matmat(v) for N, v in X.items()}
     y = eE.matvec(x)
@@ -1057,7 +1088,7 @@ def hybrid_main_phase(ft, K, EK, opE, mE, time_cuda):
     Y2 = eager_first(op2).matmat(X2)
     YD = eager_first(opD).matmat(X[128])
     torch.cuda.synchronize()
-    counts = dict(K.launches, **EK.launches)
+    counts = dict(K.launches, **EK.launches, **AK.launches)
     print(f"hybrid main-path launches: {counts}", flush=True)
 
     mE64, m264 = mE.astype(np.float64), m2.astype(np.float64)
@@ -1090,7 +1121,7 @@ def hybrid_main_phase(ft, K, EK, opE, mE, time_cuda):
     # one on this matrix (H100 runs); the bar leaves 3x of that
     check(bool(np.all(r_true < 3e-3 * r0)), "cg_normal: residual did not fall")
     check(cg_agree < 1e-3, f"cg_normal: true vs reported residual {cg_agree}")
-    for name in ("densecols", "ell_bucket", "ell_sweep"):
+    for name in ("densecols", "ell_bucket", "ell_sweep", "plan_sum"):
         check(counts[name] > 0, f"kernel {name} never launched on the hybrid path")
 
     products = {f"ecfp.matmat N={N}": (opE.matmat, v) for N, v in X.items()}
@@ -1100,7 +1131,7 @@ def hybrid_main_phase(ft, K, EK, opE, mE, time_cuda):
         lambda V: opE.normal_matmat(V, reg=reg), rhs)
     products["config2.matvec"] = (op2.matvec, x2)
     products["ecfp-degree.matmat N=128"] = (opD.matmat, X[128])
-    time_products(products, time_cuda, (K, EK))
+    time_products(products, time_cuda, (K, EK, AK))
     return counts
 
 
@@ -1554,8 +1585,10 @@ def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
     XB, xB = torch.from_numpy(XBn).cuda(), torch.from_numpy(xBn).cuda()
     torch.cuda.synchronize()
 
+    from fastsparse_torch.ops.kernels import assemble as AK
+
     reg = 50.0
-    for c in (K, EK, TT):
+    for c in (K, EK, TT, AK):
         c.reset_launches()
     eF, eT, eB = eager_first(opF), eager_first(opT), eager_first(opB)
     Y = {N: eF.matmat(v) for N, v in X.items()}
@@ -1565,7 +1598,7 @@ def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
     YB = eB.matmat(XB)
     yB = eB.matvec(xB)
     torch.cuda.synchronize()
-    counts = dict(K.launches, **EK.launches, **TT.launches)
+    counts = dict(K.launches, **EK.launches, **TT.launches, **AK.launches)
     print(f"tile main-path launches: {counts}", flush=True)
 
     mE64, mB64 = mE.astype(np.float64), mB.astype(np.float64)
@@ -1593,7 +1626,7 @@ def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
           f"{sol.iters} resnorm/initial max={float((r_true / r0).max())!r}",
           flush=True)
     check(bool(np.all(r_true < 3e-3 * r0)), "cg_normal: residual did not fall")
-    for name in ("bucket_spmm", "panel_spmm", "bucket_spmv"):
+    for name in ("bucket_spmm", "panel_spmm", "bucket_spmv", "plan_sum"):
         check(counts[name] > 0, f"kernel {name} never launched on the tile path")
 
     products = {f"ecfp-auto.matmat N={N}": (opF.matmat, v)
@@ -1604,8 +1637,120 @@ def tile_main_phase(ft, K, EK, TT, opF, opT, opB, mE, mB, time_cuda):
         lambda V: opT.normal_matmat(V, reg=reg), rhs)
     products["configB-degree.matmat N=128"] = (opB.matmat, XB)
     products["configB-degree.matvec"] = (opB.matvec, xB)
-    time_products(products, time_cuda, (K, EK, TT))
+    time_products(products, time_cuda, (K, EK, TT, AK))
     return counts
+
+
+def tiling_plans(name, t):
+    """``{label: (plan, strip height or None)}`` of a tiling's parts that
+    carry an assembly plan (a ColSegmented's plan sums strips of its
+    segments' tile height)."""
+    if t is None:
+        return {}
+    if type(t).__name__ == "HybridMatrix":
+        return {**tiling_plans(name + ".sparse", t.sparse),
+                **tiling_plans(name + ".dense", t.dense)}
+    plan = getattr(t, "plan", None)
+    if plan is None:
+        return {}
+    if type(t).__name__ == "ColSegmented":
+        return {name + ".colseg": (plan, t.segments[0].tile_m)}
+    return {name: (plan, None)}
+
+
+def rmat_main_phase(ft, K, EK, TT, AK, time_cuda):
+    """The R-MAT graph at scale 18 through ``reorder="auto"``: its layout,
+    matmat N=128 counted and checked against scipy f64, timed; returns its
+    forward tiling's plans and the launch counts."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    m = ft.bench.matrices.rmat(18, 16, seed=3)
+    gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = ft.operator(m, reorder="auto", transpose=False)
+    torch.cuda.synchronize()
+    plans = tiling_plans("rmat18.fwd", op.fwd)
+    print(f"rmat18 nnz={m.nnz} (generated in {gen!r} s) operator build "
+          f"{time.perf_counter() - t0!r} s: {type(op.fwd).__name__}, plans "
+          + ", ".join(f"{k}: {len(p.widths)} classes, {len(p.row_srcs)} "
+                      f"row levels, {p.src.numel()} sources"
+                      for k, (p, _) in plans.items()), flush=True)
+    check(any(TM and p.row_srcs for p, TM in plans.values())
+          and any(TM is None for p, TM in plans.values()),
+          "rmat18: no cross-segment row plan beside an ELL plan")
+    Xn = np.random.default_rng(23).standard_normal(
+        (m.shape[1], 128)).astype(np.float32)
+    X = torch.from_numpy(Xn).cuda()
+    for c in (K, EK, TT, AK):
+        c.reset_launches()
+    Y = eager_first(op).matmat(X)
+    torch.cuda.synchronize()
+    counts = dict(K.launches, **EK.launches, **TT.launches, **AK.launches)
+    print(f"rmat18 main-path launches: {counts}", flush=True)
+    check(tuple(Y.shape) == (m.shape[0], 128) and Y.dtype == torch.float32
+          and bool(torch.isfinite(Y).all()), f"rmat18.matmat: {Y.shape}")
+    rel = rel_err(Y.cpu().numpy(),
+                  m.astype(np.float64) @ Xn.astype(np.float64))
+    print(f"rmat18.matmat N=128 rel vs scipy f64: {rel!r}", flush=True)
+    check(rel < REL_TOL, f"rmat18.matmat rel {rel}")
+    check(counts["plan_sum"] == len(plans),
+          f"rmat18: {counts['plan_sum']} plan kernel launches for "
+          f"{len(plans)} plans")
+    time_products({"rmat18.matmat N=128": (op.matmat, X)}, time_cuda,
+                  (K, EK, TT, AK))
+    return plans, counts
+
+
+def plan_kernel_phase(plans, time_cuda):
+    """The plan kernel against its plain version on the same card tensors
+    (bit for bit, -0.0 planted) at N = 1, 32, 128 on each plan, timed
+    beside the least time of its bytes; the result row is R-MAT's ELL
+    plan at N=128, every plan and N under ``modes``."""
+    import torch
+
+    from fastsparse_torch.bench.spmv_kernels import kernel_device_ms
+    from fastsparse_torch.ops import assemble
+    from fastsparse_torch.ops.ell_ops import _lanes
+
+    g = torch.Generator("cuda").manual_seed(29)
+    modes = {}
+    for name, (plan, TM) in plans.items():
+        nrow, S = plan.row_ptr.numel() - 1, plan.src.numel()
+        live = int((plan.row_ptr[1:] > plan.row_ptr[:-1]).sum())
+        for N in (1, 32, 128):
+            L = _lanes(N)
+            # a cross-segment plan sums its strips' rows (``row_srcs``) or
+            # whole strips of TM rows; an ELL plan its part slots
+            n, width = ((plan.n_slots * TM, L) if TM and plan.row_srcs else
+                        (plan.n_slots, L * (TM or 1)))
+            P = torch.randn((n, width), device="cuda", generator=g)
+            P[torch.rand(n, device="cuda", generator=g) < 0.3] = -0.0
+            P[torch.rand((n, width), device="cuda", generator=g) < 0.1] = -0.0
+            label = f"plan_sum[{name} N={N}]"
+            r, yk = compare(label, assemble.sum_plan, assemble.plain_sum,
+                            True, (plan, P), {}, time_cuda, quick=True)
+            yp = assemble.plain_sum(plan, P)
+            torch.cuda.synchronize()
+            check(torch.equal(yk.view(torch.int32), yp.view(torch.int32)),
+                  f"{label}: not bit-equal (signed zeros)")
+            nbytes = (S + nrow) * width * 4 + (S + nrow + 1) * 4
+            r.update(bound(nbytes, (S - live) * width, F32_OPS_PER_S))
+            r["device_ms"] = kernel_device_ms(
+                lambda: assemble.sum_plan(plan, P), ("plan_sum_kernel",))
+            r["shape"] = [nrow, S, width, plan.n_levels]
+            print(f"  {label}: rows={nrow} sources={S} width={width} "
+                  f"levels={plan.n_levels} bound_ms={r['bound_ms']!r} "
+                  f"({r['bound_by']}) device_ms={r['device_ms']!r}",
+                  flush=True)
+            modes[f"{name} N={N}"] = r
+            del P, yk, yp
+    row = dict(modes["rmat18.fwd.sparse N=128"])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
+    row["library_ms"] = None  # no one PyTorch call sums a plan
+    row["modes"] = modes
+    return {"plan_sum": row}
 
 
 def largest_dd_bucket(A, valued, key=lambda b: b.cols.numel()):
@@ -2174,6 +2319,7 @@ def main() -> int:
     from fastsparse_torch.bench.matrices import banded, ecfp_like, powerlaw
     from fastsparse_torch.bench.mono_products import mono_setup
     from fastsparse_torch.bench.timing import time_cuda
+    from fastsparse_torch.ops.kernels import assemble as AK
     from fastsparse_torch.ops.kernels import bsr_spmm as K
     from fastsparse_torch.ops.kernels import bsr_tiles as TT
     from fastsparse_torch.ops.kernels import ell_dd as DK
@@ -2321,7 +2467,12 @@ def main() -> int:
                                  time_cuda))
     del A_unsplit, A_unsplit_bin, cooA
     ell_counts = ell_main_phase(ft, K, EK, opA, mA, opB, mB, time_cuda)
-    counts.update({k: ell_counts[k] for k in ("ell_bucket", "ell_sweep")})
+    counts.update({k: ell_counts[k] for k in ("ell_bucket", "ell_sweep",
+                                               "plan_sum")})
+    # the plans the main paths apply, for the plan kernel phase
+    plans = {**tiling_plans("configA.fwd", opA.fwd),
+             **tiling_plans("configA.bwd", opA.bwd),
+             **tiling_plans("configB.fwd", opB.fwd)}
 
     # ---- phase 11: the SMEM-blocked gather (USE_SMEM_PATH) on A and B
     opA_s, opB_s, perA, perB = smem_builds(ft, mA, mB)
@@ -2349,6 +2500,9 @@ def main() -> int:
     kres.update(densecols_kernel_phase(K, opE, time_cuda))
     hyb_counts = hybrid_main_phase(ft, K, EK, opE, mE, time_cuda)
     counts["densecols"] = hyb_counts["densecols"]
+    counts["plan_sum"] += hyb_counts["plan_sum"]
+    plans.update({**tiling_plans("ecfp.fwd", opE.fwd),
+                  **tiling_plans("ecfp.bwd", opE.bwd)})
     del opE
 
     # ---- the tile layouts: BASELINE config 3 and config B as called
@@ -2359,7 +2513,18 @@ def main() -> int:
                                   time_cuda)
     counts.update({k: tile_counts[k]
                    for k in ("bucket_spmm", "panel_spmm", "bucket_spmv")})
+    counts["plan_sum"] += tile_counts["plan_sum"]
+    plans.update({k: v for k, v in tiling_plans("ecfp-auto2.bwd",
+                                                opT.bwd).items()
+                  if v[1] is not None})
     del opF, opT, opB
+
+    # ---- the R-MAT graph, and the plan kernel on every plan above
+    rmat_plans, rmat_counts = rmat_main_phase(ft, K, EK, TT, AK, time_cuda)
+    counts["plan_sum"] += rmat_counts["plan_sum"]
+    plans.update(rmat_plans)
+    kres.update(plan_kernel_phase(plans, time_cuda))
+    del plans, rmat_plans
 
     # ---- fp64: BASELINE config 1, config 2 in fp64, the unit dd form
     m1, m2d, op1, A1, A2d, opBu = fp64_builds(ft, mB)

@@ -35,7 +35,7 @@ from .formats.ell import DdEll, EllBucket, EllMatrix, SegmentedEll
 from .formats.hybrid import DenseCols, HybridMatrix
 from .formats.segmented import ColSegmented
 from .linops import SparseOperator
-from .ops.assemble import AssemblyPlan, BsrStripPlan
+from .ops.assemble import BsrStripPlan, make_plan
 
 __all__ = ["reference_arrays", "operator_from_reference_arrays"]
 
@@ -269,26 +269,19 @@ def reference_arrays(op) -> dict:
     return d
 
 
-def _plan_from(d, prefix, device):
+def _plan_from(d, prefix, device, tile_m=None):
+    """The plan under ``prefix``; ``tile_m``: a ColSegmented's strip height
+    (its ``row_srcs`` index the parts' rows, the last one the zero row)."""
     if not d[prefix + "has_plan"]:
         return None
-    widths = d[prefix + "plan.widths"]
-    return AssemblyPlan(
-        classes=tuple(
-            torch.as_tensor(np.array(d[prefix + f"plan.class{k}"]),
-                            device=device)
-            for k in range(len(widths))
-        ),
-        rowpos=torch.as_tensor(np.array(d[prefix + "plan.rowpos"]),
-                               device=device),
-        widths=tuple(widths),
-        n_slots=d[prefix + "plan.n_slots"],
-        layout_key=tuple(d[prefix + "plan.layout_key"]),
-        row_srcs=tuple(
-            torch.as_tensor(np.array(d[prefix + f"plan.row_src{k}"]),
-                            device=device)
-            for k in range(d[prefix + "plan.n_row_srcs"])
-        ),
+    p = prefix + "plan."
+    widths, n_slots = d[p + "widths"], d[p + "n_slots"]
+    return make_plan(
+        [np.array(d[p + f"class{k}"]) for k in range(len(widths))],
+        np.array(d[p + "rowpos"]), widths, n_slots, d[p + "layout_key"],
+        device, [np.array(d[p + f"row_src{k}"])
+                 for k in range(d[p + "n_row_srcs"])],
+        tile_m,
     )
 
 
@@ -344,12 +337,14 @@ def _matrix_from(d, prefix, device):
         return _ell_from(d, prefix, device)
     if kind == "colseg":
         offsets = d[prefix + "col_offsets"]
+        segs = tuple(_matrix_from(d, prefix + f"seg{i}.", device)
+                     for i in range(len(offsets)))
+        tile_m = getattr(segs[0], "tile_m", None) if segs else None
         return ColSegmented(
-            segments=tuple(_matrix_from(d, prefix + f"seg{i}.", device)
-                           for i in range(len(offsets))),
+            segments=segs,
             col_offsets=tuple(offsets), seg_cols=d[prefix + "seg_cols"],
             shape=tuple(d[prefix + "shape"]), nnz=d[prefix + "nnz"],
-            plan=_plan_from(d, prefix, device),
+            plan=_plan_from(d, prefix, device, tile_m),
         )
     if kind == "ell-seg":
         offsets = d[prefix + "col_offsets"]

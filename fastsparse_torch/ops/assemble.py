@@ -12,6 +12,11 @@ is built, so the sum runs as static row gathers instead of a scatter:
 
 Row gathers are plain torch indexing, as the reference leaves them to XLA;
 the summation order (class by class, slots in order) is the reference's.
+On the card one kernel (`kernels.assemble.plan_sum`) runs the same sums
+instead: every plan carries a row-ordered schedule derived from its own
+arrays at build (`plan_schedule`), and each output row is written once,
+bit-equal to the torch ops, which stay the CPU path. `sum_plan` is the
+one place that chooses between them.
 
 The tile-bucket and class-panel BSR layouts get a `BsrStripPlan` (strips
 are disjoint across buckets, so Y is one gather of the per-part strip
@@ -22,12 +27,13 @@ place and need no plan; a hybrid gets plans on its parts.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
 
 from .. import tracing
+from .kernels.assemble import plan_sum
 
 __all__ = [
     "AssemblyPlan",
@@ -37,6 +43,10 @@ __all__ = [
     "build_colseg_plan",
     "build_strip_plan",
     "apply_plan",
+    "sum_plan",
+    "plain_sum",
+    "plan_schedule",
+    "make_plan",
     "bsr_layout_key",
     "colseg_layout_key",
     "layout_key",
@@ -166,6 +176,11 @@ class AssemblyPlan:
     widths: Tuple[int, ...]
     n_slots: int  # rows of parts_cat the plan was built for
     layout_key: Tuple
+    # the row-ordered schedule `kernels.assemble.plan_sum` walks
+    # (`plan_schedule`): int32 ``row_ptr`` (rows + 1) and ``src``
+    row_ptr: torch.Tensor
+    src: torch.Tensor
+    n_levels: int
     # cross-segment strip plans only: ``row_srcs[m][r]`` is output row r's
     # m-th contribution in the flattened ``(n_slots·TM + 1, Npad)`` parts
     # (sentinel: the zero row)
@@ -247,6 +262,70 @@ def _classes_from_slots(rid_all, valid_all, nrow):
     return classes, widths, rowpos
 
 
+def plan_schedule(classes, rowpos, row_srcs=(), zero_row=None):
+    """The row-ordered schedule of a plan's host arrays: ``(row_ptr, src,
+    n_levels)``, output row r summing rows ``src[row_ptr[r]:row_ptr[r+1]]``
+    of the parts in order, as the torch ops sum them.
+
+    A class plan: row r lists ``classes[k][i]``, where ``rowpos[r]`` puts
+    it at position i of class k; an empty row lists nothing (it reads the
+    zero row, +0.0). A ``row_srcs`` plan: row r lists ``row_srcs[0][r],
+    row_srcs[1][r], ...`` up to its first ``zero_row`` sentinel, and
+    ``n_levels`` is the number of levels: a row of 1..n_levels-1 sources
+    is followed by sentinel levels, whose ``+ 0.0`` turns -0.0 into +0.0."""
+    if len(row_srcs):
+        lv = np.stack([np.asarray(r, np.int64) for r in row_srcs])
+        real = lv != zero_row
+        if np.any(real[1:] & ~real[:-1]):
+            raise ValueError("plan_schedule: a row source after a sentinel")
+        counts = real.sum(axis=0)
+        src = lv.T[real.T]
+        n_levels = len(row_srcs)
+    else:
+        rowpos = np.asarray(rowpos, np.int64)
+        classes = [np.asarray(c) for c in classes]
+        pos_width = np.repeat([c.shape[1] for c in classes],
+                              [c.shape[0] for c in classes])
+        live = np.nonzero(rowpos < len(pos_width))[0]
+        counts = np.zeros(len(rowpos), np.int64)
+        counts[live] = pos_width[rowpos[live]]
+        row_of = np.empty(len(pos_width), np.int64)
+        row_of[rowpos[live]] = live
+        first = np.cumsum(counts) - counts
+        src = np.empty(counts.sum(), np.int64)
+        off = 0
+        for c in classes:
+            rows = row_of[off : off + c.shape[0]]
+            src[first[rows][:, None] + np.arange(c.shape[1])] = c
+            off += c.shape[0]
+        n_levels = 0
+    row_ptr = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    return row_ptr, src, n_levels
+
+
+def make_plan(classes, rowpos, widths, n_slots, layout_key, device,
+              row_srcs=(), tile_m=None) -> AssemblyPlan:
+    """An :class:`AssemblyPlan` on ``device`` from host arrays, with its
+    schedule (`plan_schedule`); every constructor goes through here.
+    ``row_srcs`` (a cross-segment plan's, strips of ``tile_m`` rows) index
+    the flattened parts, whose row ``n_slots·tile_m`` is the zero row."""
+    zero_row = n_slots * tile_m if len(row_srcs) else None
+    row_ptr, src, n_levels = plan_schedule(classes, rowpos, row_srcs,
+                                           zero_row)
+    return AssemblyPlan(
+        classes=tuple(_i32(c, device) for c in classes),
+        rowpos=_i32(rowpos, device),
+        widths=tuple(int(w) for w in widths),
+        n_slots=int(n_slots),
+        layout_key=tuple(layout_key),
+        row_srcs=tuple(_i32(r, device) for r in row_srcs),
+        row_ptr=_i32(row_ptr, device),
+        src=_i32(src, device),
+        n_levels=n_levels,
+    )
+
+
 def build_assembly_plan(A) -> AssemblyPlan:
     """Host-side plan build (one pass over the buckets' row ids); the
     plan's tensors land on the format's device."""
@@ -258,14 +337,8 @@ def build_assembly_plan(A) -> AssemblyPlan:
     valid_all = np.concatenate(valids) if valids else np.zeros((0,), bool)
     classes, widths, rowpos = _classes_from_slots(rid_all, valid_all,
                                                   A.shape[0])
-    dev = A.device or "cpu"
-    return AssemblyPlan(
-        classes=tuple(_i32(c, dev) for c in classes),
-        rowpos=_i32(rowpos, dev),
-        widths=tuple(widths),
-        n_slots=len(rid_all),
-        layout_key=layout_key(),
-    )
+    return make_plan(classes, rowpos, widths, len(rid_all), layout_key(),
+                     A.device or "cpu")
 
 
 def build_colseg_plan(A) -> AssemblyPlan:
@@ -307,27 +380,46 @@ def build_colseg_plan(A) -> AssemblyPlan:
     for m in range(maxm):
         sel = counts > m
         slot_of_strip[m, sel] = ps[starts[sel] + m]
-    row_srcs = _row_positions(slot_of_strip, n_slots,
-                              A.segments[0].tile_m, A.shape[0])
-    dev = A.device or "cpu"
-    return AssemblyPlan(
-        classes=tuple(_i32(c, dev) for c in classes),
-        rowpos=_i32(rowpos, dev),
-        widths=tuple(widths),
-        n_slots=n_slots,
-        layout_key=colseg_layout_key(),
-        row_srcs=tuple(_i32(r, dev) for r in (row_srcs or ())),
-    )
+    TM = A.segments[0].tile_m
+    row_srcs = _row_positions(slot_of_strip, n_slots, TM, A.shape[0])
+    return make_plan(classes, rowpos, widths, n_slots, colseg_layout_key(),
+                     A.device or "cpu", row_srcs or (), TM)
 
 
 def apply_plan(plan: AssemblyPlan, parts_cat):
     """parts_cat f32 ``(n_slots, L)`` -> Y f32 ``(nrow, L)`` through the
     plan's gathers (no scatter)."""
     with tracing.span("assemble"):
-        # per class an index cast, w gathers and w - 1 adds; the zero row,
-        # the concatenation, and the row order's cast and gather
-        tracing.count(2 * sum(plan.widths) + 4)
-        return _apply_plan(plan, parts_cat)
+        return sum_plan(plan, parts_cat)
+
+
+def sum_plan(plan: AssemblyPlan, rows):
+    """The plan's output rows summed from ``rows``, f32 ``(n, L)``: the
+    concatenated parts (a cross-segment plan's: per output row its strips'
+    rows, ``n = n_slots·TM``, over ``row_srcs``; or whole strips of
+    ``TM·Npad`` floats, over its classes). One `plan_sum` launch on the
+    card; elsewhere the torch ops, the kernel's plain version."""
+    if rows.is_cuda:
+        return plan_sum(plan.row_ptr, plan.src, rows, plan.n_levels)
+    return plain_sum(plan, rows)
+
+
+def plain_sum(plan: AssemblyPlan, rows):
+    """`sum_plan` by torch ops (the CPU path, and the plan kernel's oracle
+    on the card): the class walk, or the ``row_srcs`` walk."""
+    if plan.row_srcs:
+        # the zero row and the concatenation, per level a cast and a
+        # gather, and the adds
+        tracing.count(3 * len(plan.row_srcs) + 1)
+        pcat = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+        Y = pcat[plan.row_srcs[0].long()]
+        for src in plan.row_srcs[1:]:
+            Y = Y + pcat[src.long()]
+        return Y
+    # per class an index cast, w gathers and w - 1 adds; the zero row,
+    # the concatenation, and the row order's cast and gather
+    tracing.count(2 * sum(plan.widths) + 4)
+    return _apply_plan(plan, rows)
 
 
 def _apply_plan(plan, parts_cat):

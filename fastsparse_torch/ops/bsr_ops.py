@@ -702,30 +702,24 @@ def _colseg_spmm(A, X, precision):
             parts_all += parts
     if plan.n_slots != sum(int(p.shape[0]) for p in parts_all):
         return None
-    zero = X.new_zeros((1, Npad))
-    tracing.count()
-    if plan.row_srcs:
-        # row-granular: each output row sums its per-segment panels
-        tracing.count(3 * len(plan.row_srcs))
-        pcat = torch.cat([p.reshape(-1, Npad) for p in parts_all] + [zero])
-        Y = pcat[plan.row_srcs[0].long()]
-        for src in plan.row_srcs[1:]:
-            Y = Y + pcat[src.long()]
-        return (_fold_narrow(Y, nq) if nq else Y)[:, :N]
-    pcat = torch.cat(parts_all) if parts_all else X.new_zeros((0, TM, Npad))
-    tracing.count(2 * sum(plan.widths) + 4)
-    ys = []
-    for c, pos_c in zip(plan.widths, plan.classes):
-        pos = pos_c.long()
-        yc = pcat[pos[:, 0]]
-        for k in range(1, c):
-            yc = yc + pcat[pos[:, k]]
-        ys.append(yc)
-    ys.append(zero.reshape(1, 1, Npad).expand(1, TM, Npad))
-    Y = torch.cat(ys)[plan.rowpos.long()].reshape(nsp * TM, Npad)
+    Y = _colseg_sum(plan, parts_all, X, TM, Npad)
     if nq:
         Y = _fold_narrow(Y, nq)
     return Y[: A.shape[0], :N]
+
+
+def _colseg_sum(plan, parts_all, X, TM, Npad):
+    """The segments' ``(TM, Npad)`` strip panels summed into Y ``(rows,
+    Npad)`` by the cross-segment plan (`ops.assemble.sum_plan`): row by
+    row over its ``row_srcs`` where it has them (the matrix's rows), else
+    strip by strip over its classes (every strip's rows)."""
+    from .assemble import sum_plan
+
+    tracing.count()
+    pcat = torch.cat(parts_all) if parts_all else X.new_zeros((0, TM, Npad))
+    if plan.row_srcs:
+        return sum_plan(plan, pcat.view(-1, Npad))
+    return sum_plan(plan, pcat.view(-1, TM * Npad)).view(-1, Npad)
 
 
 def bsr_spmv(A: BsrMatrix, x):

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "fs_panel_spmm": (_P,) * 4 + (_I,) * 9 + (_P,),
     "fs_bucket_spmv": (_P,) * 4 + (_I,) * 5 + (_P,),
     "fs_ell_dd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "fs_plan_sum": (_P,) * 4 + (_I,) * 3 + (_P,),
 }
 
 _build_seconds = 0.0

@@ -1037,6 +1037,166 @@ def test_spmm_dd_on_card_vs_scipy(card):
         assert _rel(got.cpu(), torch.from_numpy(ref)) < 1e-10
 
 
+# ------------------------------------------------------ assembly-plan kernel
+def _neg_zero_parts(g, n, L):
+    """f32 (n, L) on the CPU with -0.0 planted: whole rows, single entries."""
+    P = g.standard_normal((n, L)).astype(np.float32)
+    P[g.random(n) < 0.3] = -0.0
+    P[g.random((n, L)) < 0.1] = -0.0
+    return torch.from_numpy(P)
+
+
+def _same_bits(a, b):
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _plans(t):
+    """[(plan, strip height or None)] of a tiling's parts with a plan."""
+    if t is None:
+        return []
+    if type(t).__name__ == "HybridMatrix":
+        return _plans(t.sparse) + _plans(t.dense)
+    plan = getattr(t, "plan", None)
+    if plan is None:
+        return []
+    colseg = type(t).__name__ == "ColSegmented"
+    return [(plan, t.segments[0].tile_m if colseg else None)]
+
+
+PLAN_CASES = ["ecfp", "rmat", "rmat_strips", "segmented_ell"]
+
+
+def _plan_case(card, monkeypatch, case):
+    """[((plan, TM), card plan)]: a layout built on the CPU and carried to
+    the card through `interop` (whose loader derives the schedule anew)."""
+    from fastsparse_torch import interop
+    from fastsparse_torch.ops import assemble
+
+    kw = {}
+    if case == "ecfp":
+        monkeypatch.setattr(tmodel, "DENSE_COL_MIN_D", 4)
+        monkeypatch.setattr(tmodel, "DENSE_COL_CELL_S", 2e-10)
+        monkeypatch.setattr(tmodel, "DENSE_COL_MIN_ROWS", 64)
+        m = ft.bench.matrices.ecfp_like(800, 2000, 24, 20, seed=2)
+    elif case.startswith("rmat"):
+        rmat_layout.shrink(monkeypatch)
+        if case == "rmat_strips":  # no row_srcs: the plan sums strips
+            monkeypatch.setattr(assemble, "_row_positions", lambda *a: None)
+        m = rmat_layout.matrix()
+        kw = {"reorder": "auto", "transpose": False}
+    else:
+        m = ft.bench.matrices.powerlaw(2000, 60_000, 80_000, seed=2,
+                                       binary=True)
+        kw = {"format": "ell"}
+    op = ft.operator(m, device="cpu", **kw)
+    on_card = interop.operator_from_reference_arrays(
+        interop.reference_arrays(op), device=card)
+    pairs = []
+    for side in ("fwd", "bwd"):
+        pairs += [(p, q) for p, (q, _) in zip(_plans(getattr(op, side)),
+                                              _plans(getattr(on_card, side)))]
+    return pairs
+
+
+@pytest.mark.parametrize("N", [1, 4, 32, 128, 256])
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_kernel_matches_plain(card, monkeypatch, case, N):
+    """The plan kernel against the torch ops it replaces (on the CPU, and
+    on the card for class plans), bit for bit with -0.0 planted: ELL plans
+    through `apply_plan`, cross-segment plans through the colseg walk
+    (row by row over ``row_srcs``, or strip by strip)."""
+    from fastsparse_torch.ops import assemble, ell_ops
+    from fastsparse_torch.ops.kernels import assemble as ak
+
+    pairs = _plan_case(card, monkeypatch, case)
+    assert pairs
+    if case.startswith("rmat"):
+        assert {TM is None for (_, TM), _ in pairs} == {True, False}
+        assert any(bool(p.row_srcs) == (case == "rmat")
+                   for (p, TM), _ in pairs if TM)
+    g = np.random.default_rng(N)
+    ak.reset_launches()
+    for (plan, TM), cplan in pairs:
+        if TM is None:
+            P = _neg_zero_parts(g, plan.n_slots, ell_ops._lanes(N))
+            want = assemble._apply_plan(plan, P)
+            assert _same_bits(assemble._apply_plan(cplan, P.to(card)), want)
+            got = assemble.apply_plan(cplan, P.to(card))
+        else:
+            P = _neg_zero_parts(g, plan.n_slots * TM, N).view(-1, TM, N)
+            parts = list(P.split(max(plan.n_slots // 3, 1)))
+            want = bsr_ops._colseg_sum(plan, parts, P, TM, N)
+            got = bsr_ops._colseg_sum(cplan, [p.to(card) for p in parts],
+                                      P.to(card), TM, N)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), (case, N, TM)
+    assert ak.launches["plan_sum"] == len(pairs)
+
+
+def _walk_schedule(ptr, src, P, n_levels):
+    rows = []
+    for r in range(len(ptr) - 1):
+        acc = torch.zeros(P.shape[1])
+        for j in range(ptr[r], ptr[r + 1]):
+            acc = P[src[j]].clone() if j == ptr[r] else acc + P[src[j]]
+        if 0 < ptr[r + 1] - ptr[r] < n_levels:
+            acc = acc + 0.0
+        rows.append(acc)
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("L", [1, 3, 4, 12, 128, 260])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_kernel_schedule_by_hand(card, aligned, L):
+    """Rows of 0 to 30 sources (past the loads a thread keeps in flight),
+    with and without the sentinel's + 0.0, on 16-byte-aligned parts and
+    on parts 4 bytes off (the scalar lanes)."""
+    from fastsparse_torch.ops.kernels import assemble as ak
+
+    g = np.random.default_rng(L)
+    n, counts = 40, [0, 1, 2, 3, 8, 9, 17, 30, 0, 1, 5]
+    src = np.concatenate([g.integers(0, n, c) for c in counts])
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    P = _neg_zero_parts(g, n, L)
+    buf = torch.empty(n * L + 1, device=card)
+    Pc = (buf[: n * L] if aligned else buf[1:]).view(n, L)
+    Pc.copy_(P)
+    ptr_c = torch.as_tensor(ptr, dtype=torch.int32, device=card)
+    src_c = torch.as_tensor(src, dtype=torch.int32, device=card)
+    for n_levels in (0, 10):
+        got = ak.plan_sum(ptr_c, src_c, Pc, n_levels)
+        torch.cuda.synchronize()
+        assert _same_bits(got, _walk_schedule(ptr, src, P, n_levels))
+
+
+@pytest.mark.parametrize("case", ["rmat", "hybrid"])
+def test_eager_call_counts_one_plan_kernel_per_application(card, monkeypatch,
+                                                           case):
+    """A recorded eager call launches the plan kernel once per plan it
+    applies (counter ``plan_kernel``), and each ``assemble`` span issues
+    that one launch and nothing else."""
+    from fastsparse_torch import tracing
+    from fastsparse_torch.ops.kernels import assemble as ak
+
+    op, calls = _graph_case(card, monkeypatch, case)
+    name, X, kw = calls[2] if case == "hybrid" else calls[0]
+    applied = len(_plans(op.fwd)) + (len(_plans(op.bwd))
+                                     if name == "normal_matmat" else 0)
+    assert applied == 2
+    twin = _eager_twin(op)
+    ak.reset_launches()
+    with tracing.recording() as rec:
+        getattr(twin, name)(X, **kw)
+    torch.cuda.synchronize()
+    assert rec.counts["plan_kernel"] == ak.launches["plan_sum"] == applied
+    spans = [s for s in rec.spans if s.name == "assemble"]
+    assert spans
+    for s in spans:
+        assert s.counts == {"ops": 1, "plan_kernel": 1}
+
+
 # ------------------------------------------------- products replayed as graphs
 def _eager_twin(op):
     """The same tilings with a cache that never engages: the eager path."""
@@ -1154,28 +1314,36 @@ def test_replay_launches_the_eager_kernels(card, monkeypatch):
     def kernels(fn):
         # the most of each name over a few sessions: the profiler drops
         # records now and then, in spells
-        most = collections.Counter()
+        most, sessions = collections.Counter(), []
         for i in range(4):
             if i:
                 time.sleep(0.3)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn(X, **kw)
                 torch.cuda.synchronize()
-            most |= collections.Counter(
+            sessions.append(collections.Counter(
                 e.name() for e in prof.profiler.kineto_results.events()
                 if str(e.device_type()).endswith("CUDA")
-                and not e.name().lower().startswith("memcpy"))
-        return most
+                and not e.name().lower().startswith("memcpy")))
+            most |= sessions[-1]
+        return most, sessions
 
     for _ in range(3):
         op.normal_matmat(X, **kw)
     twin.normal_matmat(X, **kw)
     torch.cuda.synchronize()
     assert op.graphs.graphs
-    replayed, eager = kernels(op.normal_matmat), kernels(twin.normal_matmat)
-    assert replayed == eager, (replayed - eager, eager - replayed)
+    (replayed, rs), (eager, es) = (kernels(op.normal_matmat),
+                                   kernels(twin.normal_matmat))
+    # on a mismatch, each session's count of the names that differ
+    differ = (replayed - eager) + (eager - replayed)
+    assert replayed == eager, "; ".join(
+        f"{k[:90]}: replayed sessions {[c[k] for c in rs]}, eager "
+        f"sessions {[c[k] for c in es]}" for k in differ)
     assert any("densecols" in k or "s8_engine" in k for k in eager)
     assert any("ell_" in k for k in eager)
+    # the two plans (forward and transpose tilings), one launch each
+    assert sum(v for k, v in eager.items() if "plan_sum_kernel" in k) == 2
 
 
 def test_cg_normal_replayed_equals_eager(card, monkeypatch):
