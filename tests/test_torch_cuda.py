@@ -33,6 +33,7 @@ from fastsparse_torch.ops.kernels import bsr_tiles as tt
 from fastsparse_torch.ops.kernels import ell_spmm as ek
 
 import rmat_layout
+from card_helpers import kernel_names, neg_zero_parts, same_bits, tiling_plans
 
 pytestmark = pytest.mark.cuda
 
@@ -180,7 +181,7 @@ def test_mono_operator_tile_m_on_card(card, monkeypatch, tile_m, N):
                   out_rows=max(b.out_strips, A.n_strips) * A.tile_m,
                   scale=scale if fold else None)
         args = (b.window, b.strip_ptr, b.start_rel, b.panels, planes)
-        names = _kernel_names(lambda: tk.mono_panel_spmm(*args, **kw))
+        names = kernel_names(lambda: tk.mono_panel_spmm(*args, **kw))
         assert "s8_engine_kernel" in names and "mono_kernel" not in names
         assert torch.equal(tk.mono_panel_spmm(*args, **kw),
                            tk.mono_panel_spmm_plain(*args, **kw))
@@ -286,7 +287,7 @@ def test_ell_bucket_picks_body(card):
             cols, vals, x = _ell_inputs(K, lanes, seed=lanes)
             pk = (ek._pack_pairs(cols).reshape(cols.shape[0], K // 2)
                   if packed else None)
-            names = _kernel_names(lambda: ek.ell_bucket_spmm(
+            names = kernel_names(lambda: ek.ell_bucket_spmm(
                 cols, vals, x, unit=unit, packed=pk))
             want, other = ("ell_narrow_kernel", "ell_bucket_kernel")[
                 :: 1 if lanes <= 8 else -1]
@@ -587,31 +588,6 @@ def test_panel_spmm_kernel_matches_plain(card, mode, row_base, TM):
     assert torch.equal(yk[-TM:], torch.zeros_like(yk[-TM:]))
 
 
-def _kernel_names(fn, tries=3):
-    """Names of the CUDA kernels ``fn`` launches (torch.profiler). The
-    profiler now and then delivers a run's launch calls without their
-    device activity records, in spells of a few sessions: then it
-    profiles ``fn`` again, half a second later."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for i in range(tries):
-        if i:
-            time.sleep(0.5)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):  # records of a lone launch can be lost
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        names = [e.key for e in events
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        if names:
-            return " ".join(names)
-    return " ".join(e.key for e in events)
-
-
 def _mono_items(gen, n_strips, TM, W, TK=128, win_slabs=8, extra=12):
     """A mono item list shaped like the headline's (one item a strip,
     ``extra`` strips with a second one), 0/1 int8 panels of TM x W·TK made
@@ -639,8 +615,9 @@ def _mono_items(gen, n_strips, TM, W, TK=128, win_slabs=8, extra=12):
 
 def test_s8_engine_picks_body(card):
     """densecols on the ECFP forward block's shape (50,176 x 5,376) at
-    N = 32, 128, 256 and mono_panel on the headline's (208 items of
-    256 x 768, 196 strips; i8w N=128 and narrow N=32) run the s8 engine;
+    N = 32, 128, 256 (the mma.sync body at N = 1 and 8) and mono_panel on
+    the headline's (208 items of 256 x 768, 196 strips; i8w N=128 and
+    narrow N=32) run the s8 engine;
     densecols at N <= 8 or D = 333 and mono_panel at tile_m = 8 the old
     bodies. Each bit-exact against its plain version."""
     gen = torch.Generator("cuda").manual_seed(5)
@@ -653,12 +630,13 @@ def test_s8_engine_picks_body(card):
                                ((50_176, 5_376), 128, "s8_engine_kernel"),
                                ((50_176, 5_376), 256, "s8_engine_kernel"),
                                ((50_176, 5_376), 8, "densecols_kernel"),
+                               ((50_176, 5_376), 1, "densecols_kernel"),
                                ((2_000, 333), 128, "densecols_kernel")):
         block = (torch.rand((nrow, D), device="cuda", generator=gen)
                  < 0.3).to(torch.int8)
         q3t = i8((3 * N, D))
         s = torch.rand((1, N), device="cuda", generator=gen) * 1e-5 + 1e-7
-        names = _kernel_names(lambda: tk.densecols_spmm(block, q3t, s))
+        names = kernel_names(lambda: tk.densecols_spmm(block, q3t, s))
         other = ({"s8_engine_kernel", "densecols_kernel"} - {want}).pop()
         assert want in names and other not in names, (nrow, D, N, names)
         assert torch.equal(tk.densecols_spmm(block, q3t, s),
@@ -671,7 +649,7 @@ def test_s8_engine_picks_body(card):
         for x, mode in ((i8((384, K_rows)), dict(n_block=128, fold="i8w",
                                                  scale=s)),
                         (i8((96, K_rows)), dict(n_block=96, fold=False))):
-            names = _kernel_names(
+            names = kernel_names(
                 lambda: tk.mono_panel_spmm(*args, x, **kw, **mode))
             other = ({"s8_engine_kernel", "mono_kernel"} - {want}).pop()
             assert want in names and other not in names, (TM, mode, names)
@@ -723,7 +701,7 @@ def test_s8_engine_picks_body_halo(card, TM, ns, want, N):
     X = torch.randn((K_rows, N), device="cuda", generator=gen)
     x, _ = bsr_ops._quant3_narrow(X, K_rows, nq, nb)
     assert tuple(x.shape) == (nb, K_rows)
-    names = _kernel_names(lambda: tk.mono_group_spmm(*args, x, **kw))
+    names = kernel_names(lambda: tk.mono_group_spmm(*args, x, **kw))
     other = ({"s8_engine_kernel", "mono_kernel"} - {want}).pop()
     assert want in names and other not in names, (TM, N, names)
     y = tk.mono_group_spmm(*args, x, **kw)
@@ -746,7 +724,7 @@ def test_s8_engine_route_by_alignment(card):
     s = torch.ones((1, 16), device="cuda")
     for q3t, want in ((buf[1:].view(48, 512), "densecols_kernel"),
                       (buf[:-1].view(48, 512), "s8_engine_kernel")):
-        names = _kernel_names(lambda: tk.densecols_spmm(block, q3t, s))
+        names = kernel_names(lambda: tk.densecols_spmm(block, q3t, s))
         assert want in names, names
         assert torch.equal(tk.densecols_spmm(block, q3t, s),
                            tk.densecols_spmm_plain(block, q3t, s))
@@ -761,7 +739,7 @@ def test_tile_kernels_pick_one_body(card):
         x = torch.from_numpy(g.standard_normal(
             (20 * 128, planes * 128)).astype(np.float32)).to(xdt).cuda()
         kw = dict(n_block=128, planes=planes)
-        names = _kernel_names(lambda: tt.bucket_spmm(slab, tiles, x, **kw))
+        names = kernel_names(lambda: tt.bucket_spmm(slab, tiles, x, **kw))
         want = "tile_mma_kernel" if xdt == torch.bfloat16 else "bucket_scalar"
         assert want in names and ("scalar" in names) == (
             want == "bucket_scalar"), (mode, names)
@@ -776,7 +754,7 @@ def test_tile_kernels_pick_one_body(card):
         x = torch.from_numpy(g.standard_normal(
             (1280, 128)).astype(np.float32)).to(xdt).cuda()
         kw = dict(tile_k=128, fold=fold)
-        names = _kernel_names(lambda: tt.panel_spmm(start, pan, x, **kw))
+        names = kernel_names(lambda: tt.panel_spmm(start, pan, x, **kw))
         want = "tile_mma_kernel" if pdt != torch.float32 else "panel_scalar"
         assert want in names and ("scalar" in names) == (
             want == "panel_scalar"), (mode, names)
@@ -1038,33 +1016,6 @@ def test_spmm_dd_on_card_vs_scipy(card):
 
 
 # ------------------------------------------------------ assembly-plan kernel
-def _neg_zero_parts(g, n, L):
-    """f32 (n, L) on the CPU with -0.0 planted: whole rows, single entries."""
-    P = g.standard_normal((n, L)).astype(np.float32)
-    P[g.random(n) < 0.3] = -0.0
-    P[g.random((n, L)) < 0.1] = -0.0
-    return torch.from_numpy(P)
-
-
-def _same_bits(a, b):
-    a, b = a.cpu().contiguous(), b.cpu().contiguous()
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
-
-
-def _plans(t):
-    """[(plan, strip height or None)] of a tiling's parts with a plan."""
-    if t is None:
-        return []
-    if type(t).__name__ == "HybridMatrix":
-        return _plans(t.sparse) + _plans(t.dense)
-    plan = getattr(t, "plan", None)
-    if plan is None:
-        return []
-    colseg = type(t).__name__ == "ColSegmented"
-    return [(plan, t.segments[0].tile_m if colseg else None)]
-
-
 PLAN_CASES = ["ecfp", "rmat", "rmat_strips", "segmented_ell"]
 
 
@@ -1095,8 +1046,9 @@ def _plan_case(card, monkeypatch, case):
         interop.reference_arrays(op), device=card)
     pairs = []
     for side in ("fwd", "bwd"):
-        pairs += [(p, q) for p, (q, _) in zip(_plans(getattr(op, side)),
-                                              _plans(getattr(on_card, side)))]
+        pairs += [(p, q) for p, (q, _) in zip(
+            tiling_plans("", getattr(op, side)).values(),
+            tiling_plans("", getattr(on_card, side)).values())]
     return pairs
 
 
@@ -1120,18 +1072,18 @@ def test_plan_kernel_matches_plain(card, monkeypatch, case, N):
     ak.reset_launches()
     for (plan, TM), cplan in pairs:
         if TM is None:
-            P = _neg_zero_parts(g, plan.n_slots, ell_ops._lanes(N))
+            P = neg_zero_parts(g, plan.n_slots, ell_ops._lanes(N))
             want = assemble._apply_plan(plan, P)
-            assert _same_bits(assemble._apply_plan(cplan, P.to(card)), want)
+            assert same_bits(assemble._apply_plan(cplan, P.to(card)), want)
             got = assemble.apply_plan(cplan, P.to(card))
         else:
-            P = _neg_zero_parts(g, plan.n_slots * TM, N).view(-1, TM, N)
+            P = neg_zero_parts(g, plan.n_slots * TM, N).view(-1, TM, N)
             parts = list(P.split(max(plan.n_slots // 3, 1)))
             want = bsr_ops._colseg_sum(plan, parts, P, TM, N)
             got = bsr_ops._colseg_sum(cplan, [p.to(card) for p in parts],
                                       P.to(card), TM, N)
         torch.cuda.synchronize()
-        assert _same_bits(got, want), (case, N, TM)
+        assert same_bits(got, want), (case, N, TM)
     assert ak.launches["plan_sum"] == len(pairs)
 
 
@@ -1159,7 +1111,7 @@ def test_plan_kernel_schedule_by_hand(card, aligned, L):
     n, counts = 40, [0, 1, 2, 3, 8, 9, 17, 30, 0, 1, 5]
     src = np.concatenate([g.integers(0, n, c) for c in counts])
     ptr = np.concatenate([[0], np.cumsum(counts)])
-    P = _neg_zero_parts(g, n, L)
+    P = neg_zero_parts(g, n, L)
     buf = torch.empty(n * L + 1, device=card)
     Pc = (buf[: n * L] if aligned else buf[1:]).view(n, L)
     Pc.copy_(P)
@@ -1168,7 +1120,7 @@ def test_plan_kernel_schedule_by_hand(card, aligned, L):
     for n_levels in (0, 10):
         got = ak.plan_sum(ptr_c, src_c, Pc, n_levels)
         torch.cuda.synchronize()
-        assert _same_bits(got, _walk_schedule(ptr, src, P, n_levels))
+        assert same_bits(got, _walk_schedule(ptr, src, P, n_levels))
 
 
 @pytest.mark.parametrize("case", ["rmat", "hybrid"])
@@ -1182,8 +1134,8 @@ def test_eager_call_counts_one_plan_kernel_per_application(card, monkeypatch,
 
     op, calls = _graph_case(card, monkeypatch, case)
     name, X, kw = calls[2] if case == "hybrid" else calls[0]
-    applied = len(_plans(op.fwd)) + (len(_plans(op.bwd))
-                                     if name == "normal_matmat" else 0)
+    applied = len(tiling_plans("", op.fwd)) + (
+        len(tiling_plans("", op.bwd)) if name == "normal_matmat" else 0)
     assert applied == 2
     twin = _eager_twin(op)
     ak.reset_launches()
@@ -1315,16 +1267,27 @@ def test_replay_launches_the_eager_kernels(card, monkeypatch):
         # the most of each name over a few sessions: the profiler drops
         # records now and then, in spells
         most, sessions = collections.Counter(), []
+        # a pause and an empty session first: it takes the records an
+        # earlier session delivers late
+        time.sleep(0.3)
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
         for i in range(4):
             if i:
                 time.sleep(0.3)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # once the process has run many sessions, the profiler
+                # drops a session's first one or two device records: let
+                # them be spin launches, a name not counted
+                for _ in range(4):
+                    torch.cuda._sleep(1_000)
                 fn(X, **kw)
                 torch.cuda.synchronize()
             sessions.append(collections.Counter(
                 e.name() for e in prof.profiler.kineto_results.events()
                 if str(e.device_type()).endswith("CUDA")
-                and not e.name().lower().startswith("memcpy")))
+                and not e.name().lower().startswith("memcpy")
+                and "spin_kernel" not in e.name()))
             most |= sessions[-1]
         return most, sessions
 
