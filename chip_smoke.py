@@ -55,7 +55,8 @@ PATHS = {
     "scatter": ("opCsr", "1", ("matvec",)),
 }
 # the launch counter's name -> the prefix of its items in bench/kernels.py
-ITEMS = {"ell_bucket_dd": "dd_unit ", "ell_bucket_dd_valued": "dd_valued "}
+ITEMS = {"ell_bucket_dd": "dd_unit ", "ell_bucket_dd_valued": "dd_valued ",
+         "encode_colmax": "quant3_encode ", "encode_planes": "quant3_encode "}
 
 
 def path_launches(ft, get, counters):

@@ -1,7 +1,7 @@
 """Every hand-written kernel, and the products it serves, timed on one card.
 
     python3 fastsparse_torch/bench/kernels.py [--root DIR]
-        [--groups mono,tiles,densecols,plan,spmv,smem,dd,others]
+        [--groups mono,tiles,densecols,encode,plan,spmv,smem,dd,others]
 
 Each group times its kernels at the main path's shapes, each beside its
 bound and, where one PyTorch call computes the same function on the same
@@ -19,6 +19,10 @@ rows, beside that call (cuSPARSE, ``vector_norm``, ``torch._int_mm``):
   launch alone);
 - ``densecols``: #7 on the ECFP forward dense-column block at N = 1, 32,
   128, 256;
+- ``encode``: the X encoder (`quant3_encode`: its fill and its two
+  launches) at the solve and product cells' shapes: the headline's narrow
+  planes at N=32 (the CG solve's), the ECFP forward dense-column rows at
+  N = 32 and 256 and R-MAT's hub rows at N=128;
 - ``plan``: plan_sum on every plan the main paths apply (config A, config
   B, ECFP with both tilings, R-MAT scale 18) at N = 1, 32, 128;
 - ``spmv``: ell_bucket (#9) on config A's largest bucket, config B's
@@ -63,7 +67,8 @@ import torch
 ELL_KEYS = ("ell_narrow_kernel", "ell_bucket_kernel")
 TILE_KEYS = ("spmv_kernel", "tile_mma_kernel", "_scalar_kernel")
 ALL = ("",)  # every kernel a call launches (a library call, a product)
-GROUPS = ("mono", "tiles", "densecols", "plan", "spmv", "smem", "dd", "others")
+GROUPS = ("mono", "tiles", "densecols", "encode", "plan", "spmv", "smem",
+          "dd", "others")
 
 
 def main_paths(ft):
@@ -137,7 +142,8 @@ def setup(ft, groups=GROUPS, get=None):
     get = get or main_paths(ft)
     kernels, products = {}, {}
     items = {"mono": _mono_items, "tiles": _tile_items,
-             "densecols": _densecols_items, "plan": _plan_items,
+             "densecols": _densecols_items, "encode": _encode_items,
+             "plan": _plan_items,
              "spmv": _spmv_items, "smem": _smem_items, "dd": _dd_items,
              "others": _other_items}
     for name in groups:
@@ -424,7 +430,7 @@ def _densecols_items(ft, g, get, kernels, products):
     for N in (1, 32, 128, 256):
         X = _x_panel(g, dc.shape[1], dc.shape[1], N)
         block = dc.block
-        q3t, s = densecols_planes(X[dc.col_ids.long()])
+        q3t, s = densecols_planes(X, dc.col_ids)
         nrow, D = block.shape
         kernels[f"densecols ECFP fwd block {tuple(block.shape)} N={N}"] = (
             lambda q3t=q3t, s=s: K.densecols_spmm(block, q3t, s),
@@ -443,6 +449,35 @@ def _densecols_items(ft, g, get, kernels, products):
             lambda q3_cm=q3_cm: torch._int_mm(block, q3_cm), ALL, None, {})
         _pair(kernels, f"densecols ECFP fwd block {tuple(block.shape)} N={N}",
               int_mm)
+
+
+def _encode_items(ft, g, get, kernels, products):
+    """`quant3_encode` (a fill, encode_colmax, encode_planes) on the
+    headline's X at N=32 in the narrow layout (the forward tiling's K), on
+    the ECFP forward dense-column rows at N = 32 and 256 and on R-MAT's hub
+    rows at N=128, beside its bound: X's rows read once (and their ids),
+    the planes and the scale written once."""
+    from fastsparse_torch.bench.timing import bound
+    from fastsparse_torch.ops.kernels import bsr_spmm as K
+
+    keys = ("encode_colmax_kernel", "encode_planes_kernel", "FillFunctor")
+    A = get("opH").fwd
+    b = A.buckets[0]
+    K_pad = b.n_windows * b.win_slabs * A.tile_k
+    X = _x_panel(g, get("headline").shape[1], get("headline").shape[1], 32)
+    kernels[f"quant3_encode headline narrow {tuple(X.shape)} K={K_pad} "
+            "N=32"] = (
+        lambda X=X: K.quant3_encode(X, k_rows=K_pad, n_pad=32, n_out=96),
+        keys, 3, bound(X.numel() * 4 + 96 * K_pad + 32 * 4))
+    for name, dc, N in (("ECFP fwd", get("opE").fwd.dense_cols, 32),
+                        ("ECFP fwd", get("opE").fwd.dense_cols, 256),
+                        ("rmat18 hub", get("opR").fwd.dense_cols, 128)):
+        X = _x_panel(g, dc.shape[1], dc.shape[1], N)
+        D = dc.col_ids.numel()
+        kernels[f"quant3_encode {name} rows D={D} N={N}"] = (
+            lambda X=X, dc=dc, D=D, N=N: K.quant3_encode(
+                X, dc.col_ids, k_rows=D, n_pad=N, n_out=3 * N), keys, 3,
+            bound(D * N * 4 + D * 4 + 3 * N * D + N * 4))
 
 
 def _plan_items(ft, g, get, kernels, products):

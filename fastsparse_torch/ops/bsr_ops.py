@@ -7,8 +7,9 @@ column j, ``x ≈ (q0·2^16 + q1·2^8 + q2)·s_j`` with
 ``s_j = colmax_j/(127·2^16)``, so each plane is one exact s8·s8→s32 dot.
 Wide products (N > 40) encode X with the `colmax` and `quant3_planes`
 kernels and run `mono_panel_spmm` in fold "i8w"; narrow products (N <= 40)
-encode with torch ops (the reference does this in XLA) and fold the three
-plane blocks after the kernel. The mono kernels take their planes K-major
+encode with `quant3_encode` (the reference does this in XLA; on the card
+two launches over X in place) and fold the three plane blocks after the
+kernel. The mono kernels take their planes K-major
 (``(lanes, K)``, the transpose of the reference's ``(K, lanes)``: the s8
 tensor cores read B only so). N <= 8 goes to the halo engine
 (`mono_group_spmm`) when the matrix has one.
@@ -44,9 +45,11 @@ import torch.nn.functional as F
 from .. import tracing
 from ..formats.bsr import BsrMatrix, MonoPanelBucket, PanelBucket
 from .kernels.bsr_spmm import (
+    S_UNIT as _S_UNIT,
     colmax,
     mono_group_spmm,
     mono_panel_spmm,
+    quant3_encode,
     quant3_planes,
 )
 from .kernels.bsr_tiles import bucket_spmm, bucket_spmv, panel_spmm
@@ -141,26 +144,6 @@ def _require_int8_path(A, x_dtype, precision):
         )
 
 
-_S_UNIT = 1.0 / (127.0 * 65536.0)
-# device ops `_quant3_carry` enqueues (a `where` with a Python scalar is two:
-# the scalar's fill and the select)
-QUANT3_CARRY_OPS = 21
-
-
-def _quant3_carry(Xp):
-    """Radix-256 3-plane quantization in torch ops: f32 -> (q0, q1, q2, s)
-    int32 planes and the f32 (1, N) scale, as ``bsr_ops._quant3_carry``."""
-    tracing.count(QUANT3_CARRY_OPS)
-    m = Xp.abs().amax(dim=0, keepdim=True)
-    s = torch.where(m > 0, m, 1.0) * _S_UNIT
-    i = torch.round(Xp * (1.0 / s)).to(torch.int32)
-    q2 = ((i + 128) & 255) - 128
-    i1 = (i - q2) >> 8
-    q1 = ((i1 + 128) & 255) - 128
-    q0 = (i1 - q1) >> 8
-    return q0, q1, q2, s
-
-
 def _quant3_planes(Xp, NB: int, Npad: int):
     """f32 (K, Npad) -> (int8 (nj·3·NB, K) K-major planes, f32 (1, Npad)
     scale) through the colmax and quant3 kernels. The scale and its
@@ -183,20 +166,11 @@ def _pad(X, pads):
 
 def _quant3_narrow(X, K: int, nq: int, nb: int):
     """Narrow int8 planes, K-major (nb, K) as the mono kernels take them:
-    q0, q1, q2 in lane rows 0, nq, 2·nq and zero rows to ``nb`` (the
-    reference's (K, nb) lane layout transposed); plus the f32 (1, nq)
-    scale."""
-    ncol, N = X.shape
-    Xf = X.to(torch.float32)
-    if ncol > K:
-        Xf = Xf[:K]
-    Xf = _pad(Xf, (0, nq - N, 0, max(K - ncol, 0)))
-    q0, q1, q2, s = _quant3_carry(Xf)
-    qs = [q.to(torch.int8) for q in (q0, q1, q2)]
-    if nb > 3 * nq:
-        qs.append(Xf.new_zeros((Xf.shape[0], nb - 3 * nq), dtype=torch.int8))
-    tracing.count(len(qs) + 1)
-    return torch.cat([q.t() for q in qs]), s
+    q0, q1, q2 of X's first K rows (zero rows past X) in lane rows 0, nq,
+    2·nq and zero rows to ``nb`` (the reference's (K, nb) lane layout
+    transposed); plus the f32 (1, nq) scale. One `quant3_encode` (on the
+    card a fill and two launches over X in place)."""
+    return quant3_encode(X.to(torch.float32), k_rows=K, n_pad=nq, n_out=nb)
 
 
 def _fold_narrow_q(Y, nq: int, scale):

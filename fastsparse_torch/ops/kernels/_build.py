@@ -32,11 +32,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the launchers in csrc/*.cu (every pointer and the stream
 # as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
     "fs_colmax": (_P, _I, _I, _P, _P),
     "fs_quant3": (_P, _P, _I, _I, _I, _P, _P),
+    "fs_encode_colmax": (_P, _P, _I, _I, _L, _L, _P, _P),
+    "fs_encode_planes": (_P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _P, _P, _P),
     "fs_mono_panel": (_P,) * 7 + (_I,) * 11 + (_P,),
     "fs_mono_group": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     "fs_ell_bucket": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),

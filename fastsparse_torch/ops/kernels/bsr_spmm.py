@@ -1,8 +1,10 @@
-"""The four mono-path kernels and the dense-column kernel: CUDA wrappers
-and their plain PyTorch twins.
+"""The four mono-path kernels, the dense-column kernel and the X encoder:
+CUDA wrappers and their plain PyTorch twins.
 
-Each public function here is the counterpart of one Pallas TPU kernel in
-``fastsparse/ops/pallas/bsr_spmm.py``. On a CUDA tensor it launches the
+Each public function here but `quant3_encode` is the counterpart of one
+Pallas TPU kernel in ``fastsparse/ops/pallas/bsr_spmm.py``; `quant3_encode`
+replaces the XLA ops around two of them (the narrow mono planes and the
+dense-column planes). On a CUDA tensor it launches the
 hand-written sm_90a kernel from ``csrc/bsr_spmm.cu`` (``densecols_spmm``:
 ``csrc/densecols_spmm.cu``; built at first use,
 `_build.load_library`) and adds one to its entry in `launches`; a build or
@@ -30,6 +32,7 @@ Interface differences from the reference kernels:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ... import tracing
 
@@ -40,6 +43,8 @@ __all__ = [
     "colmax_plain",
     "quant3_planes",
     "quant3_planes_plain",
+    "quant3_encode",
+    "quant3_encode_plain",
     "mono_panel_spmm",
     "mono_panel_spmm_plain",
     "mono_group_spmm",
@@ -50,7 +55,10 @@ __all__ = [
 
 # kernel launches per wrapper (CUDA path only; the plain versions never count)
 launches = {"colmax": 0, "quant3_planes": 0, "mono_panel": 0, "mono_group": 0,
-            "densecols": 0}
+            "densecols": 0, "encode_colmax": 0, "encode_planes": 0}
+
+# x ≈ (q0·2^16 + q1·2^8 + q2)·s with s = colmax/(127·2^16)
+S_UNIT = 1.0 / (127.0 * 65536.0)
 
 # f64 working set per chunk of the plain mono versions (exact integer dots
 # through a float64 matmul: every partial sum of int8 products stays far
@@ -181,6 +189,79 @@ def quant3_planes(x, sinv, *, n_block: int):
         n_block, _ptr(out),
     )
     return out
+
+
+# ----------------------------------------------------------------- encode
+def quant3_encode_plain(x, rows=None, *, k_rows: int, n_pad: int, n_out: int):
+    if rows is not None:
+        x = x[rows.long()]
+    elif x.shape[0] > k_rows:
+        x = x[:k_rows]
+    ncol, N = x.shape
+    x = F.pad(x, (0, n_pad - N, 0, k_rows - ncol))
+    m = x.abs().amax(dim=0, keepdim=True)
+    s = torch.where(m > 0, m, 1.0) * S_UNIT
+    i = torch.round(x * (1.0 / s)).to(torch.int32)
+    q2 = ((i + 128) & 255) - 128
+    i1 = (i - q2) >> 8
+    q1 = ((i1 + 128) & 255) - 128
+    q0 = (i1 - q1) >> 8
+    qs = [q.to(torch.int8) for q in (q0, q1, q2)]
+    if n_out > 3 * n_pad:
+        qs.append(x.new_zeros((k_rows, n_out - 3 * n_pad), dtype=torch.int8))
+    return torch.cat([q.t() for q in qs]), s
+
+
+def quant3_encode(x, rows=None, *, k_rows: int, n_pad: int, n_out: int):
+    """Radix-256 int8 planes of X's rows with their per-column scale:
+    int8 ``(n_out, k_rows)`` K-major (row ``p·n_pad + c`` is plane ``p``
+    of column ``c``, rows ``3·n_pad`` to ``n_out`` zero) and f32 ``(1,
+    n_pad)`` ``s``. Row ``k`` of the encoded operand is ``x[rows[k]]``
+    (``rows`` int32 ``(k_rows,)``), or ``x[k]`` without ``rows`` (zero
+    past ``x``'s rows, which past ``k_rows`` are not read); its columns
+    past ``x``'s up to ``n_pad`` are zero. ``s = where(m > 0, m, 1) ·
+    S_UNIT`` from the column max ``m`` of ``|x|``, ``i = round(x · (1 /
+    s))`` (half to even) and the radix carries, as
+    `quant3_planes` (the reference's ``bsr_ops._quant3_carry``).
+
+    Replaces the reference's XLA ops of the narrow mono planes
+    (``bsr_ops._quant3_narrow``: ``n_pad = nq``, ``n_out = nb``) and of the
+    dense-column planes (``n_pad = N``, ``n_out = 3N``, ``rows`` the
+    column ids). On the card: a zero fill and two launches,
+    ``encode_colmax`` and ``encode_planes``, reading ``x`` in place
+    through its strides; bit-equal to the plain version, the torch ops the
+    CPU runs (the gather, the pad, the carry, the casts and the
+    concatenation)."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
+            or x.ndim != 2:
+        raise TypeError("quant3_encode.x: expected a 2-D float32 tensor")
+    N = x.shape[1]
+    if n_pad < N or n_out < 3 * n_pad:
+        raise ValueError(
+            f"quant3_encode: n_pad={n_pad} under N={N} or n_out={n_out} "
+            f"under 3·n_pad")
+    if rows is not None:
+        _check("quant3_encode.rows", rows, torch.int32, 1, x.device)
+        if rows.numel() != k_rows:
+            raise ValueError("quant3_encode: rows must hold k_rows ids")
+    lib = _library_for(x)
+    if lib is None:
+        return quant3_encode_plain(x, rows, k_rows=k_rows, n_pad=n_pad,
+                                   n_out=n_out)
+    dev = x.device
+    k_x = k_rows if rows is not None else min(x.shape[0], k_rows)
+    ld, cs = x.stride()
+    mbits = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
+    tracing.count()
+    out = torch.empty((n_out, k_rows), dtype=torch.int8, device=dev)
+    s = torch.empty((1, n_pad), dtype=torch.float32, device=dev)
+    _launch("encode_colmax", lib.fs_encode_colmax, _ptr(x), _ptr(rows), k_x,
+            N, ld, cs, _ptr(mbits))
+    _launch("encode_planes", lib.fs_encode_planes, _ptr(x), _ptr(rows),
+            _ptr(mbits), k_x, N, ld, cs, k_rows, n_pad, n_out, _ptr(out),
+            _ptr(s))
+    tracing.count(1, "encode_kernel")
+    return out, s
 
 
 # ------------------------------------------------------------------ mono

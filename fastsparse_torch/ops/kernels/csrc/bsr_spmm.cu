@@ -1,11 +1,16 @@
 // Hand-written Hopper (sm_90a) kernels for the mono int8-panel BSR path.
 //
 // Four kernels, each the CUDA counterpart of one Pallas TPU kernel in
-// fastsparse/ops/pallas/bsr_spmm.py:
+// fastsparse/ops/pallas/bsr_spmm.py, and one pair that replaces XLA ops:
 //
 //   fs_colmax      <- colmax_pallas         per-column max|x| of f32 X
 //   fs_quant3      <- quant3_planes_pallas  radix-256 int8 planes of X,
 //                                           written K-major
+//   fs_encode_colmax, fs_encode_planes      the narrow mono planes and the
+//                  <- XLA ops (_quant3_narrow, the dense-column planes):
+//                                           X read in place (strides, an
+//                                           optional row index), the
+//                                           scale computed in-kernel
 //   fs_mono_panel  <- mono_panel_spmm       Y = A·X over the mono item list
 //                                           (fold "i8w" and the narrow raw
 //                                           int8 mode; K-major X planes)
@@ -18,14 +23,15 @@
 // Python wrapper can raise on a refused launch.
 //
 // Bounds on this card:
-// * colmax and quant3 are elementwise/reduction passes over X: bound by
-//   device-memory bytes (read 4 B, write 0 or 3 B per element). colmax: one
-//   thread per column stripe, coalesced along X's lanes. quant3 writes its
-//   planes K-major, [3·Npad, K] (the transpose of the reference's lane
-//   layout, which s8 wgmma needs for B): a block quantizes a 128 k x 32
-//   column tile with loads coalesced along the lanes, packs each column's
-//   4 consecutive k of a plane into a word in shared memory and writes each
-//   plane row's 128 bytes as one warp's coalesced words.
+// * colmax and quant3 (and the encode pair) are elementwise/reduction
+//   passes over X: bound by device-memory bytes (read 4 B, write 0 or 3 B
+//   per element). colmax: one thread per column stripe, coalesced along
+//   X's lanes. quant3 writes its planes K-major, [3·Npad, K] (the
+//   transpose of the reference's lane layout, which s8 wgmma needs for B):
+//   a block quantizes a 128 k x 32 column tile with loads coalesced along
+//   the lanes, packs each column's 4 consecutive k of a plane into a word
+//   in shared memory and writes each plane row's 128 bytes as one warp's
+//   coalesced words.
 // * mono_panel is bound by int8 multiply-adds at N=128 (each panel byte
 //   meets 3·128 X lanes) and, at the headline's 6 chunks an item, by the
 //   panel bytes. mono_group (the halo layout behind SpMV and N <= 8: 32
@@ -147,6 +153,139 @@ __global__ void quant3_kernel(const float* __restrict__ x,
         for (int e = threadIdx.x; e < Q3_K && k0 + e < K; e += Q3_C) {
           o[e] = (int8_t)(sq[pl][cl][e >> 2] >> (8 * (e & 3)));
         }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- encode
+// The narrow mono planes and the dense-column planes in two launches,
+// over X read in place: row k of the encoded operand is X's row rows[k]
+// (or k when rows is null) for k < K_x, zero past it; its column c is X's
+// column c for c < N, zero up to Npad; X's element (r, c) sits at
+// x[r·ld + c·cs]. encode_colmax takes each column's max|x| into bits that
+// start at zero; encode_planes computes each column's scale s =
+// (m > 0 ? m : 1)·S_UNIT and 1/s with _rn intrinsics, as the torch ops
+// they replace do (a product by the scalar as f32, an IEEE division),
+// quantizes as quant3_kernel does, and writes the planes K-major as
+// [n_out, K]: row p·Npad + c is plane p of column c, rows from 3·Npad to
+// n_out zero, and the first k block writes s.
+constexpr float EN_S_UNIT = (float)(1.0 / (127.0 * 65536.0));
+// loads a thread issues together in encode_colmax: X is often small (a
+// 5,376-row gather), so blocks are short and their loads all in flight
+constexpr int EN_LOADS = 8;
+
+__device__ __forceinline__ float x_at(const float* __restrict__ x,
+                                      const int32_t* __restrict__ rows,
+                                      int k, int c, long long ld,
+                                      long long cs) {
+  const long long r = rows ? (long long)rows[k] : (long long)k;
+  return x[r * ld + (long long)c * cs];
+}
+
+// Block (32, 8): lane tx reads column blockIdx.x·cw + tx % cw of rows
+// phased by tx / cw, so a warp covers 32 / cw rows of cw columns (cw: the
+// power of two at least N, at most 32); a block covers EN_LOADS·8·32/cw
+// rows.
+__global__ void encode_colmax_kernel(const float* __restrict__ x,
+                                     const int32_t* __restrict__ rows,
+                                     int K_x, int N, long long ld,
+                                     long long cs, int cw,
+                                     unsigned int* __restrict__ mbits) {
+  __shared__ float red[CM_ROWS][CM_COLS];
+  const int rw = CM_COLS / cw;
+  const int lane_col = threadIdx.x % cw;
+  const int col = blockIdx.x * cw + lane_col;
+  const int step = CM_ROWS * rw;
+  const int r0 = blockIdx.y * EN_LOADS * step;
+  const int r1 = min(r0 + EN_LOADS * step, K_x);
+  const int r = r0 + threadIdx.y * rw + threadIdx.x / cw;
+  float v[EN_LOADS];
+#pragma unroll
+  for (int i = 0; i < EN_LOADS; ++i) {
+    v[i] = col < N && r + i * step < r1
+               ? fabsf(x_at(x, rows, r + i * step, col, ld, cs))
+               : 0.0f;
+  }
+  float m = 0.0f;
+#pragma unroll
+  for (int i = 0; i < EN_LOADS; ++i) m = fmaxf(m, v[i]);
+  red[threadIdx.y][threadIdx.x] = m;
+  __syncthreads();
+  if (threadIdx.y == 0 && (int)threadIdx.x < cw && col < N) {
+    for (int t = 0; t < CM_ROWS; ++t) {
+      for (int j = 0; j < rw; ++j) m = fmaxf(m, red[t][j * cw + lane_col]);
+    }
+    atomicMax(mbits + col, __float_as_uint(m));  // m >= 0: see colmax
+  }
+}
+
+// Block (32, 8) over Q3_K k x Q3_C columns, as quant3_kernel.
+__global__ void encode_planes_kernel(const float* __restrict__ x,
+                                     const int32_t* __restrict__ rows,
+                                     const unsigned int* __restrict__ mbits,
+                                     int K_x, int N, long long ld,
+                                     long long cs, int K, int Npad,
+                                     int n_out, int8_t* __restrict__ out,
+                                     float* __restrict__ scale) {
+  __shared__ uint32_t sq[3][Q3_C][Q3_W + 1];
+  const int k0 = blockIdx.x * Q3_K;
+  const int c0 = blockIdx.y * Q3_C;
+  const int c = c0 + threadIdx.x;
+  float si = 0.0f;
+  if (c < Npad) {
+    const float m = c < N ? __uint_as_float(mbits[c]) : 0.0f;
+    const float s = __fmul_rn(m > 0.0f ? m : 1.0f, EN_S_UNIT);
+    si = __fdiv_rn(1.0f, s);
+    if (blockIdx.x == 0 && threadIdx.y == 0) scale[c] = s;
+  }
+  // a thread's 16 loads issued together, then quantized (a zero, past X,
+  // quantizes to zero planes)
+  constexpr int T = Q3_W / Q3_ROWS;
+  float v[T][4];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 4 * (threadIdx.y + t * Q3_ROWS) + j;
+      v[t][j] = k < K_x && c < N ? x_at(x, rows, k, c, ld, cs) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int w = threadIdx.y + t * Q3_ROWS;
+    uint32_t p0 = 0, p1 = 0, p2 = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int q0, q1, q2;
+      quant3_one(v[t][j], si, q0, q1, q2);
+      p0 |= (uint32_t)(uint8_t)q0 << (8 * j);
+      p1 |= (uint32_t)(uint8_t)q1 << (8 * j);
+      p2 |= (uint32_t)(uint8_t)q2 << (8 * j);
+    }
+    sq[0][threadIdx.x][w] = p0;
+    sq[1][threadIdx.x][w] = p1;
+    sq[2][threadIdx.x][w] = p2;
+  }
+  __syncthreads();
+  // warp y writes plane rows of columns y, y+8, ... (then, in the first
+  // column block, the zero rows), 128 bytes a store as in quant3_kernel
+  const int n_rows = min(Q3_C, Npad - c0) * 3;
+  const int n_zero = blockIdx.y == 0 ? n_out - 3 * Npad : 0;
+  for (int e = threadIdx.y; e < n_rows + n_zero; e += Q3_ROWS) {
+    const int cl = e / 3, pl = e - 3 * cl;
+    const size_t row = e < n_rows ? (size_t)pl * Npad + c0 + cl
+                                  : (size_t)3 * Npad + (e - n_rows);
+    int8_t* o = out + row * K + k0;
+    if ((K & 3) == 0) {
+      if (k0 + 4 * (int)threadIdx.x < K) {
+        reinterpret_cast<uint32_t*>(o)[threadIdx.x] =
+            e < n_rows ? sq[pl][cl][threadIdx.x] : 0u;
+      }
+    } else {
+      for (int b = threadIdx.x; b < Q3_K && k0 + b < K; b += Q3_C) {
+        o[b] = e < n_rows ? (int8_t)(sq[pl][cl][b >> 2] >> (8 * (b & 3)))
+                          : (int8_t)0;
       }
     }
   }
@@ -373,6 +512,37 @@ int fs_quant3(const float* x, const float* sinv, int K, int N, int NB,
     dim3 block(Q3_C, Q3_ROWS);
     quant3_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, sinv, K, N,
                                                             NB, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows: int32 [K_x] or null; mbits: [N] zeroed before the call.
+int fs_encode_colmax(const float* x, const int32_t* rows, int K_x, int N,
+                     long long ld, long long cs, unsigned int* mbits,
+                     void* stream) {
+  if (K_x > 0 && N > 0) {
+    int cw = 1;
+    while (cw < N && cw < CM_COLS) cw *= 2;
+    const int span = EN_LOADS * CM_ROWS * (CM_COLS / cw);
+    dim3 grid((N + cw - 1) / cw, (K_x + span - 1) / span);
+    dim3 block(CM_COLS, CM_ROWS);
+    encode_colmax_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        x, rows, K_x, N, ld, cs, cw, mbits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out: int8 [n_out, K] with n_out >= 3·Npad, Npad >= N; scale: f32 [Npad].
+int fs_encode_planes(const float* x, const int32_t* rows,
+                     const unsigned int* mbits, int K_x, int N, long long ld,
+                     long long cs, int K, int Npad, int n_out, int8_t* out,
+                     float* scale, void* stream) {
+  if (Npad < N || n_out < 3 * Npad) return -1;
+  if (Npad > 0) {
+    dim3 grid(K > 0 ? (K + Q3_K - 1) / Q3_K : 1, (Npad + Q3_C - 1) / Q3_C);
+    dim3 block(Q3_C, Q3_ROWS);
+    encode_planes_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        x, rows, mbits, K_x, N, ld, cs, K, Npad, n_out, out, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -113,17 +113,18 @@ def _ell_scan(A, X):
     return Y
 
 
-def densecols_planes(Xs):
-    """f32 ``(D, N)`` selected X rows -> the densecols kernel's operands:
-    the three radix-256 int8 planes as k-contiguous rows, int8 ``(3N, D)``
-    (row ``p·N + n`` is plane ``p`` of column ``n``), and the f32 ``(1, N)``
-    scale. The encoding is `bsr_ops._quant3_carry` (torch ops, as the
-    reference leaves it to XLA); the one concatenation writes the rows."""
-    from .bsr_ops import _quant3_carry
+def densecols_planes(X, col_ids):
+    """f32 X and the int32 ``(D,)`` ids of its selected rows -> the
+    densecols kernel's operands: the three radix-256 int8 planes of
+    ``X[col_ids]`` as k-contiguous rows, int8 ``(3N, D)``
+    (row ``p·N + n`` is plane ``p`` of column ``n``), and the f32 ``(1,
+    N)`` scale. One `quant3_encode`: on the card a fill and two launches
+    that gather the rows in place; elsewhere the torch ops the reference
+    leaves to XLA (the gather, ``_quant3_carry``, the concatenation)."""
+    from .kernels.bsr_spmm import quant3_encode
 
-    q0, q1, q2, s = _quant3_carry(Xs)
-    tracing.count(4)
-    return torch.cat([q.t().to(torch.int8) for q in (q0, q1, q2)]), s
+    return quant3_encode(X, col_ids, k_rows=col_ids.numel(),
+                         n_pad=X.shape[1], n_out=3 * X.shape[1])
 
 
 def dense_cols_spmm(dc, X):
@@ -143,8 +144,7 @@ def dense_cols_spmm(dc, X):
     from .kernels.bsr_spmm import densecols_spmm
 
     with tracing.span("densecols"):
-        tracing.count(2)
-        q3t, s = densecols_planes(X[dc.col_ids.long()])
+        q3t, s = densecols_planes(X, dc.col_ids)
         return densecols_spmm(dc.block, q3t, s)[: dc.shape[0]]
 
 

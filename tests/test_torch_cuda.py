@@ -5,9 +5,9 @@ only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors (colmax, quant3, densecols, mono_panel, mono_group, every ELL
-gather body, the one-launch-per-bucket gather and both double-word gathers
-bit-exact; the s8 tensor-core engine and the old bodies each on the shapes
+tensors (colmax, quant3, the X encoder, densecols, mono_panel, mono_group,
+every ELL gather body, the one-launch-per-bucket gather and both
+double-word gathers bit-exact; the s8 tensor-core engine and the old bodies each on the shapes
 they serve, told apart by kernel name; the tile-layout kernels at
 max|d|/max|ref| <= 1e-6, the tile kernels
 at tile_k up to 2048 and on strips of up to 70 tiles, each tile mode on
@@ -117,7 +117,8 @@ def test_kernels_match_plain_on_card(card_op):
     torch.cuda.synchronize()
     assert torch.equal(yk, yp)
     assert tk.launches == {"colmax": 1, "quant3_planes": 1, "mono_panel": 3,
-                           "mono_group": 1, "densecols": 0}
+                           "mono_group": 1, "densecols": 0,
+                           "encode_colmax": 3, "encode_planes": 3}
 
 
 @pytest.mark.parametrize("K", [1001, 1002, 1024])
@@ -131,6 +132,91 @@ def test_quant3_kmajor_any_k_on_card(card, K):
     got = tk.quant3_planes(X, sinv, n_block=128)
     assert got.shape == (3 * 384, K)
     assert torch.equal(got, tk.quant3_planes_plain(X, sinv, n_block=128))
+
+
+def _encode_operand(case, K, N, gen):
+    """``(x, rows)`` for `quant3_encode` at ``K`` encoded rows and ``N``
+    columns: plain normals with column 0 all zero (``zero_column``), with
+    -0.0 throughout one column and scattered (``neg_zero``), half-integers
+    under a column max of 127·2^16, so s = 1 and every other entry is a
+    rounding tie (``ties``), fewer rows than K (``short``), more
+    (``long``), a view with a leading stride past N (``strided``), a
+    transposed view (``transposed``) and a row index with repeats, out of
+    order (``rows``)."""
+    x = torch.randn((K, N), device="cuda", generator=gen)
+    rows = None
+    if case == "zero_column":
+        x[:, 0] = 0.0
+    elif case == "neg_zero":
+        x[:, -1] = -0.0
+        x[::5] = -0.0
+    elif case == "ties":
+        x = (torch.randint(-2000, 2000, (K, N), device="cuda",
+                           generator=gen) + 0.5).float()
+        x[K // 3] = 127.0 * 65536.0
+    elif case == "short":
+        x = x[: K // 2 + 3]
+    elif case == "long":
+        x = torch.randn((K + 77, N), device="cuda", generator=gen)
+    elif case == "strided":
+        x = torch.randn((K, N + 9), device="cuda", generator=gen)[:, 3:N + 3]
+    elif case == "transposed":
+        x = torch.randn((N, K), device="cuda", generator=gen).t()
+    elif case == "rows":
+        src = torch.randn((3 * K + 5, N), device="cuda", generator=gen)
+        rows = torch.randint(0, src.shape[0], (K,), device="cuda",
+                             generator=gen).to(torch.int32)
+        rows[-7:] = 0  # padding ids, as a dense-column block's
+        x = src
+    return x, rows
+
+
+ENCODE_CASES = ("zero_column", "neg_zero", "ties", "short", "long",
+                "strided", "transposed", "rows")
+
+
+@pytest.mark.parametrize("K", [1001, 1024])
+@pytest.mark.parametrize("N", [1, 5, 32, 40, 256])
+@pytest.mark.parametrize("case", ENCODE_CASES)
+def test_quant3_encode_matches_plain(card, case, N, K):
+    """`quant3_encode` (encode_colmax + encode_planes) bit-equal to its
+    plain torch ops, planes and scale, in the narrow layout (n_pad = nq,
+    zero rows to nb; N <= 40) and the dense-column one (n_pad = N, n_out =
+    3N), over the edge cases of `_encode_operand`, at a K the word stores
+    take and one they do not."""
+    gen = torch.Generator("cuda").manual_seed(K + N)
+    x, rows = _encode_operand(case, K, N, gen)
+    layouts = [(N, 3 * N)]
+    nq = bsr_ops._narrow_nq(N)
+    if nq:
+        layouts.append((nq, bsr_ops._round_up(3 * nq, 32)))
+    for n_pad, n_out in layouts:
+        kw = dict(k_rows=K, n_pad=n_pad, n_out=n_out)
+        got, s = tk.quant3_encode(x, rows, **kw)
+        want, s_want = tk.quant3_encode_plain(x, rows, **kw)
+        assert got.shape == (n_out, K) and s.shape == (1, n_pad)
+        assert torch.equal(got, want), (case, n_pad)
+        assert same_bits(s, s_want), (case, n_pad)
+    if case == "zero_column":
+        assert s[0, 0].item() == np.float32(1.0 / (127.0 * 65536.0))
+    if case == "ties":
+        assert s[0, 0].item() == 1.0
+
+
+def test_quant3_encode_counts_its_ops(card):
+    """On the card an encode is three device ops (the fill and the two
+    launches) and one ``encode_kernel``, at both entry points."""
+    from fastsparse_torch import tracing
+    from fastsparse_torch.ops.spmm import densecols_planes
+
+    X = torch.randn((1000, 32), device="cuda")
+    ids = torch.arange(0, 1000, 3, dtype=torch.int32, device="cuda")
+    tk.reset_launches()
+    with tracing.recording() as rec:
+        bsr_ops._quant3_narrow(X[:, :9], 1024, 16, 64)
+        densecols_planes(X, ids)
+    assert rec.counts == {"ops": 6, "encode_kernel": 2}
+    assert tk.launches["encode_colmax"] == tk.launches["encode_planes"] == 2
 
 
 @pytest.mark.parametrize("N", [1, 16, 128, 130])

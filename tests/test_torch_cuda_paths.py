@@ -213,6 +213,61 @@ def test_mono_kernels_on_headline_layout(headline):
           tk.mono_group_spmm_plain(*gargs, **gkw))
 
 
+def _encode_same(name, got, x, rows, k_rows, n_pad, n_out):
+    """An entry point's planes and scale equal `quant3_encode_plain`'s
+    (today's torch ops) on the same card tensors, bit for bit."""
+    planes, s = got
+    want, s_want = tk.quant3_encode_plain(x, rows, k_rows=k_rows,
+                                          n_pad=n_pad, n_out=n_out)
+    _same(name, planes, want)
+    assert same_bits(s, s_want), name
+
+
+@pytest.mark.parametrize("N", [1, 8, 16, 32, 40])
+def test_narrow_encode_on_headline(headline, N):
+    """`_quant3_narrow` on the card at the headline chain's K: the forward
+    tiling's on X, the transpose's on the forward product's folded output
+    (the chain's second operand, a view ``(rows, nq)[:, :N]``), and at N=1
+    the halo layout's K; each bit-equal to its torch ops."""
+    A, At = headline.op.fwd, headline.op.bwd
+    X = _cuda(np.random.default_rng(N).standard_normal(
+        (headline.mb.shape[1], N)).astype(np.float32))
+    nq = bsr_ops._narrow_nq(N)
+    nb = bsr_ops._round_up(3 * nq, 32)
+
+    def k_pad(T):
+        b = T.buckets[0]
+        return b.n_windows * b.win_slabs * T.tile_k
+
+    K1, K2 = k_pad(A), k_pad(At)
+    _encode_same(f"fwd N={N}", bsr_ops._quant3_narrow(X, K1, nq, nb), X,
+                 None, K1, nq, nb)
+    Y1, nq1, _, s1 = bsr_ops._mono_raw(A, X, "highest")
+    tmp = bsr_ops._fold_narrow_q(Y1, nq1, s1)[:, :N]
+    assert N == nq or not tmp.is_contiguous()
+    _encode_same(f"bwd N={N}", bsr_ops._quant3_narrow(tmp, K2, nq, nb), tmp,
+                 None, K2, nq, nb)
+    if N == 1:
+        h = A.narrow
+        K_h = ((h.n_windows - 1) * h.stride + h.win_slabs) * A.tile_k
+        _encode_same("halo N=1", bsr_ops._quant3_narrow(X, K_h, 8, 32), X,
+                     None, K_h, 8, 32)
+
+
+def test_narrow_chain_runs_the_encode_kernels(headline):
+    """A captured narrow `mono_chain` (N=32, the CG solve's product) holds
+    the two encode kernels for each of its products and none of the old
+    prep's torch ops: no concatenation and no column reduction."""
+    X = _cuda(np.random.default_rng(5).standard_normal(
+        (headline.mb.shape[1], 32)).astype(np.float32))
+    names = kernel_names(lambda: bsr_ops.mono_chain(
+        headline.op.fwd, headline.op.bwd, X)).split()
+    assert sum("encode_colmax_kernel" in n for n in names) == 2, names
+    assert sum("encode_planes_kernel" in n for n in names) == 2, names
+    assert not any("CatArrayBatchedCopy" in n or "reduce_kernel" in n
+                   for n in names), names
+
+
 def test_mono_paths_vs_scipy(headline):
     """matmat N=128 and matvec on the headline, normal_matmat(X, reg=0.1)
     on the entry matrix at N=128 and cg_normal(reg=50, maxiter=20) at
@@ -477,9 +532,50 @@ def test_densecols_on_ecfp_block(ecfp, N):
     dc = ecfp.op.fwd.dense_cols
     X = _cuda(np.random.default_rng(N).standard_normal(
         (dc.shape[1], N)).astype(np.float32))
-    args = (dc.block, *densecols_planes(X[dc.col_ids.long()]))
+    args = (dc.block, *densecols_planes(X, dc.col_ids))
     _same(f"densecols[N={N}]", tk.densecols_spmm(*args),
           tk.densecols_spmm_plain(*args))
+
+
+@pytest.mark.parametrize("path,N", [
+    ("ecfp.fwd", 1), ("ecfp.fwd", 32), ("ecfp.fwd", 128), ("ecfp.fwd", 256),
+    ("ecfp.bwd", 1), ("ecfp.bwd", 32), ("ecfp.bwd", 128), ("ecfp.bwd", 256),
+    ("rmat18.fwd", 128)])
+def test_densecols_encode_on_main_paths(request, path, N):
+    """`densecols_planes` on the card with the main paths' column ids (the
+    ECFP tilings' dense-column blocks, 5,376 and 13,440 ids; R-MAT's 1,024
+    hub ids): the row gather inside the encode, bit-equal to its torch
+    ops."""
+    fixture, tiling = path.split(".")
+    op = request.getfixturevalue(fixture).op
+    dc = getattr(op, tiling).dense_cols
+    X = _cuda(np.random.default_rng(N).standard_normal(
+        (dc.shape[1], N)).astype(np.float32))
+    from fastsparse_torch.ops.spmm import densecols_planes
+
+    D = dc.col_ids.numel()
+    _encode_same(f"{path} N={N}", densecols_planes(X, dc.col_ids), X,
+                 dc.col_ids, D, N, 3 * N)
+
+
+def test_densecols_call_runs_the_encode_kernels(ecfp):
+    """A captured `dense_cols_spmm` (the ECFP forward block at N=32) is
+    the encoder's fill and two launches and the densecols kernel: no
+    index cast, gather, reduction, cast or concatenation of the old
+    prep."""
+    from fastsparse_torch.ops.spmm import dense_cols_spmm
+
+    dc = ecfp.op.fwd.dense_cols
+    X = _cuda(np.random.default_rng(3).standard_normal(
+        (dc.shape[1], 32)).astype(np.float32))
+    names = kernel_names(lambda: dense_cols_spmm(dc, X)).split()
+    mine = ("encode_colmax_kernel", "encode_planes_kernel",
+            "s8_engine_kernel")
+    for k in mine:
+        assert sum(k in n for n in names) == 1, (k, names)
+    others = [n for n in names if not any(k in n for k in mine)]
+    assert len(others) <= 1 and all("FillFunctor" in n for n in others), (
+        others)
 
 
 def _cg_residuals(m64, rhs, sol, reg):

@@ -188,7 +188,8 @@ def test_densecols_planes_layout():
     Xs = g.standard_normal((8, 4)).astype(np.float32)
     q0, q1, q2, s_ref = jk_ops._quant3_carry(jnp.asarray(Xs))
     q3_ref = np.concatenate([np.asarray(q, np.int8) for q in (q0, q1, q2)], 1)
-    q3t, s = tspmm.densecols_planes(torch.from_numpy(Xs))
+    q3t, s = tspmm.densecols_planes(torch.from_numpy(Xs),
+                                    torch.arange(8, dtype=torch.int32))
     assert q3t.dtype == torch.int8 and q3t.is_contiguous()
     assert np.array_equal(q3t.numpy(), q3_ref.T)
     assert np.array_equal(s.numpy(), np.asarray(s_ref))
@@ -202,6 +203,26 @@ def test_densecols_planes_layout():
                 ref) <= TOL
     with pytest.raises(NotImplementedError, match="f32"):
         tspmm.dense_cols_spmm(dc, torch.from_numpy(X.astype(np.float64)))
+
+
+@pytest.mark.parametrize("N", [1, 4, 32, 128])
+def test_densecols_planes_gather(N):
+    """`densecols_planes(X, col_ids)` gathers the rows inside the encode:
+    its planes and scale equal the reference's ``_quant3_carry`` of
+    ``X[col_ids]`` (the gather `dense_cols_spmm` did before the encode),
+    with ids out of order, repeated and zero-padded to a multiple of
+    128, as `build_hybrid` pads them."""
+    g = np.random.default_rng(N + 62)
+    X = g.standard_normal((300, N)).astype(np.float32)
+    X[7] = 0.0
+    ids = np.zeros(256, np.int32)
+    ids[:200] = g.integers(0, 300, 200)
+    q0, q1, q2, s_ref = jk_ops._quant3_carry(jnp.asarray(X[ids]))
+    q3_ref = np.concatenate([np.asarray(q, np.int8) for q in (q0, q1, q2)], 1)
+    q3t, s = tspmm.densecols_planes(torch.from_numpy(X), torch.from_numpy(ids))
+    assert q3t.shape == (3 * N, 256) and q3t.is_contiguous()
+    assert np.array_equal(q3t.numpy(), q3_ref.T)
+    assert np.array_equal(s.numpy(), np.asarray(s_ref))
 
 
 @pytest.fixture(scope="module")

@@ -99,6 +99,39 @@ def test_quant3_prep_bit_exact():
         assert np.array_equal(np.asarray(ref_s), got_s.numpy()), N
 
 
+@pytest.mark.parametrize("N,K,layout", [
+    (1, 300, "narrow"), (5, 256, "narrow"), (32, 301, "narrow"),
+    (40, 256, "narrow"), (1, 300, "densecols"), (32, 301, "densecols"),
+    (130, 256, "densecols")])
+def test_quant3_encode_rows_bit_exact(N, K, layout):
+    """`quant3_encode` with a row index (its plain version, the CPU path
+    of both entry points) against the reference's encoding of the
+    gathered rows: ``_quant3_narrow`` in the narrow layout (zero rows past
+    the index) and ``_quant3_carry`` in the dense-column one, transposed;
+    the index repeats rows, runs out of order and ends in zero ids, as a
+    dense-column block's does."""
+    X = _adversarial_x(K=400, N=256, seed=K + N)[:, :N]
+    rows = np.random.default_rng(N).integers(0, X.shape[0], K)
+    rows[-5:] = 0
+    Xg = X[rows]
+    ids = torch.from_numpy(rows.astype(np.int32))
+    if layout == "narrow":
+        nq = tops._narrow_nq(N)
+        nb = tops._round_up(3 * nq, 32)
+        ref_p, ref_s = jops._quant3_narrow(jnp.asarray(Xg), K, nq, nb)
+        ref_p = np.asarray(ref_p).T
+        kw = dict(k_rows=K, n_pad=nq, n_out=nb)
+    else:
+        q0, q1, q2, ref_s = jops._quant3_carry(jnp.asarray(Xg))
+        ref_p = np.concatenate([np.asarray(q, np.int8) for q in (q0, q1, q2)],
+                               1).T
+        kw = dict(k_rows=K, n_pad=N, n_out=3 * N)
+    got_p, got_s = tk.quant3_encode(torch.from_numpy(X), ids, **kw)
+    assert got_p.dtype == torch.int8 and got_p.is_contiguous()
+    assert np.array_equal(ref_p, got_p.numpy())
+    assert np.array_equal(np.asarray(ref_s), got_s.numpy())
+
+
 def _banded(seed, nrow, ncol, bw, density=0.3):
     rng = np.random.default_rng(seed)
     r = rng.integers(0, nrow, int(nrow * bw * density))

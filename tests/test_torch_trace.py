@@ -11,7 +11,8 @@ the kernels' plain versions).
   left out), over the mono, tile, panel, ELL, hybrid, dense-column,
   permutation-boundary and CG paths, and over the R-MAT graph's layout,
   which holds all of them but mono; an ``assemble`` span's equals what
-  its plan's widths imply.
+  its plan's widths imply; ``encode_kernel`` (the X encoder's launches)
+  reads nothing on the CPU.
 * ``cg.sync`` spans, and the ``syncs`` counter, count the solve's
   read-backs: one an iteration, and one more when the tolerance stops it.
 """
@@ -276,6 +277,8 @@ def test_span_ops_equal_dispatched_ops(monkeypatch, small_dense_cols, case):
         assert s.counts.get("ops", 0) == d.by_span[s], (
             s.name, s.attrs, s.parent and s.parent.name)
     assert d.by_span[None] == 0
+    # the X encoder counts its kernel on the card only
+    assert "encode_kernel" not in rec.counts
     if case == "hybrid_densecols":
         assert {"hybrid", "ell_ops", "assemble", "densecols"} <= names
     if case.endswith("boundary"):
