@@ -31,8 +31,10 @@ Tracing: a replay is a span ``replay`` (attrs ``op``, ``N``) inside the
 product's span, with three ``ops`` (the copy-in, the graph launch, the
 clone) and one ``replays``; a capture counts one ``captures`` and its own
 three ops in the product's span, a capture that raised one
-``graph_refused``. As the tracing, the cache expects an operator's calls
-from one thread.
+``graph_refused``. A graph keeps what its capture counted of `REPLAYED`
+(traced or not), and each replay counts that again in its span: the
+work it runs, where ``ops`` counts only the host's enqueues. As the
+tracing, the cache expects an operator's calls from one thread.
 """
 from __future__ import annotations
 
@@ -40,16 +42,21 @@ import torch
 
 from . import tracing
 
-__all__ = ["ProductGraphs"]
+__all__ = ["ProductGraphs", "REPLAYED"]
+
+# counters of the device work a product runs, counted again on a replay
+REPLAYED = ("ell_launch",)
 
 
 class _Graph:
-    """A captured product: the graph, its static input and output."""
+    """A captured product: the graph, its static input and output, and
+    ``counts``, its capture's counts of `REPLAYED`."""
 
-    __slots__ = ("graph", "x", "y")
+    __slots__ = ("graph", "x", "y", "counts")
 
     def __init__(self, graph, x, y):
         self.graph, self.x, self.y = graph, x, y
+        self.counts = {}
 
     def __call__(self, X):
         self.x.copy_(X)
@@ -124,17 +131,21 @@ class ProductGraphs:
                               N=X.shape[1] if X.ndim > 1 else 1):
                 tracing.count(3)
                 tracing.count(1, "replays")
+                for k, n in g.counts.items():
+                    tracing.count(n, k)
                 return g(X)
         if key in self.refused or key not in self.seen:
             Y = body(X)
             self.seen.add(key)
             return Y
         try:
-            g = self.capture(X, body)
+            with tracing.counting() as made:
+                g = self.capture(X, body)
         except RuntimeError:  # torch's CUDA errors among them
             self.refused.add(key)
             tracing.count(1, "graph_refused")
             return body(X)
+        g.counts = {k: made[k] for k in REPLAYED if made.get(k)}
         self.graphs[key] = g
         tracing.count(3)
         tracing.count(1, "captures")

@@ -155,9 +155,10 @@ def _slice_chunk(b, ell, s0, s1, n_pad):
 
 def _seg_parts(ell: EllMatrix, Xseg, rids, parts):
     """Append one segment's per-part products to (rids, parts), one kernel
-    launch per layout item, in layout order."""
+    launch per layout item, in layout order (each counted ``ell_launch``)."""
     unit = ell.unit_vals
     for b, mode, s0, s1, n_pad in _seg_layout(ell):
+        tracing.count(1, "ell_launch")
         if mode == "sweep":
             flats, rid_l, meta = [], [], []
             for bb, t0, t1, np_ in b:

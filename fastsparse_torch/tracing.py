@@ -21,7 +21,12 @@ program), and the counts made while it was the innermost open span:
 
 * ``ops``: device operations enqueued, each kernel launch of
   ``ops/kernels`` and each torch op the span's own code issues;
-* ``syncs``: host waits on the device inside the program.
+* ``syncs``: host waits on the device inside the program;
+* ``ell_launch``: gather-engine launches, one for each part that
+  `ops.ell_ops.ell_spmm` dispatches (``ell_bucket``, ``ell_sweep``,
+  ``ell_bucket_smem``, or their plain versions on the CPU). A captured
+  product keeps its total, and each replay counts it again
+  (`graphs.ProductGraphs`).
 
 A span's times are those of the host enqueueing the work, not of the
 device running it: tracing adds no synchronise, no read-back and no device
@@ -35,7 +40,7 @@ from __future__ import annotations
 import contextlib
 import time
 
-__all__ = ["Recording", "Span", "count", "recording", "span"]
+__all__ = ["Recording", "Span", "count", "counting", "recording", "span"]
 
 _active = None  # the open Recording, or None
 
@@ -153,3 +158,21 @@ def recording():
         for s in rec.spans:
             if s.parent is not None and s.t1 is not None:
                 s.parent.child_ns += s.t1 - s.t0
+
+
+@contextlib.contextmanager
+def counting():
+    """Yields a dict that holds, once the block ends, the counts made
+    inside it, whether or not a recording is open: the open recording's
+    counts before and after, else those of a recording of its own."""
+    made = {}
+    if _active is None:
+        with recording() as rec:
+            yield made
+        made.update(rec.counts)
+        return
+    before = _active.counts
+    yield made
+    for k, v in _active.counts.items():
+        if v != before.get(k, 0):
+            made[k] = v - before.get(k, 0)

@@ -5,7 +5,8 @@ once per module, never at import: the banded 50,000² headline and the
 65,536² 0/1 power-law ("config B") through the ELL gather, also under
 ``USE_SMEM_PATH``, the ECFP Macau matrix through ``operator(m)``,
 ``reorder="auto"`` and ``reorder="degree"``, the R-MAT graph at scale 18,
-and BASELINE config 1 and config 2 in fp64. On them: each kernel against
+BASELINE config 2 at the benchmark's 250,000² (``powerlaw250k``), and
+BASELINE config 1 and config 2 in fp64. On them: each kernel against
 its plain version on the layouts the paths build, the tile layouts
 against the reference's, each path's products through the public API
 against scipy in float64 with the kernels it must launch, and the plan
@@ -30,6 +31,7 @@ from fastsparse_torch.ops.kernels import ell_dd as dk
 from fastsparse_torch.ops.kernels import ell_spmm as ek
 
 from card_helpers import kernel_names, neg_zero_parts, same_bits, tiling_plans
+import rmat_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -145,6 +147,15 @@ def rmat18():
     m = rmat(18, 16, seed=3)
     return SimpleNamespace(m=m, op=ft.operator(m, reorder="auto",
                                                transpose=False))
+
+
+@pytest.fixture(scope="module")
+def powerlaw250k():
+    """The benchmark's ``powerlaw250k`` at its source seed, as its cell
+    builds it (``operator(m)``, no dual tiling)."""
+    _card()
+    m = powerlaw(250_000, 250_000, 12_500_000, seed=0, alpha=1.6)
+    return SimpleNamespace(m=m, op=ft.operator(m, transpose=False))
 
 
 @pytest.fixture(scope="module")
@@ -808,6 +819,70 @@ def test_rmat_path_vs_scipy(rmat18):
     _held("rmat18.matmat", Y, m.astype(np.float64) @ Xn.astype(np.float64),
           REL)
     assert ak.launches["plan_sum"] == len(plans)
+
+
+# ------------------------------------------------- BASELINE config 2, 250k²
+def _ell_parts(A):
+    return sum(_layout_launches(A).values())
+
+
+def test_powerlaw250k_matvec_vs_reference(powerlaw250k):
+    """matvec of the 250,000² power-law instance: a SegmentedEll of 11
+    segments and one cross-segment plan; within 1e-6 of the benchmark's
+    float64 reference (`benchmark/lib/reference.py`) on the card, one
+    gather launch per layout part, each counted ``ell_launch``, and one
+    plan kernel launch."""
+    from fastsparse_torch import tracing
+
+    m, op = powerlaw250k.m, powerlaw250k.op
+    A = op.fwd
+    assert m.nnz == 12_497_053
+    assert type(A).__name__ == "SegmentedEll" and len(A.segments) == 11
+    assert A.plan is not None and op.col_perm is None
+    x = torch.randn(m.shape[1], generator=torch.Generator().manual_seed(
+        2**31 + 3)).cuda()
+    for c in (ek, ak):
+        c.reset_launches()
+    with tracing.recording() as rec:
+        y = _eager(op).matvec(x)
+    torch.cuda.synchronize()
+    ref = rmat_layout.bench_lib("reference")
+    want = ref.Reference(m, "cuda").matvec(x)
+    assert y.dtype == torch.float32 and y.shape == want.shape
+    rel = ref.rel_gap(y, want)
+    assert rel < REL, rel
+    assert {k: v for k, v in ek.launches.items() if v} == _layout_launches(A)
+    assert rec.counts["ell_launch"] == _ell_parts(A)
+    assert ak.launches["plan_sum"] == 1
+
+
+def test_powerlaw250k_replay_counts_and_bits(powerlaw250k):
+    """The cell's matvec called three times on a fresh cache: eager,
+    captured, replayed, each bit-equal to the eager one; the replay counts
+    the capture's ``ell_launch`` (the layout's parts) and 3 ``ops``."""
+    from fastsparse_torch import tracing
+
+    m, op = powerlaw250k.m, _eager(powerlaw250k.op)
+    x = torch.randn(m.shape[1], generator=torch.Generator().manual_seed(
+        2**31 + 4)).cuda()
+    recs, outs = [], []
+    for _ in range(3):
+        with tracing.recording() as rec:
+            outs.append(op.matvec(x))
+        torch.cuda.synchronize()
+        recs.append(rec)
+    eager, captured, replayed = recs
+    parts = _ell_parts(op.fwd)
+    assert captured.counts["captures"] == 1
+    assert replayed.counts["replays"] == 1
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0])
+    assert (eager.counts["ell_launch"] == captured.counts["ell_launch"]
+            == replayed.counts["ell_launch"] == parts)
+    (g,) = op.graphs.graphs.values()
+    assert g.counts == {"ell_launch": parts}
+    (rep,) = [s for s in replayed.spans if s.name == "replay"]
+    assert rep.counts == {"ops": 3, "replays": 1, "ell_launch": parts}
 
 
 # ---------------------------------------------------------------- plans

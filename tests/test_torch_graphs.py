@@ -217,14 +217,20 @@ def test_only_the_outermost_product_is_captured(small_dense_cols, engaged,
     n_eager = eager.counts["ops"]
     assert captured.counts["captures"] == 1
     assert captured.counts["ops"] == n_eager + 3  # copy-in, launch, clone
+    # the gather launches the product runs, counted again by the replay
+    launched = {k: eager.counts[k] for k in graphs.REPLAYED
+                if k in eager.counts}
+    assert (case == "hybrid") == bool(launched)
+    assert {k: captured.counts[k] for k in launched} == launched
     # a replay: the product's span holds one replay span and nothing else
     prod, rep = replayed.spans
     assert prod.name == "product" and prod.attrs == {"op": "normal_matmat",
                                                      "N": 4}
     assert rep.name == "replay" and rep.parent is prod
     assert rep.attrs == {"op": "normal_matmat", "N": 4}
-    assert rep.counts == {"ops": 3, "replays": 1} and prod.counts == {}
-    assert replayed.counts == {"ops": 3, "replays": 1}
+    assert rep.counts == {"ops": 3, "replays": 1, **launched}
+    assert prod.counts == {}
+    assert replayed.counts == {"ops": 3, "replays": 1, **launched}
 
 
 def test_a_capture_that_raises_marks_the_key_eager(small_dense_cols,
@@ -246,3 +252,27 @@ def test_a_capture_that_raises_marks_the_key_eager(small_dense_cols,
     assert rec.counts["graph_refused"] == 1
     assert "replays" not in rec.counts and "captures" not in rec.counts
     assert len(op.graphs.refused) == 1 and not op.graphs.graphs
+
+
+def test_a_replay_counts_the_gather_launches_of_its_capture(
+        small_dense_cols, engaged):
+    """A capture made with tracing off keeps what its product counted of
+    `graphs.REPLAYED` (the gather launches), and each traced replay counts
+    it again inside its ``replay`` span, with ``ops`` still 3."""
+    m, op = _op("hybrid")
+    X = _randn(m.shape[1], 8)
+    with tracing.recording() as eager:
+        op.matmat(X)
+    launched = eager.counts["ell_launch"]
+    assert launched > 0
+    op.matmat(X)  # the capture, untraced
+    assert len(engaged) == 1
+    (g,) = op.graphs.graphs.values()
+    assert g.counts == {"ell_launch": launched}
+    for _ in range(2):
+        with tracing.recording() as rec:
+            op.matmat(X)
+        prod, rep = rec.spans
+        assert rep.name == "replay" and rep.parent is prod
+        assert rep.counts == {"ops": 3, "replays": 1,
+                              "ell_launch": launched}
