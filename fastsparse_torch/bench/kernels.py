@@ -1,7 +1,7 @@
 """Every hand-written kernel, and the products it serves, timed on one card.
 
     python3 fastsparse_torch/bench/kernels.py [--root DIR]
-        [--groups mono,tiles,densecols,encode,plan,spmv,smem,dd,others]
+        [--groups mono,tiles,densecols,encode,plan,spmv,table,smem,dd,others]
 
 Each group times its kernels at the main path's shapes, each beside its
 bound and, where one PyTorch call computes the same function on the same
@@ -28,6 +28,10 @@ rows, beside that call (cuSPARSE, ``vector_norm``, ``torch._int_mm``):
 - ``spmv``: ell_bucket (#9) on config A's largest bucket, config B's
   largest packed one and the chunked widths, ell_sweep (#10) on config
   B's first sweep item; the SpMV products of configs A, 2, B and ECFP;
+- ``table``: the narrow products' one launch (`ell_table_spmm`) on the
+  250,000² power-law layout of the benchmark's ``powerlaw250k`` at N=1,
+  the same layout's per-part ell_bucket launches (#9) as one set, and
+  cuSPARSE's CSR matvec on the same matrix; the matvec product;
 - ``smem``: ell_bucket_smem (#11) on config A's whole buckets under
   ``ell_ops.USE_SMEM_PATH`` at N = 1, 8, 128; config A SpMV under it;
 - ``dd``: #13 on every bucket of config 2 in fp64, #12 on every bucket of
@@ -67,8 +71,8 @@ import torch
 ELL_KEYS = ("ell_narrow_kernel", "ell_bucket_kernel")
 TILE_KEYS = ("spmv_kernel", "tile_mma_kernel", "_scalar_kernel")
 ALL = ("",)  # every kernel a call launches (a library call, a product)
-GROUPS = ("mono", "tiles", "densecols", "encode", "plan", "spmv", "smem",
-          "dd", "others")
+GROUPS = ("mono", "tiles", "densecols", "encode", "plan", "spmv", "table",
+          "smem", "dd", "others")
 
 
 def main_paths(ft):
@@ -87,6 +91,7 @@ def main_paths(ft):
     recipes = {
         "A": lambda: powerlaw(20_000, 20_000, 1_000_000, seed=0,
                               dtype=np.float32),
+        "P": lambda: powerlaw(250_000, 250_000, 12_500_000, seed=0),
         "B": lambda: powerlaw(65_536, 65_536, 4_000_000, seed=0, binary=True),
         "E": lambda: ecfp_like(50_000, 20_000, 64, 400, seed=2),
         "2d": lambda: powerlaw(20_000, 20_000, 1_000_000, seed=0,
@@ -97,6 +102,7 @@ def main_paths(ft):
         "headline": lambda: banded01(50_000, 0.39),
         "entry": lambda: banded01(12_288, 0.35),
         "opA": lambda: ft.operator(get("A")),
+        "opP": lambda: ft.operator(get("P"), transpose=False),
         "opB": lambda: ft.operator(get("B"), format="ell", transpose=False),
         "opBd": lambda: ft.operator(get("B"), reorder="degree",
                                     transpose=False),
@@ -144,7 +150,8 @@ def setup(ft, groups=GROUPS, get=None):
     items = {"mono": _mono_items, "tiles": _tile_items,
              "densecols": _densecols_items, "encode": _encode_items,
              "plan": _plan_items,
-             "spmv": _spmv_items, "smem": _smem_items, "dd": _dd_items,
+             "spmv": _spmv_items, "table": _table_items,
+             "smem": _smem_items, "dd": _dd_items,
              "others": _other_items}
     for name in groups:
         items[name](ft, g, get, kernels, products)
@@ -579,6 +586,50 @@ def _spmv_items(ft, g, get, kernels, products):
                         ("config B reorder='degree' matvec", get("opBd"),
                          mB)):
         products[name] = _product(g, m, op.matvec, 1, vector=True)
+
+
+def _table_items(ft, g, get, kernels, products):
+    """`ell_table_spmm` on the ``powerlaw250k`` layout at N=1 (its tile
+    table as the matvec builds it), the layout's per-part ell_bucket
+    launches as one set, both against the bytes of the product: each slot's
+    column and value, each slot-stream row written and X read once;
+    cuSPARSE's CSR matvec on the same matrix; the matvec."""
+    from fastsparse_torch.bench.timing import bound
+    from fastsparse_torch.ops import ell_ops
+    from fastsparse_torch.ops.kernels import ell_spmm as EK
+
+    m, op = get("P"), get("opP")
+    A = op.fwd
+    X = torch.from_numpy(g.standard_normal((m.shape[1], 1)).astype(
+        np.float32)).cuda()
+    nw = ell_ops._narrow(A, 1, X.device)
+    t = nw.table
+    xt = torch.zeros((t.x_rows, 1), dtype=torch.float32, device="cuda")
+    for off, ncol, x0 in nw.panels:
+        xt[x0 : x0 + ncol] = X[off : off + ncol]
+    slots = sum(p.n_rows * p.K for p in t.parts)
+    work = bound(slots * 8 + t.n_slots * 4 + m.shape[1] * 4)
+    table = f"ell_table powerlaw250k {len(t.tiles)} tiles N=1"
+    kernels[table] = (lambda: EK.ell_table_spmm(t, xt), ("ell_table",), 1,
+                      dict(work))
+    chunks = []
+    for off, seg in ell_ops._segments(A):
+        xs = torch.zeros((ell_ops._round_up(seg.shape[1] + 1, 8), 1),
+                         dtype=torch.float32, device="cuda")
+        xs[: seg.shape[1]] = X[off : off + seg.shape[1]]
+        for b, mode, s0, s1, n_pad in ell_ops._seg_layout(seg):
+            _, cc, vv, _ = ell_ops._slice_chunk(b, seg, s0, s1, n_pad)
+            chunks.append((cc, vv, xs))
+    kernels[f"ell_bucket powerlaw250k {len(chunks)} launches N=1"] = (
+        lambda: [EK.ell_bucket_spmm(c, v, xs) for c, v, xs in chunks],
+        ELL_KEYS, len(chunks), dict(work))
+    A_csr = torch.sparse_csr_tensor(
+        torch.as_tensor(m.indptr, dtype=torch.int64),
+        torch.as_tensor(m.indices, dtype=torch.int64),
+        torch.as_tensor(m.data, dtype=torch.float32), size=m.shape).cuda()
+    kernels["cuSPARSE powerlaw250k N=1"] = _library(A_csr, X)
+    _pair(kernels, table, "cuSPARSE powerlaw250k N=1")
+    products["powerlaw250k SpMV"] = _product(g, m, op.matvec, 1, vector=True)
 
 
 def _csr_f64(cols, x2, vals=None):

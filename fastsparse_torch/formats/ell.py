@@ -79,6 +79,10 @@ class EllMatrix:
     unit_vals: bool = False
     split_rows: int = 0
     plan: Any = None
+    # the narrow products' tile tables, built at first use
+    # (`ops.ell_ops`); a replaced copy starts empty
+    tables: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def dtype(self):
@@ -110,6 +114,8 @@ class SegmentedEll:
     shape: tuple
     nnz: int
     plan: Any = None
+    tables: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def dtype(self):

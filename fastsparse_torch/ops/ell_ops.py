@@ -3,9 +3,14 @@
 Bridges `formats.ell` to the gather kernels (`ops.kernels.ell_spmm`): pads
 each column segment's X panel (a zero sentinel row past its columns),
 walks the part-slot layout `_seg_layout` (bucket chunks, merged packed
-sweeps and, with ``USE_SMEM_PATH``, whole buckets), launches one kernel
-per part, and assembles Y through the build-time gather plan
-(`ops.assemble`) or, without one, a row ``index_add_``.
+sweeps and, with ``USE_SMEM_PATH``, whole buckets), and assembles Y
+through the build-time gather plan (`ops.assemble`) or, without one, a
+row ``index_add_``. At X widths of at most ``TABLE_MAX_LANES`` lanes (SpMV
+and the narrow CG widths) every part of every segment runs in one launch,
+`ell_table_spmm`, over a tile table built from the layout at the first
+such call and kept on the matrix (`formats.ell.EllMatrix.tables`), the X
+panels written into one buffer; wider X, and every width under
+``USE_SMEM_PATH``, launches one kernel per part.
 
 The budgets and flags below are the reference's layout parameters, kept
 as module attributes of the same names so tests can monkeypatch them in
@@ -20,6 +25,8 @@ double-word gather kernels (`ops.kernels.ell_dd`).
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
 from .. import tracing
@@ -29,9 +36,14 @@ from .kernels.ell_spmm import (
     ELL_GROUP,
     SMEM_BLOCK_K_UNIT,
     SMEM_BLOCK_K_VALUED,
+    TABLE_MAX_LANES,
+    EllPart,
+    _body_mode,
     ell_bucket_spmm,
     ell_bucket_spmm_smem,
     ell_sweep_spmm,
+    ell_table,
+    ell_table_spmm,
     packed_pair_ok,
 )
 
@@ -195,15 +207,105 @@ def ell_spmm(A, X):
         return _ell_spmm(A, X)
 
 
+def _table_parts(A):
+    """``(parts, row_ids, panels, x_rows)`` of a narrow product over A: an
+    `EllPart` per bucket chunk and sweep sub-part in `_seg_layout`'s order
+    (each with the body its per-part kernel runs: `_body_mode`'s, the
+    whole-row packed body for a sweep's) and its bucket's row ids, and per
+    segment ``(first column, columns, first X row)`` of its panel in one X
+    buffer of ``x_rows`` rows."""
+    parts, row_ids, panels, x_rows = [], [], [], 0
+    for off, seg in _segments(A):
+        unit = seg.unit_vals
+        rows_pad = _round_up(max(seg.shape[1] + 1, 8), 8)
+        panels.append((off, seg.shape[1], x_rows))
+        for b, mode, s0, s1, n_pad in _seg_layout(seg):
+            sweep = mode == "sweep"
+            for bb, t0, t1, np_ in b if sweep else ((b, s0, s1, n_pad),):
+                K = bb.cols.shape[1]
+                KB, full, packed = ((K, True, True) if sweep
+                                    else _body_mode(K, rows_pad, unit))
+                # pairs where the layout has them (plain columns add the
+                # same entries in the same order)
+                packed = packed and bb.packed is not None
+                idx = (bb.packed.reshape(bb.cols.shape[0], K // 2) if packed
+                       else bb.cols)
+                parts.append(EllPart(idx, None if unit else bb.vals, t0,
+                                     t1 - t0, np_, K, KB, full, packed,
+                                     x_rows))
+                row_ids.append(bb.row_ids)
+        x_rows += rows_pad
+    return parts, tuple(row_ids), tuple(panels), x_rows
+
+
+class _Narrow(NamedTuple):
+    table: Any  # `ell_table`'s
+    row_ids: tuple  # each part's bucket row ids
+    panels: tuple  # (first column, columns, first X row) per segment
+
+
+def _narrow(A, L, device) -> _Narrow:
+    """A's tile table at L lanes, built at the first narrow call under the
+    current layout parameters and kept on A."""
+    key = (L, _assemble.layout_key())
+    got = A.tables.get(key)
+    if got is None:
+        parts, row_ids, panels, x_rows = _table_parts(A)
+        unit = all(s.unit_vals for _, s in _segments(A))
+        got = _Narrow(ell_table(parts, L, unit, x_rows, device), row_ids,
+                      panels)
+        A.tables[key] = got
+    return got
+
+
+def _slot_rows(nw: _Narrow):
+    """int64 output row of each slot of the table's stream (padding rows
+    row 0, adding zeros), for a product without a plan."""
+    pieces = []
+    for pt, rid in zip(nw.table.parts, nw.row_ids):
+        pieces.append(rid[pt.row0 : pt.row0 + pt.n_src])
+        if pt.n_rows > pt.n_src:
+            pieces.append(rid.new_zeros(pt.n_rows - pt.n_src))
+            tracing.count()
+    tracing.count(2)
+    return torch.cat(pieces).long()
+
+
+def _table_product(A, X, L):
+    """``A @ X`` at L <= TABLE_MAX_LANES lanes: one zero fill of the X
+    buffer and a copy per segment's panel, one `ell_table_spmm` launch
+    (counted ``ell_launch``) into the slot stream, the plan's sum."""
+    nrow = A.shape[0]
+    N = X.shape[1]
+    nw = _narrow(A, L, X.device)
+    table = nw.table
+    if not table.n_slots:
+        tracing.count()
+        return torch.zeros((nrow, L), dtype=torch.float32,
+                           device=X.device)[:, :N]
+    x = torch.zeros((table.x_rows, L), dtype=torch.float32, device=X.device)
+    for off, ncol, x0 in nw.panels:
+        x[x0 : x0 + ncol, :N] = X[off : off + ncol]
+    tracing.count(1 + len(nw.panels))
+    tracing.count(1, "ell_launch")
+    out = ell_table_spmm(table, x)
+    plan = A.plan
+    if (plan is not None and plan.layout_key == _assemble.layout_key()
+            and plan.n_slots == table.n_slots):
+        return _assemble.apply_plan(plan, out)[:, :N]
+    Y = torch.zeros((nrow, L), dtype=torch.float32, device=X.device)
+    Y.index_add_(0, _slot_rows(nw), out)
+    tracing.count(2)
+    return Y[:, :N]
+
+
 def _ell_spmm(A, X):
     nrow, ncol = A.shape
     N = X.shape[1]
-    segs = (
-        list(zip(A.col_offsets, A.segments))
-        if isinstance(A, SegmentedEll)
-        else [(0, A)]
-    )
     L = _lanes(N)
+    if L <= TABLE_MAX_LANES and not USE_SMEM_PATH:
+        return _table_product(A, X, L)
+    segs = _segments(A)
     rids, parts = [], []
     for off, seg in segs:
         seg_ncol = seg.shape[1]

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "fs_ell_bucket": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     "fs_ell_sweep": (_P,) * 6 + (_I, _I, _P),
     "fs_ell_smem": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "fs_ell_table": (_P, _I, _P, _P) + (_I,) * 5 + (_P,),
     "fs_densecols": (_P,) * 4 + (_I,) * 4 + (_P,),
     "fs_s8_engine_smem": (_I, _I, _I, _P),
     "fs_bucket_spmm": (_P,) * 4 + (_I,) * 10 + (_P,),

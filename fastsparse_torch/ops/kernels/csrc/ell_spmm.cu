@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the f32 ELL gather engine.
 //
 // Three kernels, each the CUDA counterpart of one Pallas TPU kernel in
-// fastsparse/ops/pallas/ell_spmm.py:
+// fastsparse/ops/pallas/ell_spmm.py, and a fourth that runs every part of
+// a narrow product in one launch:
 //
 //   fs_ell_bucket  <- ell_bucket_spmm   one ELL bucket:
 //                                       Y[r] = sum_k v[r,k] * X[col[r,k]]
@@ -16,6 +17,11 @@
 //                                       any width, each row group's
 //                                       indices (and values) staged in
 //                                       shared memory
+//   fs_ell_table   <- (no Pallas kernel: the reference launches
+//                      ell_bucket_spmm or ell_sweep_spmm once a part)
+//                                       every part of a product at X widths
+//                                       <= 8 in one launch, over a device
+//                                       table of work tiles
 //
 // Every launcher takes raw device pointers, sizes and a cudaStream_t, runs
 // on that stream, allocates nothing and returns cudaGetLastError() so the
@@ -102,6 +108,32 @@
 // lane range, with the lane split above; the block copies the slice with
 // coalesced loads between two barriers, and a row's stride in shared
 // memory is KS + 1 words (at one thread a row, 32 rows read 32 banks).
+//
+// fs_ell_table (ell_table_kernel). The reference's SMEM budget cuts each
+// bucket into parts of at most 64Ki valued entries, and launching #9 once
+// a part spent ~4 us of launch, ramp and drain on each ~0.5 MB part (300
+// of them in the 250,000-square power-law SpMV: 1.19 ms for 108 MB). Here
+// the host builds, once per matrix and lane count, a table of work tiles
+// (a run of rows of one part, about 2048 / lanes slots each, in the
+// layout's order), and one launch runs a block a tile. Bound: bytes (each
+// slot's index and value once, each output row written once, X once); the
+// X gathers are scattered 4-byte reads at N = 1, served by L2 and L1.
+// A tile's rows are one contiguous span of index words and one of values:
+// one bulk copy each (cp.async.bulk on an mbarrier) into shared memory,
+// where #9 read each row at a stride of K. Then every slot's product (x·v,
+// rounded; unit: x) is formed from the staged words by all the block's
+// threads, eight gathers in flight a thread whatever K is, and written to
+// shared memory at row stride S; then each row's sum is taken from the
+// products in the reference's order: one thread a row for K <= 8 (its
+// four accumulators in registers, S = K | 1), else #9's four threads a row
+// joined by shuffles (S = 4 mod 8), chunk by chunk for a chunked row. The
+// sums are #9's and #10's, bit for bit. Rows too wide for a tile (K past
+// its slots, unsplit layouts only) are walked in global memory by
+// row_sum, a thread a row. One block a tile, 256 threads, 64 registers a
+// thread at N = 1 (four blocks an SM): on an H100 a persistent grid with
+// the next tile's copy in flight (80 registers, three blocks an SM),
+// 128-thread blocks, and register caps of 48 or 40 (spills) all ran the
+// 250,000-square SpMV slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -546,6 +578,313 @@ ell_smem_narrow_kernel(const int32_t* __restrict__ idx,
   if (live && j == 0) store_out<V>(out, (size_t)r * ldx + col0, o);
 }
 
+// ---------------------------------------------------------------------------
+// fs_ell_table: every part of a narrow product in one launch, one block a
+// tile of the host-built table (ops/kernels/ell_spmm.py: `ell_table`).
+
+// one work tile: a run of rows of one part (rows of one bucket, their
+// output rows consecutive in the slot stream); 48 bytes, the host's int64
+// columns (idx, vals, out_row | x_row0 << 32, n_rows | n_src << 32,
+// K | KB << 32, flags)
+struct EllTile {
+  const int32_t* idx;  // the first row's index words (packed pairs: words)
+  const float* vals;   // its first value; null in unit mode
+  int out_row;         // the first row's place in the output slot stream
+  int x_row0;          // first row of the part's X panel in x
+  int n_rows;          // rows written
+  int n_src;           // of them read from the bucket (the rest: +0)
+  int K;               // entries a row
+  int KB;              // entries a chunk (K: the whole-row body)
+  int flags;           // TILE_*
+  int unused;
+};
+constexpr int TILE_FULL = 1;    // store the one chunk's sum
+constexpr int TILE_PACKED = 2;  // 16-bit column pairs
+constexpr int TILE_STAGED = 4;  // rows staged in shared memory (else walked
+                                // in global memory, rows wider than a tile)
+constexpr int TABLE_THREADS = 256;
+constexpr int TABLE_BATCH = 8;  // products a thread has in flight
+
+// words between staged rows' products: K | 1 when a thread owns a row (K <=
+// 8: 32 rows a warp on 32 banks), else the least stride >= K that is 4 mod
+// 8 (8 rows a warp x 4 accumulator threads on 32 banks)
+__host__ __device__ __forceinline__ int table_stride(int K) {
+  return K <= 8 ? (K | 1) : K + ((12 - K % 8) % 8);
+}
+
+template <int V>
+__device__ __forceinline__ void load_s(const float* p, float (&r)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x;
+    r[1] = t.y;
+    r[2] = t.z;
+    r[3] = t.w;
+  } else {
+    r[0] = *p;
+  }
+}
+
+// Pass 1 of a staged tile: every slot's product x[col]·v (unit: x[col]),
+// rounded, into prod at (r·S + u)·ldx, slot w = r·K + u read from the staged
+// words. Each thread takes slots w = tid + TABLE_THREADS·i, TABLE_BATCH of
+// them at a time: their indices and values, then all their X loads, then the
+// products, so a thread has TABLE_BATCH gathers in flight.
+template <int V, bool UNIT, bool PACKED>
+__device__ __forceinline__ void table_products(
+    const int32_t* __restrict__ si, const float* __restrict__ sv,
+    float* __restrict__ prod, const float* __restrict__ xp, int ldx, int nq,
+    int n_slots, int K, int S) {
+  int r = threadIdx.x / K, u = threadIdx.x - r * K;
+  const int dr = TABLE_THREADS / K, du = TABLE_THREADS - dr * K;
+  for (int w0 = threadIdx.x; w0 < n_slots; w0 += TABLE_BATCH * TABLE_THREADS) {
+    int col[TABLE_BATCH], pos[TABLE_BATCH];
+    float v[TABLE_BATCH];
+    bool ok[TABLE_BATCH];
+#pragma unroll
+    for (int b = 0; b < TABLE_BATCH; ++b) {
+      const int w = w0 + b * TABLE_THREADS;
+      ok[b] = w < n_slots;
+      col[b] = ok[b] ? col_at<PACKED, false>(si, w) : 0;
+      v[b] = ok[b] ? val_at<UNIT, false>(sv, w) : 0.0f;
+      pos[b] = (r * S + u) * ldx;
+      u += du;
+      r += dr;
+      if (u >= K) {
+        u -= K;
+        ++r;
+      }
+    }
+    for (int q = 0; q < nq; ++q) {
+      float xr[TABLE_BATCH][V];
+#pragma unroll
+      for (int b = 0; b < TABLE_BATCH; ++b) {
+        if (ok[b]) load_x<V>(xp, (size_t)col[b] * ldx + q * V, xr[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < TABLE_BATCH; ++b) {
+        if (!ok[b]) continue;
+        float p[V];
+#pragma unroll
+        for (int l = 0; l < V; ++l) p[l] = UNIT ? xr[b][l] : __fmul_rn(xr[b][l], v[b]);
+        store_out<V>(prod, pos[b] + q * V, p);
+      }
+    }
+  }
+}
+
+// Pass 2, K <= 8: a thread a (row, lane group) sums the row's products in
+// the reference's order (entry u into accumulator u % 4, ((a0 + a1) + a2) +
+// a3) and stores it; rows past n_src store +0.
+template <int V>
+__device__ __forceinline__ void table_rows_small(const float* __restrict__ prod,
+                                                 float* __restrict__ out, int ldx,
+                                                 int nq, int n_rows, int n_src,
+                                                 int K, int S) {
+  for (int it = threadIdx.x; it < n_rows * nq; it += TABLE_THREADS) {
+    const int r = nq == 1 ? it : it / nq;
+    const int q = it - r * nq;
+    float o[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) o[l] = 0.0f;
+    if (r < n_src) {
+      float a[4][V];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int l = 0; l < V; ++l) a[k][l] = 0.0f;
+      }
+      const float* p = prod + (size_t)r * S * ldx + q * V;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e < K) {
+          float t[V];
+          load_s<V>(p + e * ldx, t);
+#pragma unroll
+          for (int l = 0; l < V; ++l) a[e & 3][l] = __fadd_rn(a[e & 3][l], t[l]);
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < V; ++l) {
+        o[l] = __fadd_rn(__fadd_rn(__fadd_rn(a[0][l], a[1][l]), a[2][l]), a[3][l]);
+      }
+    }
+    store_out<V>(out, (size_t)r * ldx + q * V, o);
+  }
+}
+
+// Pass 2, K > 8: four threads a row (thread j sums entries j, j + 4, ... of
+// each chunk) times 2^tq_log2 lane threads; at each chunk's end the row's
+// threads read the four sums through __shfl_sync and join them in order,
+// and a chunked row adds each chunk's sum into its zeroed output in chunk
+// order. The loops are uniform across the block (every row of a tile has
+// the same K and KB), so the shuffles run in full warps; rows past n_src
+// join zeros and store +0.
+template <int V>
+__device__ __forceinline__ void table_rows_quad(const float* __restrict__ prod,
+                                                float* __restrict__ out, int ldx,
+                                                int nq, int tq_log2, int n_rows,
+                                                int n_src, int S, int KB,
+                                                int nchunks, bool full) {
+  const int g_log2 = tq_log2 + 2;
+  const int rows_pass = TABLE_THREADS >> g_log2;
+  const int lr = threadIdx.x >> g_log2;
+  const int j = (threadIdx.x >> tq_log2) & 3;
+  const int q = threadIdx.x & ((1 << tq_log2) - 1);
+  const int src0 = (threadIdx.x & 31 & ~((1 << g_log2) - 1)) + q;  // j = 0's lane
+  for (int r0 = 0; r0 < n_rows; r0 += rows_pass) {
+    const int r = r0 + lr;
+    const bool live = r < n_src && q < nq;
+    const float* p = prod + (size_t)(live ? r : 0) * S * ldx + q * V;
+    float o[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) o[l] = 0.0f;
+    for (int c = 0; c < nchunks; ++c) {
+      float a[V];
+#pragma unroll
+      for (int l = 0; l < V; ++l) a[l] = 0.0f;
+      if (live) {
+        for (int e = c * KB + j; e < (c + 1) * KB; e += 4) {
+          float t[V];
+          load_s<V>(p + e * ldx, t);
+#pragma unroll
+          for (int l = 0; l < V; ++l) a[l] = __fadd_rn(a[l], t[l]);
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < V; ++l) {
+        const float a0 = __shfl_sync(0xffffffffu, a[l], src0);
+        const float a1 = __shfl_sync(0xffffffffu, a[l], src0 + (1 << tq_log2));
+        const float a2 = __shfl_sync(0xffffffffu, a[l], src0 + (2 << tq_log2));
+        const float a3 = __shfl_sync(0xffffffffu, a[l], src0 + (3 << tq_log2));
+        const float s = __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), a2), a3);
+        o[l] = full ? s : __fadd_rn(o[l], s);
+      }
+    }
+    if (r < n_rows && q < nq && j == 0) store_out<V>(out, (size_t)r * ldx + q * V, o);
+  }
+}
+
+// A tile whose rows do not fit the stage (K past the tile's slots, unsplit
+// layouts only): a thread a (row, lane group) walks its row's chunks in
+// global memory (row_sum: the lane-split body's order, the same sums).
+template <int V, bool UNIT, bool PACKED>
+__device__ __forceinline__ void table_rows_global(const EllTile& t,
+                                                  const float* __restrict__ xp,
+                                                  float* __restrict__ out,
+                                                  int ldx, int nq) {
+  const int kw = PACKED ? t.K / 2 : t.K;
+  for (int it = threadIdx.x; it < t.n_rows * nq; it += TABLE_THREADS) {
+    const int r = it / nq;
+    const int q = it - r * nq;
+    float o[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) o[l] = 0.0f;
+    if (r < t.n_src) {
+      row_sum<V, UNIT, PACKED>(t.idx + (size_t)r * kw,
+                               UNIT ? nullptr : t.vals + (size_t)r * t.K, xp, ldx,
+                               q * V, t.K, t.KB, (t.flags & TILE_FULL) != 0, o);
+    }
+    store_out<V>(out, (size_t)r * ldx + q * V, o);
+  }
+}
+
+template <int V, bool UNIT, bool PACKED>
+__device__ __forceinline__ void table_tile(const EllTile& t, const int32_t* si,
+                                           const float* sv, float* prod,
+                                           const float* __restrict__ xp,
+                                           float* __restrict__ out, int ldx,
+                                           int nq, int tq_log2) {
+  if (!(t.flags & TILE_STAGED)) {
+    table_rows_global<V, UNIT, PACKED>(t, xp, out, ldx, nq);
+    return;
+  }
+  const int S = table_stride(t.K);
+  table_products<V, UNIT, PACKED>(si, sv, prod, xp, ldx, nq, t.n_src * t.K, t.K, S);
+  __syncthreads();
+  if (t.K <= 8) {
+    table_rows_small<V>(prod, out, ldx, nq, t.n_rows, t.n_src, t.K, S);
+  } else {
+    table_rows_quad<V>(prod, out, ldx, nq, tq_log2, t.n_rows, t.n_src, S, t.KB,
+                       t.K / t.KB, (t.flags & TILE_FULL) != 0);
+  }
+}
+
+// One block a tile. A staged tile's index words and values are one
+// contiguous span each (its rows, row-major): one bulk copy each, from the
+// span's start rounded down to 16 bytes to its end rounded up (the extra
+// words share a 16-byte granule with the span, so they lie in its
+// allocation, and are not read), completing on one mbarrier. Shared memory:
+// the barrier, idx_cap index words, val_cap value words, the products.
+template <int V, bool UNIT>
+__global__ void __launch_bounds__(TABLE_THREADS)
+ell_table_kernel(const EllTile* __restrict__ tiles, const float* __restrict__ x,
+                 float* __restrict__ out, int ldx, int idx_cap, int val_cap,
+                 int tq_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  int32_t* s_idx = reinterpret_cast<int32_t*>(smem_raw + 16);
+  float* s_val = reinterpret_cast<float*>(s_idx + idx_cap);
+  float* prod = s_val + val_cap;
+  const EllTile t = tiles[blockIdx.x];
+  const bool packed = UNIT && (t.flags & TILE_PACKED);
+  const int nq = (ldx + V - 1) / V;
+  const float* xp = x + (size_t)t.x_row0 * ldx;
+  float* op = out + (size_t)t.out_row * ldx;
+  int hi = 0, hv = 0;
+  if (t.flags & TILE_STAGED) {
+    const uintptr_t ia = reinterpret_cast<uintptr_t>(t.idx);
+    const uintptr_t va = reinterpret_cast<uintptr_t>(t.vals);
+    hi = (int)(ia & 15) >> 2;
+    hv = (int)(va & 15) >> 2;
+    const uint32_t ib = ((hi + t.n_src * (packed ? t.K / 2 : t.K)) * 4 + 15) & ~15u;
+    const uint32_t vb = UNIT ? 0u : ((hv + t.n_src * t.K) * 4 + 15) & ~15u;
+    if (threadIdx.x == 0) {
+      acp::mbar_init(bar, 1);
+      acp::fence_mbar_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (t.n_src > 0) {
+        acp::fence_proxy_async();
+        acp::mbar_expect_tx(bar, ib + vb);
+        acp::bulk_g2s(s_idx, reinterpret_cast<const void*>(ia & ~(uintptr_t)15), ib, bar);
+        if constexpr (!UNIT) {
+          acp::bulk_g2s(s_val, reinterpret_cast<const void*>(va & ~(uintptr_t)15), vb,
+                        bar);
+        }
+      } else {
+        acp::mbar_arrive(bar);
+      }
+    }
+    acp::mbar_wait(bar, 0);
+  }
+  if constexpr (UNIT) {  // packed pairs are unit-only
+    if (packed) {
+      table_tile<V, true, true>(t, s_idx + hi, s_val + hv, prod, xp, op, ldx, nq,
+                                tq_log2);
+      return;
+    }
+  }
+  table_tile<V, UNIT, false>(t, s_idx + hi, s_val + hv, prod, xp, op, ldx, nq,
+                             tq_log2);
+}
+
+template <int V, bool UNIT>
+int launch_table(const EllTile* tiles, int n_tiles, const float* x, float* out,
+                 int ldx, int idx_cap, int val_cap, size_t smem, int tq_log2,
+                 cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ell_table_kernel<V, UNIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ell_table_kernel<V, UNIT><<<n_tiles, TABLE_THREADS, smem, st>>>(
+      tiles, x, out, ldx, idx_cap, val_cap, tq_log2);
+  return (int)cudaGetLastError();
+}
+
 // lane split: V lanes per thread, TPR = 2^tpr_log2 threads per row
 struct LaneSplit {
   int vec4;
@@ -747,6 +1086,29 @@ int fs_ell_smem(const int32_t* idx, const float* vals, const float* x,
     }
   }
   return (int)cudaGetLastError();
+}
+
+// tiles: n_tiles EllTile records (device); x f32 (x_rows, ldx), every
+// part's X panel at its tile's x_row0; out f32 (slots, ldx), each tile's
+// rows at its out_row. idx_cap, val_cap and prod_cap (words, multiples of
+// 4) hold the largest staged tile's spans and products (val_cap 0 when
+// unit = 1). ldx <= NARROW_MAX_LANES.
+int fs_ell_table(const void* tiles, int n_tiles, const float* x, float* out,
+                 int ldx, int unit, int idx_cap, int val_cap, int prod_cap,
+                 void* stream) {
+  if (n_tiles <= 0 || ldx <= 0) return (int)cudaGetLastError();
+  if (ldx > NARROW_MAX_LANES || (idx_cap | val_cap | prod_cap) & 3) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const LaneSplit s = lane_split(x, out, ldx);
+  const size_t smem = 16 + 4 * ((size_t)idx_cap + val_cap + prod_cap);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const EllTile* t = static_cast<const EllTile*>(tiles);
+#define FS_TABLE(V, U) \
+  launch_table<V, U>(t, n_tiles, x, out, ldx, idx_cap, val_cap, smem, s.tpr_log2, st)
+  if (s.vec4) return unit ? FS_TABLE(4, true) : FS_TABLE(4, false);
+  return unit ? FS_TABLE(1, true) : FS_TABLE(1, false);
+#undef FS_TABLE
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""The three f32 ELL gather kernels: CUDA wrappers and their plain PyTorch
+"""The four f32 ELL gather kernels: CUDA wrappers and their plain PyTorch
 twins.
 
 Counterpart of ``fastsparse/ops/pallas/ell_spmm.py`` (f32 path). On a CUDA
@@ -16,6 +16,13 @@ layout parameters, kept for parity; they are not limits of this card.
 `ell_bucket_spmm_smem` (one launch per whole bucket) always runs the
 chunked order over plain columns, at every width.
 
+`ell_table_spmm` runs every part of a narrow product (X of at most
+``TABLE_MAX_LANES`` lanes) in one launch, over a device table of work tiles
+that `ell_table` builds from the parts (`EllPart`, one per bucket chunk or
+sweep sub-part, in the layout's order): each part keeps its body, so each
+row is the per-part kernels' sum, bit for bit. It replaces no Pallas kernel
+of its own: the reference launches one kernel per part.
+
 Interface differences from the reference kernels: no ``n_block``. The CUDA
 kernel covers all of X's lanes in one launch, so ``x`` may have any lane
 count and the output has the same; the reference's 128-lane blocks are a
@@ -23,7 +30,9 @@ TPU tiling.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +53,12 @@ __all__ = [
     "ell_sweep_spmm_plain",
     "ell_bucket_spmm_smem",
     "ell_bucket_spmm_smem_plain",
+    "TABLE_MAX_LANES",
+    "EllPart",
+    "EllTable",
+    "ell_table",
+    "ell_table_spmm",
+    "ell_table_spmm_plain",
 ]
 
 ELL_GROUP = 8  # bucket rows per TPU grid step; bucket heights are multiples
@@ -57,9 +72,19 @@ _PACKED_KB_MAX = 32  # packed pairs per chunk of the chunked packed body
 SMEM_BLOCK_K_UNIT = 8192
 SMEM_BLOCK_K_VALUED = 4096
 _SWEEP_MAX_PARTS = 128  # SWEEP_MAX_PARTS in csrc/ell_spmm.cu
+TABLE_MAX_LANES = 8  # NARROW_MAX_LANES in csrc/ell_spmm.cu
+# slots a staged tile of `ell_table` holds at one X lane (its products take
+# table_stride(K)/K times as many words, at most 1.5x: under 30 KB of
+# shared memory a block, so four blocks share an SM; tiles of 1,024, 3,072
+# and 4,096 slots ran the 250,000-square SpMV slower on an H100)
+_TABLE_SLOTS = 2048
+_TABLE_GLOBAL_ROWS = 32  # rows a tile of rows wider than the stage walks
+# EllTile.flags in csrc/ell_spmm.cu
+_TILE_FULL, _TILE_PACKED, _TILE_STAGED = 1, 2, 4
 
 # kernel launches per wrapper (CUDA path only; the plain versions never count)
-launches = {"ell_bucket": 0, "ell_sweep": 0, "ell_bucket_smem": 0}
+launches = {"ell_bucket": 0, "ell_sweep": 0, "ell_bucket_smem": 0,
+            "ell_table": 0}
 
 
 def reset_launches() -> None:
@@ -290,5 +315,169 @@ def ell_bucket_spmm_smem(cols, vals, x, *, unit: bool = False):
         "ell_bucket_smem", lib.fs_ell_smem, _ptr(cols),
         None if unit else _ptr(vals), _ptr(x), _ptr(out), nb, K, _pick_kb(K),
         int(unit), x.shape[1], counts=launches,
+    )
+    return out
+
+
+# --------------------------------------------------- one launch, every part
+class EllPart(NamedTuple):
+    """One part of a narrow product: rows ``[row0, row0 + n_src)`` of a
+    bucket, padded to ``n_rows`` output rows (+0), summed by the body
+    ``(KB, full)`` against the X panel at row ``x_row0``. ``idx``: the
+    bucket's columns int32 ``(nb, K)`` or, when ``packed``, its pairs
+    ``(nb, K/2)``; ``vals``: its values ``(nb, K)``, None in unit mode."""
+
+    idx: torch.Tensor
+    vals: Any
+    row0: int
+    n_src: int
+    n_rows: int
+    K: int
+    KB: int
+    full: bool
+    packed: bool
+    x_row0: int
+
+
+@dataclasses.dataclass(frozen=True)
+class EllTable:
+    """The work tiles of one narrow product (`ell_table`). ``tiles``: host
+    int64 ``(n_tiles, 6)``, the kernel's ``EllTile`` records (on a CPU
+    layout the two pointer columns hold byte offsets into each part's
+    ``idx`` and ``vals`` storage); ``dev``: ``tiles`` on the card, None on
+    the CPU. A tile is a run of rows of one part whose slots fit
+    ``_TABLE_SLOTS // lanes`` (staged in shared memory), else of
+    ``_TABLE_GLOBAL_ROWS`` rows walked in global memory. ``*_cap``: the
+    shared-memory words the largest staged tile needs (spans rounded out
+    to 16 bytes, and its products)."""
+
+    parts: tuple
+    tiles: np.ndarray
+    dev: Any
+    n_slots: int
+    x_rows: int
+    lanes: int
+    unit: bool
+    idx_cap: int
+    val_cap: int
+    prod_cap: int
+
+
+def _table_stride(K: int) -> int:
+    """table_stride in csrc/ell_spmm.cu: words between staged rows'
+    products."""
+    return K | 1 if K <= 8 else K + (12 - K % 8) % 8
+
+
+def _words4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def ell_table(parts, lanes: int, unit: bool, x_rows: int, device):
+    """The tile table of a narrow product over ``parts`` (`EllPart`, in
+    output order): output rows are the parts' rows in turn, the slot stream
+    the per-part kernels' outputs concatenate to. Each part is cut into
+    tiles of about equal slot counts, in part order. On a CUDA ``device``
+    the records go to the card in one copy."""
+    if not 0 < lanes <= TABLE_MAX_LANES:
+        raise ValueError(f"ell_table: {lanes} lanes, at most "
+                         f"{TABLE_MAX_LANES}")
+    cuda = torch.device(device).type == "cuda"
+    stage = _TABLE_SLOTS // lanes
+    recs = []
+    idx_cap = val_cap = prod_cap = 0
+    out_row = 0
+    for pt in parts:
+        kw = pt.K // 2 if pt.packed else pt.K
+        if pt.packed and not unit:
+            raise ValueError("ell_table: packed pairs are unit-only")
+        if pt.idx.is_cuda != cuda or not pt.idx.is_contiguous() or (
+                not unit and not pt.vals.is_contiguous()):
+            raise ValueError("ell_table: parts must be contiguous on the "
+                             "table's device")
+        staged = pt.K <= stage
+        if staged:
+            n_t = -(-pt.n_rows // max(1, stage // pt.K))
+            rows = -(-pt.n_rows // max(n_t, 1))
+        else:
+            rows = _TABLE_GLOBAL_ROWS
+        i0 = pt.idx.data_ptr() if cuda else 0
+        v0 = pt.vals.data_ptr() if cuda and not unit else 0
+        flags = ((_TILE_FULL if pt.full else 0)
+                 | (_TILE_PACKED if pt.packed else 0)
+                 | (_TILE_STAGED if staged else 0))
+        for r0 in range(0, pt.n_rows, rows):
+            n = min(rows, pt.n_rows - r0)
+            src = min(max(pt.n_src - r0, 0), n)
+            r = pt.row0 + r0
+            recs.append((i0 + r * kw * 4, 0 if unit else v0 + r * pt.K * 4,
+                         (out_row + r0) | (pt.x_row0 << 32), n | (src << 32),
+                         pt.K | (pt.KB << 32), flags))
+            if staged:
+                idx_cap = max(idx_cap, _words4(3 + n * kw))
+                if not unit:
+                    val_cap = max(val_cap, _words4(3 + n * pt.K))
+                prod_cap = max(prod_cap,
+                               _words4(n * _table_stride(pt.K) * lanes))
+        out_row += pt.n_rows
+    if out_row >= 2**31 or x_rows >= 2**31:
+        raise ValueError("ell_table: rows past int32")
+    tiles = np.asarray(recs, np.int64).reshape(-1, 6)
+    dev = None
+    if cuda:
+        dev = torch.from_numpy(tiles).to(device)
+        tracing.count()
+    return EllTable(parts=tuple(parts), tiles=tiles, dev=dev,
+                    n_slots=out_row, x_rows=int(x_rows), lanes=int(lanes),
+                    unit=bool(unit), idx_cap=idx_cap, val_cap=val_cap,
+                    prod_cap=prod_cap)
+
+
+def ell_table_spmm_plain(table, x):
+    """Part by part in output order: each part's rows by its own body
+    (`_gather_rows`, as `ell_bucket_spmm_plain` and `ell_sweep_spmm_plain`
+    compute them), padding rows +0."""
+    out = torch.zeros((table.n_slots, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    row = 0
+    for pt in table.parts:
+        if pt.n_src:
+            idx = pt.idx[pt.row0 : pt.row0 + pt.n_src]
+            cols = _unpack_pairs(idx) if pt.packed else idx
+            vals = (None if table.unit
+                    else pt.vals[pt.row0 : pt.row0 + pt.n_src])
+            out[row : row + pt.n_src] = _gather_rows(
+                cols, vals, x[pt.x_row0 :], pt.KB, pt.full)
+        row += pt.n_rows
+    return out
+
+
+def ell_table_spmm(table, x):
+    """Every part of a narrow product in one launch: f32 ``(n_slots,
+    lanes)``, each part's rows at its place in the slot stream, bit-equal
+    to the per-part kernels' outputs concatenated (padding rows +0, where
+    a part's padding reads a zero row or a zero value).
+
+    ``table``: `ell_table`'s; ``x`` f32 ``(table.x_rows, table.lanes)``,
+    every part's X panel at its ``x_row0`` (unit padding columns at a zero
+    row of it). On the card `fs_ell_table`: one block a tile; a staged
+    tile's index and value spans arrive by one bulk copy each, every slot's
+    product is formed in shared memory, then each row's sum in the
+    reference's order."""
+    _check("ell_table.x", x, torch.float32, 2)
+    if tuple(x.shape) != (table.x_rows, table.lanes):
+        raise ValueError(f"ell_table: x {tuple(x.shape)}, the table needs "
+                         f"{(table.x_rows, table.lanes)}")
+    lib = _library_for(x)
+    if lib is None:
+        return ell_table_spmm_plain(table, x)
+    if table.dev is None or table.dev.device != x.device:
+        raise ValueError("ell_table: the table was built for another device")
+    out = torch.empty((table.n_slots, table.lanes), dtype=torch.float32,
+                      device=x.device)
+    _launch(
+        "ell_table", lib.fs_ell_table, _ptr(table.dev), len(table.tiles),
+        _ptr(x), _ptr(out), table.lanes, int(table.unit), table.idx_cap,
+        table.val_cap, table.prod_cap, counts=launches,
     )
     return out

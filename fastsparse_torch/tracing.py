@@ -22,11 +22,12 @@ program), and the counts made while it was the innermost open span:
 * ``ops``: device operations enqueued, each kernel launch of
   ``ops/kernels`` and each torch op the span's own code issues;
 * ``syncs``: host waits on the device inside the program;
-* ``ell_launch``: gather-engine launches, one for each part that
-  `ops.ell_ops.ell_spmm` dispatches (``ell_bucket``, ``ell_sweep``,
-  ``ell_bucket_smem``, or their plain versions on the CPU). A captured
-  product keeps its total, and each replay counts it again
-  (`graphs.ProductGraphs`).
+* ``ell_launch``: gather-engine launches that `ops.ell_ops.ell_spmm`
+  dispatches: one for a whole product at X widths of at most 8 lanes
+  (``ell_table``), else one for each part (``ell_bucket``,
+  ``ell_sweep``, ``ell_bucket_smem``); the plain versions on the CPU
+  count alike. A captured product keeps its total, and each replay
+  counts it again (`graphs.ProductGraphs`).
 
 A span's times are those of the host enqueueing the work, not of the
 device running it: tracing adds no synchronise, no read-back and no device

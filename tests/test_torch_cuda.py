@@ -6,8 +6,9 @@ only the port is installed:
 
 Each kernel is held against its plain PyTorch version on the same card
 tensors (colmax, quant3, the X encoder, densecols, mono_panel, mono_group,
-every ELL gather body, the one-launch-per-bucket gather and both
-double-word gathers bit-exact; the s8 tensor-core engine and the old bodies each on the shapes
+every ELL gather body, the one-launch-per-bucket gather, the narrow
+products' one launch over a tile table (against the per-part launches) and
+both double-word gathers bit-exact; the s8 tensor-core engine and the old bodies each on the shapes
 they serve, told apart by kernel name; the tile-layout kernels at
 max|d|/max|ref| <= 1e-6, the tile kernels
 at tile_k up to 2048 and on strips of up to 70 tiles, each tile mode on
@@ -33,6 +34,7 @@ from fastsparse_torch.ops.kernels import bsr_tiles as tt
 from fastsparse_torch.ops.kernels import ell_spmm as ek
 
 import rmat_layout
+import test_torch_ell_table as ell_table_cases
 from card_helpers import kernel_names, neg_zero_parts, same_bits, tiling_plans
 
 pytestmark = pytest.mark.cuda
@@ -476,6 +478,72 @@ def test_ell_smem_operator_on_card_vs_scipy(card, monkeypatch):
         ref = md @ X.astype(np.float64)
         assert np.abs(Y - ref).max() <= 1e-6 * np.abs(ref).max()
     assert ek.launches["ell_bucket_smem"] > 0
+
+
+# ------------------------------------------- every narrow part in one launch
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("case", ell_table_cases.CASES)
+def test_ell_table_matches_per_part_launches(card, monkeypatch, case, N):
+    """`ell_table_spmm` on the small layouts of `test_torch_ell_table`
+    (valued, segmented, packed pairs and sweeps, plain unit columns,
+    chunked rows, rows wider than a tile's stage), one launch of
+    ``ell_table_kernel``, bit-equal to the per-part kernels' launches
+    concatenated (`ell_ops._seg_parts`) and to its plain twin."""
+    from fastsparse_torch.ops import ell_ops
+
+    A = ell_table_cases.layout(monkeypatch, case, card)
+    L = ell_ops._lanes(N)
+    X = torch.from_numpy(np.random.default_rng(N).standard_normal(
+        (A.shape[1], N)).astype(np.float32)).cuda()
+    rids, parts = [], []
+    for (_, seg), xs in zip(ell_ops._segments(A),
+                            ell_table_cases.panels(A, X, L)):
+        ell_ops._seg_parts(seg, xs, rids, parts)
+    want = torch.cat(parts)
+    nw = ell_ops._narrow(A, L, X.device)
+    x = ell_table_cases.table_x(nw, X, L)
+    ek.reset_launches()
+    got = ek.ell_table_spmm(nw.table, x)
+    torch.cuda.synchronize()
+    assert ek.launches["ell_table"] == 1
+    assert got.shape == want.shape and torch.equal(got, want), (case, N)
+    assert torch.equal(got, ek.ell_table_spmm_plain(nw.table, x))
+    names = kernel_names(lambda: ek.ell_table_spmm(nw.table, x))
+    assert "ell_table_kernel" in names and "ell_narrow_kernel" not in names
+
+
+@pytest.mark.parametrize("N", [1, 8, 16])
+@pytest.mark.parametrize("case", ["segmented", "binary"])
+def test_ell_table_product_replayed(card, monkeypatch, case, N):
+    """A segmented operator's matmat called three times (eager, captured,
+    replayed): bit-equal to each other and to the per-part path; one
+    ``ell_launch`` a call at N <= 8 (the table's launch), one a layout part
+    at N = 16, on the eager, the capturing and the replayed call alike."""
+    import dataclasses
+
+    from fastsparse_torch import tracing
+    from fastsparse_torch.ops import ell_ops
+
+    m, op = ell_table_cases.operator(monkeypatch, case, card)
+    A = op.fwd
+    parts = sum(len(list(ell_ops._seg_layout(s))) for s in A.segments)
+    assert parts > 1
+    X = torch.from_numpy(np.random.default_rng(N).standard_normal(
+        (m.shape[1], N)).astype(np.float32)).cuda()
+    op = dataclasses.replace(op)  # a graph cache of its own
+    outs, recs = [], []
+    for _ in range(3):
+        with tracing.recording() as rec:
+            outs.append(op.matmat(X))
+        torch.cuda.synchronize()
+        recs.append(rec)
+    assert recs[1].counts["captures"] == 1 and recs[2].counts["replays"] == 1
+    want = 1 if N <= 8 else parts
+    assert [r.counts["ell_launch"] for r in recs] == [want] * 3
+    monkeypatch.setattr(ell_ops, "TABLE_MAX_LANES", 0)  # one launch a part
+    per_part = ell_ops.ell_spmm(A, X)
+    for y in outs:
+        assert torch.equal(y, outs[0]) and torch.equal(y, per_part)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

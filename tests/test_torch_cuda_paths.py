@@ -829,9 +829,10 @@ def _ell_parts(A):
 def test_powerlaw250k_matvec_vs_reference(powerlaw250k):
     """matvec of the 250,000² power-law instance: a SegmentedEll of 11
     segments and one cross-segment plan; within 1e-6 of the benchmark's
-    float64 reference (`benchmark/lib/reference.py`) on the card, one
-    gather launch per layout part, each counted ``ell_launch``, and one
-    plan kernel launch."""
+    float64 reference (`benchmark/lib/reference.py`) on the card, every
+    layout part in one launch of ``ell_table_kernel`` (counted once as
+    ``ell_launch``; one launch a part before the tile table), and one plan
+    kernel launch."""
     from fastsparse_torch import tracing
 
     m, op = powerlaw250k.m, powerlaw250k.op
@@ -851,15 +852,52 @@ def test_powerlaw250k_matvec_vs_reference(powerlaw250k):
     assert y.dtype == torch.float32 and y.shape == want.shape
     rel = ref.rel_gap(y, want)
     assert rel < REL, rel
-    assert {k: v for k, v in ek.launches.items() if v} == _layout_launches(A)
-    assert rec.counts["ell_launch"] == _ell_parts(A)
+    assert _ell_parts(A) > 200
+    assert {k: v for k, v in ek.launches.items() if v} == {"ell_table": 1}
+    assert rec.counts["ell_launch"] == 1
     assert ak.launches["plan_sum"] == 1
+    names = kernel_names(lambda: _eager(op).matvec(x))
+    assert "ell_table_kernel" in names and "ell_narrow_kernel" not in names
+
+
+def test_powerlaw250k_table_equals_per_part_launches(powerlaw250k):
+    """The one launch at the cell's shape (N = 1) bit-equal to the
+    layout's per-part ``ell_bucket`` launches concatenated, and the matvec
+    through it, with the plan applied, bit-equal to the per-part path's."""
+    op = powerlaw250k.op
+    A = op.fwd
+    x = torch.randn(powerlaw250k.m.shape[1], generator=torch.Generator(
+        ).manual_seed(2**31 + 5)).cuda()
+    X = x[:, None]
+    rids, parts = [], []
+    for off, seg in zip(A.col_offsets, A.segments):
+        xs = _x_panel(X[off : off + seg.shape[1]],
+                      ell_ops._round_up(seg.shape[1] + 1, 8))
+        ell_ops._seg_parts(seg, xs, rids, parts)
+    want = torch.cat(parts)
+    nw = ell_ops._narrow(A, 1, x.device)
+    xt = torch.zeros((nw.table.x_rows, 1), device="cuda")
+    for off, ncol, x0 in nw.panels:
+        xt[x0 : x0 + ncol] = X[off : off + ncol]
+    got = ek.ell_table_spmm(nw.table, xt)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (A.plan.n_slots, 1)
+    assert torch.equal(got, want)
+    y = _eager(op).matvec(x)
+    old = ell_ops.TABLE_MAX_LANES
+    ell_ops.TABLE_MAX_LANES = 0  # one launch a part
+    try:
+        y_parts = _eager(op).matvec(x)
+    finally:
+        ell_ops.TABLE_MAX_LANES = old
+    assert torch.equal(y, y_parts)
 
 
 def test_powerlaw250k_replay_counts_and_bits(powerlaw250k):
     """The cell's matvec called three times on a fresh cache: eager,
     captured, replayed, each bit-equal to the eager one; the replay counts
-    the capture's ``ell_launch`` (the layout's parts) and 3 ``ops``."""
+    the capture's ``ell_launch`` (1: the table's one launch; the layout's
+    parts before it) and 3 ``ops``."""
     from fastsparse_torch import tracing
 
     m, op = powerlaw250k.m, _eager(powerlaw250k.op)
@@ -872,17 +910,16 @@ def test_powerlaw250k_replay_counts_and_bits(powerlaw250k):
         torch.cuda.synchronize()
         recs.append(rec)
     eager, captured, replayed = recs
-    parts = _ell_parts(op.fwd)
     assert captured.counts["captures"] == 1
     assert replayed.counts["replays"] == 1
     for y in outs[1:]:
         assert torch.equal(y, outs[0])
     assert (eager.counts["ell_launch"] == captured.counts["ell_launch"]
-            == replayed.counts["ell_launch"] == parts)
+            == replayed.counts["ell_launch"] == 1)
     (g,) = op.graphs.graphs.values()
-    assert g.counts == {"ell_launch": parts}
+    assert g.counts == {"ell_launch": 1}
     (rep,) = [s for s in replayed.spans if s.name == "replay"]
-    assert rep.counts == {"ops": 3, "replays": 1, "ell_launch": parts}
+    assert rep.counts == {"ops": 3, "replays": 1, "ell_launch": 1}
 
 
 # ---------------------------------------------------------------- plans

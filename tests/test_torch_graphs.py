@@ -254,25 +254,36 @@ def test_a_capture_that_raises_marks_the_key_eager(small_dense_cols,
     assert len(op.graphs.refused) == 1 and not op.graphs.graphs
 
 
+@pytest.mark.parametrize("N", [8, 16])
 def test_a_replay_counts_the_gather_launches_of_its_capture(
-        small_dense_cols, engaged):
+        small_dense_cols, engaged, monkeypatch, N):
     """A capture made with tracing off keeps what its product counted of
-    `graphs.REPLAYED` (the gather launches), and each traced replay counts
-    it again inside its ``replay`` span, with ``ops`` still 3."""
+    `graphs.REPLAYED` (the gather launches: 1 at X widths of at most 8
+    lanes, every part in one launch; one a part at N = 16), and each
+    traced replay counts it again inside its ``replay`` span, with ``ops``
+    still 3; eager, captured and replayed results are bit-equal."""
+    from fastsparse_torch.ops import ell_ops
+
+    # a small chunk budget, so that the ELL part holds several parts
+    monkeypatch.setattr(ell_ops, "_SMEM_IDX_BUDGET_UNIT", 256)
     m, op = _op("hybrid")
-    X = _randn(m.shape[1], 8)
+    X = _randn(m.shape[1], N)
     with tracing.recording() as eager:
-        op.matmat(X)
+        y0 = op.matmat(X)
     launched = eager.counts["ell_launch"]
-    assert launched > 0
-    op.matmat(X)  # the capture, untraced
+    A = op.fwd.sparse
+    parts = sum(len(list(ell_ops._seg_layout(s)))
+                for s in getattr(A, "segments", [A]))
+    assert parts > 1 and launched == (1 if N <= 8 else parts)
+    ys = [op.matmat(X)]  # the capture, untraced
     assert len(engaged) == 1
     (g,) = op.graphs.graphs.values()
     assert g.counts == {"ell_launch": launched}
     for _ in range(2):
         with tracing.recording() as rec:
-            op.matmat(X)
+            ys.append(op.matmat(X))
         prod, rep = rec.spans
         assert rep.name == "replay" and rep.parent is prod
         assert rep.counts == {"ops": 3, "replays": 1,
                               "ell_launch": launched}
+    assert all(torch.equal(y, y0) for y in ys)
