@@ -1,7 +1,8 @@
 """Every hand-written kernel, and the products it serves, timed on one card.
 
     python3 fastsparse_torch/bench/kernels.py [--root DIR]
-        [--groups mono,tiles,densecols,encode,plan,spmv,table,smem,dd,others]
+        [--groups mono,tiles,densecols,encode,plan,spmv,table,table64,smem,dd,
+                  others]
 
 Each group times its kernels at the main path's shapes, each beside its
 bound and, where one PyTorch call computes the same function on the same
@@ -32,6 +33,10 @@ rows, beside that call (cuSPARSE, ``vector_norm``, ``torch._int_mm``):
   250,000² power-law layout of the benchmark's ``powerlaw250k`` at N=1,
   the same layout's per-part ell_bucket launches (#9) as one set, and
   cuSPARSE's CSR matvec on the same matrix; the matvec product;
+- ``table64``: the table kernel's f64 mode on BASELINE config 1's layout
+  (the benchmark's ``fp64rand100k``: 100,000², 5 f64 segments) at N=1,
+  at tiles of 1,024, 2,048 and 4,096 slots (``_TABLE_SLOTS``), its
+  plan_sum, cuSPARSE's f64 CSR matvec on the same matrix; the matvec;
 - ``smem``: ell_bucket_smem (#11) on config A's whole buckets under
   ``ell_ops.USE_SMEM_PATH`` at N = 1, 8, 128; config A SpMV under it;
 - ``dd``: #13 on every bucket of config 2 in fp64, #12 on every bucket of
@@ -72,7 +77,7 @@ ELL_KEYS = ("ell_narrow_kernel", "ell_bucket_kernel")
 TILE_KEYS = ("spmv_kernel", "tile_mma_kernel", "_scalar_kernel")
 ALL = ("",)  # every kernel a call launches (a library call, a product)
 GROUPS = ("mono", "tiles", "densecols", "encode", "plan", "spmv", "table",
-          "smem", "dd", "others")
+          "table64", "smem", "dd", "others")
 
 
 def main_paths(ft):
@@ -120,6 +125,7 @@ def main_paths(ft):
                                     config=ft.Config(ell_split_rows=0)),
         "opAsmem": lambda: smem_build(),
         "opCsr": lambda: ft.operator(get("1"), format="csr", transpose=False),
+        "op1": lambda: ft.operator(get("1"), format="ell", transpose=False),
     }
 
     def smem_build():
@@ -151,6 +157,7 @@ def setup(ft, groups=GROUPS, get=None):
              "densecols": _densecols_items, "encode": _encode_items,
              "plan": _plan_items,
              "spmv": _spmv_items, "table": _table_items,
+             "table64": _table64_items,
              "smem": _smem_items, "dd": _dd_items,
              "others": _other_items}
     for name in groups:
@@ -630,6 +637,54 @@ def _table_items(ft, g, get, kernels, products):
     kernels["cuSPARSE powerlaw250k N=1"] = _library(A_csr, X)
     _pair(kernels, table, "cuSPARSE powerlaw250k N=1")
     products["powerlaw250k SpMV"] = _product(g, m, op.matvec, 1, vector=True)
+
+
+def _table64_items(ft, g, get, kernels, products):
+    """The table kernel's f64 mode on config 1's layout at N=1 (its tile
+    table and plan as the matvec builds them), at 1,024-, 2,048- and
+    4,096-slot tiles, against the least bytes of the product (8 bytes a
+    stored value, x read and y written once in float64); its plan_sum;
+    cuSPARSE's f64 CSR matvec on the same matrix; the matvec."""
+    from fastsparse_torch.bench.timing import bound
+    from fastsparse_torch.ops import assemble, ell_ops
+    from fastsparse_torch.ops.kernels import ell_spmm as EK
+
+    f64 = torch.float64
+    m, op = get("1"), get("op1")
+    A = op.fwd
+    X = torch.from_numpy(g.standard_normal((m.shape[1], 1))).cuda()
+    nw = ell_ops._narrow(A, 1, X.device, f64)
+    xt = torch.zeros((nw.table.x_rows, 1), dtype=f64, device="cuda")
+    for off, ncol, x0 in nw.panels:
+        xt[x0 : x0 + ncol] = X[off : off + ncol]
+    work = bound(8 * m.nnz + 8 * (m.shape[0] + m.shape[1]))
+    parts = nw.table.parts
+    kept = EK._TABLE_SLOTS
+    try:
+        for slots in (1024, 2048, 4096):
+            EK._TABLE_SLOTS = slots
+            t = EK.ell_table(parts, 1, False, nw.table.x_rows, "cuda", f64)
+            name = (f"ell_table f64 fp64rand100k {slots}-slot tiles "
+                    f"({len(t.tiles)}) N=1")
+            kernels[name] = (lambda t=t: EK.ell_table_spmm(t, xt),
+                             ("ell_table",), 1, dict(work))
+            if slots == kept:
+                main = name
+    finally:
+        EK._TABLE_SLOTS = kept
+    out = EK.ell_table_spmm(nw.table, xt)
+    kernels["plan_sum f64 fp64rand100k N=1"] = (
+        lambda: assemble.sum_plan(nw.plan, out), ("plan_sum",), 1,
+        dict(bound(8 * (nw.plan.src.numel() + m.shape[0]) + 4 * (
+            nw.plan.src.numel() + m.shape[0]))))
+    A_csr = torch.sparse_csr_tensor(
+        torch.as_tensor(m.indptr, dtype=torch.int64),
+        torch.as_tensor(m.indices, dtype=torch.int64),
+        torch.as_tensor(m.data, dtype=f64), size=m.shape).cuda()
+    kernels["cuSPARSE f64 fp64rand100k N=1"] = _library(A_csr, X)
+    _pair(kernels, main, "cuSPARSE f64 fp64rand100k N=1")
+    products["fp64rand100k SpMV (f32 x)"] = _product(g, m, op.matvec, 1,
+                                                     vector=True)
 
 
 def _csr_f64(cols, x2, vals=None):

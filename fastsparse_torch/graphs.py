@@ -45,7 +45,7 @@ from . import tracing
 __all__ = ["ProductGraphs", "REPLAYED"]
 
 # counters of the device work a product runs, counted again on a replay
-REPLAYED = ("ell_launch",)
+REPLAYED = ("ell_launch", "ell_scan")
 
 
 class _Graph:

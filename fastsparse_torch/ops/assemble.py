@@ -387,18 +387,20 @@ def build_colseg_plan(A) -> AssemblyPlan:
 
 
 def apply_plan(plan: AssemblyPlan, parts_cat):
-    """parts_cat f32 ``(n_slots, L)`` -> Y f32 ``(nrow, L)`` through the
-    plan's gathers (no scatter)."""
+    """parts_cat ``(n_slots, L)`` -> Y ``(nrow, L)`` of its dtype (f32, or
+    f64 for a float64 product's segment parts) through the plan's gathers
+    (no scatter)."""
     with tracing.span("assemble"):
         return sum_plan(plan, parts_cat)
 
 
 def sum_plan(plan: AssemblyPlan, rows):
-    """The plan's output rows summed from ``rows``, f32 ``(n, L)``: the
-    concatenated parts (a cross-segment plan's: per output row its strips'
-    rows, ``n = n_slots·TM``, over ``row_srcs``; or whole strips of
-    ``TM·Npad`` floats, over its classes). One `plan_sum` launch on the
-    card; elsewhere the torch ops, the kernel's plain version."""
+    """The plan's output rows summed from ``rows``, f32 (or f64) ``(n,
+    L)``: the concatenated parts (a cross-segment plan's: per output row
+    its strips' rows, ``n = n_slots·TM``, over ``row_srcs``; or whole
+    strips of ``TM·Npad`` floats, over its classes). One `plan_sum`
+    launch on the card; elsewhere the torch ops, the kernel's plain
+    version."""
     if rows.is_cuda:
         return plan_sum(plan.row_ptr, plan.src, rows, plan.n_levels)
     return plain_sum(plan, rows)

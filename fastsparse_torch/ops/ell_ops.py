@@ -10,7 +10,12 @@ and the narrow CG widths) every part of every segment runs in one launch,
 `ell_table_spmm`, over a tile table built from the layout at the first
 such call and kept on the matrix (`formats.ell.EllMatrix.tables`), the X
 panels written into one buffer; wider X, and every width under
-``USE_SMEM_PATH``, launches one kernel per part.
+``USE_SMEM_PATH``, launches one kernel per part. A float64 product (f64
+values, or 0/1 values under an f64 X) runs the table's f64 mode on the
+card at those widths, native f64 arithmetic in the same order, its
+segments' parts summed by an assembly plan built with the table
+(`gather_engine_supported`); wider, and on the CPU, it keeps the
+reference's per-bucket scan (`ops.spmm`, span ``ell_scan``).
 
 The budgets and flags below are the reference's layout parameters, kept
 as module attributes of the same names so tests can monkeypatch them in
@@ -66,8 +71,20 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def gather_engine_supported(dtype) -> bool:
-    return dtype == torch.float32
+def gather_engine_supported(dtype, A, X) -> bool:
+    """Whether `ell_spmm` takes a product of ``dtype`` over ``A`` with
+    operand ``X``: float32 at every width; float64 on the one-launch table
+    path only (its f64 mode): at most ``TABLE_MAX_LANES`` lanes of a CUDA
+    ``X``, not under ``USE_SMEM_PATH``, over f64 or 0/1 values. Wider f64
+    X, and the CPU, keep the reference's scan."""
+    if dtype == torch.float32:
+        return True
+    if dtype != torch.float64 or not X.is_cuda:
+        return False
+    n = X.shape[1] if X.ndim > 1 else 1
+    return (_lanes(n) <= TABLE_MAX_LANES and not USE_SMEM_PATH
+            and all(s.unit_vals or s.dtype == torch.float64
+                    for _, s in _segments(A)))
 
 
 def gather_engine_fits(ncol: int, n_rhs: int, itemsize: int = 4) -> bool:
@@ -202,9 +219,12 @@ def _lanes(N: int) -> int:
 
 def ell_spmm(A, X):
     """``Y = A @ X`` through the gather kernels. A: EllMatrix or
-    SegmentedEll (f32). X: f32 ``(ncol, N)`` on A's device."""
-    with tracing.span("ell_ops"):
-        return _ell_spmm(A, X)
+    SegmentedEll; X ``(ncol, N)`` on A's device. Products in float32, or
+    in float64 (f64 values or X: the table path's f64 mode, at most
+    ``TABLE_MAX_LANES`` lanes), in the promoted dtype."""
+    dt = torch.promote_types(A.dtype, X.dtype)
+    with tracing.span("ell_ops", dtype=str(dt).removeprefix("torch.")):
+        return _ell_spmm(A, X, dt)
 
 
 def _table_parts(A):
@@ -242,18 +262,27 @@ class _Narrow(NamedTuple):
     table: Any  # `ell_table`'s
     row_ids: tuple  # each part's bucket row ids
     panels: tuple  # (first column, columns, first X row) per segment
+    plan: Any = None  # f64: the slot stream's assembly plan
 
 
-def _narrow(A, L, device) -> _Narrow:
-    """A's tile table at L lanes, built at the first narrow call under the
-    current layout parameters and kept on A."""
-    key = (L, _assemble.layout_key())
+def _narrow(A, L, device, dtype=torch.float32) -> _Narrow:
+    """A's tile table at L lanes for products of ``dtype``, built at the
+    first narrow call under the current layout parameters and kept on A.
+    At f64 it carries the slot stream's assembly plan
+    (`ops.assemble.build_assembly_plan`; the build attaches plans to f32
+    layouts only): each output row its parts' sum, in segment order."""
+    key = (L, _assemble.layout_key(), dtype)
     got = A.tables.get(key)
     if got is None:
         parts, row_ids, panels, x_rows = _table_parts(A)
         unit = all(s.unit_vals for _, s in _segments(A))
-        got = _Narrow(ell_table(parts, L, unit, x_rows, device), row_ids,
-                      panels)
+        table = ell_table(parts, L, unit, x_rows, device, dtype)
+        plan = None
+        if dtype == torch.float64:
+            plan = _assemble.build_assembly_plan(A)
+            if plan.row_ptr.is_cuda:  # its arrays' copies to the card
+                tracing.count(len(plan.classes) + 3)
+        got = _Narrow(table, row_ids, panels, plan)
         A.tables[key] = got
     return got
 
@@ -271,25 +300,25 @@ def _slot_rows(nw: _Narrow):
     return torch.cat(pieces).long()
 
 
-def _table_product(A, X, L):
-    """``A @ X`` at L <= TABLE_MAX_LANES lanes: one zero fill of the X
-    buffer and a copy per segment's panel, one `ell_table_spmm` launch
+def _table_product(A, X, L, dt=torch.float32):
+    """``A @ X`` at L <= TABLE_MAX_LANES lanes in ``dt`` (f32, or f64):
+    one zero fill of the X buffer and a copy per segment's panel (an f32
+    X widens to f64 in the copy, exactly), one `ell_table_spmm` launch
     (counted ``ell_launch``) into the slot stream, the plan's sum."""
     nrow = A.shape[0]
     N = X.shape[1]
-    nw = _narrow(A, L, X.device)
+    nw = _narrow(A, L, X.device, dt)
     table = nw.table
     if not table.n_slots:
         tracing.count()
-        return torch.zeros((nrow, L), dtype=torch.float32,
-                           device=X.device)[:, :N]
-    x = torch.zeros((table.x_rows, L), dtype=torch.float32, device=X.device)
+        return torch.zeros((nrow, L), dtype=dt, device=X.device)[:, :N]
+    x = torch.zeros((table.x_rows, L), dtype=dt, device=X.device)
     for off, ncol, x0 in nw.panels:
         x[x0 : x0 + ncol, :N] = X[off : off + ncol]
     tracing.count(1 + len(nw.panels))
     tracing.count(1, "ell_launch")
     out = ell_table_spmm(table, x)
-    plan = A.plan
+    plan = nw.plan if nw.plan is not None else A.plan
     if (plan is not None and plan.layout_key == _assemble.layout_key()
             and plan.n_slots == table.n_slots):
         return _assemble.apply_plan(plan, out)[:, :N]
@@ -299,12 +328,16 @@ def _table_product(A, X, L):
     return Y[:, :N]
 
 
-def _ell_spmm(A, X):
+def _ell_spmm(A, X, dt):
     nrow, ncol = A.shape
     N = X.shape[1]
     L = _lanes(N)
     if L <= TABLE_MAX_LANES and not USE_SMEM_PATH:
-        return _table_product(A, X, L)
+        return _table_product(A, X, L, dt)
+    if dt != torch.float32:
+        raise ValueError(f"ell_spmm: a {dt} product runs on the table path "
+                         f"only (at most {TABLE_MAX_LANES} lanes, no "
+                         "USE_SMEM_PATH)")
     segs = _segments(A)
     rids, parts = [], []
     for off, seg in segs:

@@ -45,14 +45,14 @@ _SIGNATURES = {
     "fs_ell_bucket": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     "fs_ell_sweep": (_P,) * 6 + (_I, _I, _P),
     "fs_ell_smem": (_P,) * 4 + (_I,) * 5 + (_P,),
-    "fs_ell_table": (_P, _I, _P, _P) + (_I,) * 5 + (_P,),
+    "fs_ell_table": (_P, _I, _P, _P) + (_I,) * 6 + (_P,),
     "fs_densecols": (_P,) * 4 + (_I,) * 4 + (_P,),
     "fs_s8_engine_smem": (_I, _I, _I, _P),
     "fs_bucket_spmm": (_P,) * 4 + (_I,) * 10 + (_P,),
     "fs_panel_spmm": (_P,) * 4 + (_I,) * 9 + (_P,),
     "fs_bucket_spmv": (_P,) * 4 + (_I,) * 5 + (_P,),
     "fs_ell_dd": (_P,) * 6 + (_I,) * 5 + (_P,),
-    "fs_plan_sum": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "fs_plan_sum": (_P,) * 4 + (_I,) * 4 + (_P,),
 }
 
 _build_seconds = 0.0

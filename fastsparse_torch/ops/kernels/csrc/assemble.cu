@@ -32,6 +32,11 @@
 // 4 (SpMV) scalar lanes, a row to a thread. A thread loads up to AHEAD
 // sources' vectors before adding them in order, so a long row (a hub's
 // 20-75 sources) keeps AHEAD loads in flight rather than one.
+//
+// An f64 mode (f64 = 1) sums f64 rows the same way, one __dadd_rn each,
+// 16-byte double2 vectors (V = 2) at even L: it sums the column segments'
+// parts of a float64 product (ops/ell_ops.py, _table_product), each row's
+// in segment order, where the torch ops would add the same rows alike.
 
 #include <climits>
 #include <cstdint>
@@ -52,6 +57,14 @@ __device__ __forceinline__ float4 vadd(float4 a, float4 b) {
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
+__device__ __forceinline__ double vadd(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+__device__ __forceinline__ double2 vadd(double2 a, double2 b) {
+  return make_double2(__dadd_rn(a.x, b.x), __dadd_rn(a.y, b.y));
+}
+
 template <typename T>
 __device__ __forceinline__ T vzero();
 
@@ -65,7 +78,18 @@ __device__ __forceinline__ float4 vzero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// T: float4 (V = 4) or float (V = 1); lv = L / V vectors a row.
+template <>
+__device__ __forceinline__ double vzero<double>() {
+  return 0.0;
+}
+
+template <>
+__device__ __forceinline__ double2 vzero<double2>() {
+  return make_double2(0.0, 0.0);
+}
+
+// T: float4 (V = 4) or float (V = 1); f64: double2 (V = 2) or double;
+// lv = L / V vectors a row.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 plan_sum_kernel(const int32_t* __restrict__ ptr,
@@ -105,27 +129,36 @@ plan_sum_kernel(const int32_t* __restrict__ ptr,
 extern "C" {
 
 // ptr: int32 (nrow + 1); src: int32 (ptr[nrow]) rows of parts; parts: f32
-// (n, L); y: f32 (nrow, L).
-int fs_plan_sum(const int32_t* ptr, const int32_t* src, const float* parts,
-                float* y, int nrow, int L, int n_levels, void* stream) {
+// (n, L), f64 when f64 = 1; y: (nrow, L), of the same type.
+int fs_plan_sum(const int32_t* ptr, const int32_t* src, const void* parts,
+                void* y, int nrow, int L, int n_levels, int f64, void* stream) {
   if (nrow > 0 && L > 0) {
-    const bool vec4 = L % 4 == 0 && (uintptr_t)parts % 16 == 0 &&
-                      (uintptr_t)y % 16 == 0;
-    const int lv = vec4 ? L / 4 : L;
+    const int vw = f64 ? 2 : 4;  // elements a 16-byte vector
+    const bool vec = L % vw == 0 && (uintptr_t)parts % 16 == 0 &&
+                     (uintptr_t)y % 16 == 0;
+    const int lv = vec ? L / vw : L;
     int tpr_log2 = 0;
     while ((1 << tpr_log2) < lv && tpr_log2 < 5) ++tpr_log2;
     const long long grid =
         (((long long)nrow << tpr_log2) + THREADS - 1) / THREADS;
     if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    if (vec4) {
-      plan_sum_kernel<float4><<<(unsigned int)grid, THREADS, 0, st>>>(
-          ptr, src, (const float4*)parts, (float4*)y, nrow, lv, tpr_log2,
-          n_levels);
+#define FS_PLAN(T)                                                         \
+  plan_sum_kernel<T><<<(unsigned int)grid, THREADS, 0, st>>>(              \
+      ptr, src, static_cast<const T*>(parts), static_cast<T*>(y), nrow, lv, \
+      tpr_log2, n_levels)
+    if (f64) {
+      if (vec) {
+        FS_PLAN(double2);
+      } else {
+        FS_PLAN(double);
+      }
+    } else if (vec) {
+      FS_PLAN(float4);
     } else {
-      plan_sum_kernel<float><<<(unsigned int)grid, THREADS, 0, st>>>(
-          ptr, src, parts, y, nrow, lv, tpr_log2, n_levels);
+      FS_PLAN(float);
     }
+#undef FS_PLAN
   }
   return (int)cudaGetLastError();
 }

@@ -134,6 +134,16 @@
 // the next tile's copy in flight (80 registers, three blocks an SM),
 // 128-thread blocks, and register caps of 48 or 40 (spills) all ran the
 // 250,000-square SpMV slower.
+//
+// fs_ell_table's f64 mode (f64 = 1; ell_table_kernel<double, ...>) runs a
+// float64 product the same way: f64 values staged by the same bulk copy,
+// f64 X, every slot's product (__dmul_rn) and each row's sum (__dadd_rn)
+// in the same order, 16-byte double2 lanes at even widths. The TPU
+// reference computes f64 in double-word f32 arithmetic (ell_dd.cu), which
+// moves the same bytes at ~20x the arithmetic; this card has native f64.
+// Bound: bytes, 12 a slot (index and value) where the f32 mode moves 8.
+// The kernel's chunk_sum, row_sum and their helpers are generic in the
+// value type, so the f32 bodies compile to what they were.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,39 +172,53 @@ struct SweepParts {
   int wbase[SWEEP_MAX_PARTS];     // first packed word of the part
 };
 
-template <int V>
-__device__ __forceinline__ void load_x(const float* __restrict__ x, size_t off,
-                                       float (&r)[V]) {
+// Rounded adds and products of the value type: f32, or f64 in the table
+// kernel's f64 mode (explicit _rn intrinsics: no contraction into an FMA).
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// V consecutive values of T as one load or store: 16 bytes (float4 at V =
+// 4, double2 at V = 2) or one scalar (V = 1).
+template <int V, typename T>
+__device__ __forceinline__ void load_x(const T* __restrict__ x, size_t off,
+                                       T (&r)[V]) {
   if constexpr (V == 4) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(x + off));
     r[0] = t.x;
     r[1] = t.y;
     r[2] = t.z;
     r[3] = t.w;
+  } else if constexpr (V == 2) {
+    const double2 t = __ldg(reinterpret_cast<const double2*>(x + off));
+    r[0] = t.x;
+    r[1] = t.y;
   } else {
     r[0] = __ldg(x + off);
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store_out(float* __restrict__ out, size_t off,
-                                          const float (&o)[V]) {
+template <int V, typename T>
+__device__ __forceinline__ void store_out(T* __restrict__ out, size_t off,
+                                          const T (&o)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(out + off) = make_float4(o[0], o[1], o[2], o[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<double2*>(out + off) = make_double2(o[0], o[1]);
   } else {
     out[off] = o[0];
   }
 }
 
-template <int V, bool UNIT>
-__device__ __forceinline__ void add_entry(float (&acc)[V],
-                                          const float* __restrict__ x, int c,
-                                          float v, int ldx, int col0) {
-  float r[V];
+template <int V, bool UNIT, typename T>
+__device__ __forceinline__ void add_entry(T (&acc)[V], const T* __restrict__ x,
+                                          int c, T v, int ldx, int col0) {
+  T r[V];
   load_x<V>(x, (size_t)c * ldx + col0, r);
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    acc[i] = UNIT ? __fadd_rn(acc[i], r[i]) : __fadd_rn(acc[i], __fmul_rn(r[i], v));
+    acc[i] = UNIT ? add_rn(acc[i], r[i]) : add_rn(acc[i], mul_rn(r[i], v));
   }
 }
 
@@ -211,10 +235,10 @@ __device__ __forceinline__ int col_at(const int32_t* __restrict__ idx, int e) {
   }
 }
 
-template <bool UNIT, bool GLOBAL>
-__device__ __forceinline__ float val_at(const float* __restrict__ vals, int e) {
+template <bool UNIT, bool GLOBAL, typename T>
+__device__ __forceinline__ T val_at(const T* __restrict__ vals, int e) {
   if constexpr (UNIT) {
-    return 1.0f;
+    return T(1);
   } else {
     return GLOBAL ? __ldg(vals + e) : vals[e];
   }
@@ -222,15 +246,15 @@ __device__ __forceinline__ float val_at(const float* __restrict__ vals, int e) {
 
 // The sum of one KB-entry chunk starting at entry t0, for lanes [col0,
 // col0 + V): entry u into accumulator u % 4, ((a0 + a1) + a2) + a3.
-template <int V, bool UNIT, bool PACKED, bool GLOBAL>
+template <int V, bool UNIT, bool PACKED, bool GLOBAL, typename T>
 __device__ __forceinline__ void chunk_sum(const int32_t* __restrict__ idx,
-                                          const float* __restrict__ vals,
-                                          const float* __restrict__ x, int ldx,
+                                          const T* __restrict__ vals,
+                                          const T* __restrict__ x, int ldx,
                                           int col0, int t0, int KB,
-                                          float (&s)[V]) {
-  float a0[V], a1[V], a2[V], a3[V];
+                                          T (&s)[V]) {
+  T a0[V], a1[V], a2[V], a3[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) a0[i] = a1[i] = a2[i] = a3[i] = 0.0f;
+  for (int i = 0; i < V; ++i) a0[i] = a1[i] = a2[i] = a3[i] = T(0);
   int u = 0;
   for (; u + 4 <= KB; u += 4) {
     const int e = t0 + u;
@@ -238,10 +262,10 @@ __device__ __forceinline__ void chunk_sum(const int32_t* __restrict__ idx,
     const int c1 = col_at<PACKED, GLOBAL>(idx, e + 1);
     const int c2 = col_at<PACKED, GLOBAL>(idx, e + 2);
     const int c3 = col_at<PACKED, GLOBAL>(idx, e + 3);
-    const float v0 = val_at<UNIT, GLOBAL>(vals, e);
-    const float v1 = val_at<UNIT, GLOBAL>(vals, e + 1);
-    const float v2 = val_at<UNIT, GLOBAL>(vals, e + 2);
-    const float v3 = val_at<UNIT, GLOBAL>(vals, e + 3);
+    const T v0 = val_at<UNIT, GLOBAL>(vals, e);
+    const T v1 = val_at<UNIT, GLOBAL>(vals, e + 1);
+    const T v2 = val_at<UNIT, GLOBAL>(vals, e + 2);
+    const T v3 = val_at<UNIT, GLOBAL>(vals, e + 3);
     add_entry<V, UNIT>(a0, x, c0, v0, ldx, col0);
     add_entry<V, UNIT>(a1, x, c1, v1, ldx, col0);
     add_entry<V, UNIT>(a2, x, c2, v2, ldx, col0);
@@ -262,26 +286,26 @@ __device__ __forceinline__ void chunk_sum(const int32_t* __restrict__ idx,
   }
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    s[i] = __fadd_rn(__fadd_rn(__fadd_rn(a0[i], a1[i]), a2[i]), a3[i]);
+    s[i] = add_rn(add_rn(add_rn(a0[i], a1[i]), a2[i]), a3[i]);
   }
 }
 
 // One bucket row's K entries for lanes [col0, col0 + V): chunks of KB
 // entries. full: store the single chunk's sum; else add each chunk's sum
 // into a zeroed output in order.
-template <int V, bool UNIT, bool PACKED>
+template <int V, bool UNIT, bool PACKED, typename T>
 __device__ __forceinline__ void row_sum(const int32_t* __restrict__ idx,
-                                        const float* __restrict__ vals,
-                                        const float* __restrict__ x, int ldx,
+                                        const T* __restrict__ vals,
+                                        const T* __restrict__ x, int ldx,
                                         int col0, int K, int KB, bool full,
-                                        float (&o)[V]) {
+                                        T (&o)[V]) {
 #pragma unroll
-  for (int i = 0; i < V; ++i) o[i] = 0.0f;
+  for (int i = 0; i < V; ++i) o[i] = T(0);
   for (int t0 = 0; t0 < K; t0 += KB) {
-    float s[V];
+    T s[V];
     chunk_sum<V, UNIT, PACKED, true>(idx, vals, x, ldx, col0, t0, KB, s);
 #pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = full ? s[i] : __fadd_rn(o[i], s[i]);
+    for (int i = 0; i < V; ++i) o[i] = full ? s[i] : add_rn(o[i], s[i]);
   }
 }
 
@@ -422,7 +446,8 @@ ell_sweep_kernel(const int32_t* __restrict__ words, const float* __restrict__ x,
   const int K2 = parts.k2[p];
   float o[V];
   row_sum<V, true, true>(words + parts.wbase[p] + (size_t)(r - parts.row0[p]) * K2,
-                         nullptr, x, ldx, col0, 2 * K2, 2 * K2, true, o);
+                         static_cast<const float*>(nullptr), x, ldx, col0,
+                         2 * K2, 2 * K2, true, o);
   store_out<V>(out, (size_t)r * ldx + col0, o);
 }
 
@@ -588,7 +613,8 @@ ell_smem_narrow_kernel(const int32_t* __restrict__ idx,
 // K | KB << 32, flags)
 struct EllTile {
   const int32_t* idx;  // the first row's index words (packed pairs: words)
-  const float* vals;   // its first value; null in unit mode
+  const void* vals;    // its first value (f32, or f64 in the f64 mode);
+                       // null in unit mode
   int out_row;         // the first row's place in the output slot stream
   int x_row0;          // first row of the part's X panel in x
   int n_rows;          // rows written
@@ -605,21 +631,27 @@ constexpr int TILE_STAGED = 4;  // rows staged in shared memory (else walked
 constexpr int TABLE_THREADS = 256;
 constexpr int TABLE_BATCH = 8;  // products a thread has in flight
 
-// words between staged rows' products: K | 1 when a thread owns a row (K <=
-// 8: 32 rows a warp on 32 banks), else the least stride >= K that is 4 mod
-// 8 (8 rows a warp x 4 accumulator threads on 32 banks)
+// elements of T between staged rows' products: K | 1 when a thread owns a
+// row (K <= 8: 32 rows a warp on 32 banks; at 8-byte elements a half-warp's
+// 16 rows on 16 bank pairs), else the least stride >= K that is 4 mod 8 (8
+// rows a warp x 4 accumulator threads on 32 banks; 4 rows x 4 on 16 bank
+// pairs a half-warp at 8 bytes)
 __host__ __device__ __forceinline__ int table_stride(int K) {
   return K <= 8 ? (K | 1) : K + ((12 - K % 8) % 8);
 }
 
-template <int V>
-__device__ __forceinline__ void load_s(const float* p, float (&r)[V]) {
+template <int V, typename T>
+__device__ __forceinline__ void load_s(const T* p, T (&r)[V]) {
   if constexpr (V == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     r[0] = t.x;
     r[1] = t.y;
     r[2] = t.z;
     r[3] = t.w;
+  } else if constexpr (V == 2) {
+    const double2 t = *reinterpret_cast<const double2*>(p);
+    r[0] = t.x;
+    r[1] = t.y;
   } else {
     r[0] = *p;
   }
@@ -630,23 +662,23 @@ __device__ __forceinline__ void load_s(const float* p, float (&r)[V]) {
 // words. Each thread takes slots w = tid + TABLE_THREADS·i, TABLE_BATCH of
 // them at a time: their indices and values, then all their X loads, then the
 // products, so a thread has TABLE_BATCH gathers in flight.
-template <int V, bool UNIT, bool PACKED>
+template <typename T, int V, bool UNIT, bool PACKED>
 __device__ __forceinline__ void table_products(
-    const int32_t* __restrict__ si, const float* __restrict__ sv,
-    float* __restrict__ prod, const float* __restrict__ xp, int ldx, int nq,
+    const int32_t* __restrict__ si, const T* __restrict__ sv,
+    T* __restrict__ prod, const T* __restrict__ xp, int ldx, int nq,
     int n_slots, int K, int S) {
   int r = threadIdx.x / K, u = threadIdx.x - r * K;
   const int dr = TABLE_THREADS / K, du = TABLE_THREADS - dr * K;
   for (int w0 = threadIdx.x; w0 < n_slots; w0 += TABLE_BATCH * TABLE_THREADS) {
     int col[TABLE_BATCH], pos[TABLE_BATCH];
-    float v[TABLE_BATCH];
+    T v[TABLE_BATCH];
     bool ok[TABLE_BATCH];
 #pragma unroll
     for (int b = 0; b < TABLE_BATCH; ++b) {
       const int w = w0 + b * TABLE_THREADS;
       ok[b] = w < n_slots;
       col[b] = ok[b] ? col_at<PACKED, false>(si, w) : 0;
-      v[b] = ok[b] ? val_at<UNIT, false>(sv, w) : 0.0f;
+      v[b] = ok[b] ? val_at<UNIT, false>(sv, w) : T(0);
       pos[b] = (r * S + u) * ldx;
       u += du;
       r += dr;
@@ -656,7 +688,7 @@ __device__ __forceinline__ void table_products(
       }
     }
     for (int q = 0; q < nq; ++q) {
-      float xr[TABLE_BATCH][V];
+      T xr[TABLE_BATCH][V];
 #pragma unroll
       for (int b = 0; b < TABLE_BATCH; ++b) {
         if (ok[b]) load_x<V>(xp, (size_t)col[b] * ldx + q * V, xr[b]);
@@ -664,9 +696,9 @@ __device__ __forceinline__ void table_products(
 #pragma unroll
       for (int b = 0; b < TABLE_BATCH; ++b) {
         if (!ok[b]) continue;
-        float p[V];
+        T p[V];
 #pragma unroll
-        for (int l = 0; l < V; ++l) p[l] = UNIT ? xr[b][l] : __fmul_rn(xr[b][l], v[b]);
+        for (int l = 0; l < V; ++l) p[l] = UNIT ? xr[b][l] : mul_rn(xr[b][l], v[b]);
         store_out<V>(prod, pos[b] + q * V, p);
       }
     }
@@ -676,37 +708,37 @@ __device__ __forceinline__ void table_products(
 // Pass 2, K <= 8: a thread a (row, lane group) sums the row's products in
 // the reference's order (entry u into accumulator u % 4, ((a0 + a1) + a2) +
 // a3) and stores it; rows past n_src store +0.
-template <int V>
-__device__ __forceinline__ void table_rows_small(const float* __restrict__ prod,
-                                                 float* __restrict__ out, int ldx,
+template <typename T, int V>
+__device__ __forceinline__ void table_rows_small(const T* __restrict__ prod,
+                                                 T* __restrict__ out, int ldx,
                                                  int nq, int n_rows, int n_src,
                                                  int K, int S) {
   for (int it = threadIdx.x; it < n_rows * nq; it += TABLE_THREADS) {
     const int r = nq == 1 ? it : it / nq;
     const int q = it - r * nq;
-    float o[V];
+    T o[V];
 #pragma unroll
-    for (int l = 0; l < V; ++l) o[l] = 0.0f;
+    for (int l = 0; l < V; ++l) o[l] = T(0);
     if (r < n_src) {
-      float a[4][V];
+      T a[4][V];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
 #pragma unroll
-        for (int l = 0; l < V; ++l) a[k][l] = 0.0f;
+        for (int l = 0; l < V; ++l) a[k][l] = T(0);
       }
-      const float* p = prod + (size_t)r * S * ldx + q * V;
+      const T* p = prod + (size_t)r * S * ldx + q * V;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         if (e < K) {
-          float t[V];
+          T t[V];
           load_s<V>(p + e * ldx, t);
 #pragma unroll
-          for (int l = 0; l < V; ++l) a[e & 3][l] = __fadd_rn(a[e & 3][l], t[l]);
+          for (int l = 0; l < V; ++l) a[e & 3][l] = add_rn(a[e & 3][l], t[l]);
         }
       }
 #pragma unroll
       for (int l = 0; l < V; ++l) {
-        o[l] = __fadd_rn(__fadd_rn(__fadd_rn(a[0][l], a[1][l]), a[2][l]), a[3][l]);
+        o[l] = add_rn(add_rn(add_rn(a[0][l], a[1][l]), a[2][l]), a[3][l]);
       }
     }
     store_out<V>(out, (size_t)r * ldx + q * V, o);
@@ -720,9 +752,9 @@ __device__ __forceinline__ void table_rows_small(const float* __restrict__ prod,
 // order. The loops are uniform across the block (every row of a tile has
 // the same K and KB), so the shuffles run in full warps; rows past n_src
 // join zeros and store +0.
-template <int V>
-__device__ __forceinline__ void table_rows_quad(const float* __restrict__ prod,
-                                                float* __restrict__ out, int ldx,
+template <typename T, int V>
+__device__ __forceinline__ void table_rows_quad(const T* __restrict__ prod,
+                                                T* __restrict__ out, int ldx,
                                                 int nq, int tq_log2, int n_rows,
                                                 int n_src, int S, int KB,
                                                 int nchunks, bool full) {
@@ -735,30 +767,30 @@ __device__ __forceinline__ void table_rows_quad(const float* __restrict__ prod,
   for (int r0 = 0; r0 < n_rows; r0 += rows_pass) {
     const int r = r0 + lr;
     const bool live = r < n_src && q < nq;
-    const float* p = prod + (size_t)(live ? r : 0) * S * ldx + q * V;
-    float o[V];
+    const T* p = prod + (size_t)(live ? r : 0) * S * ldx + q * V;
+    T o[V];
 #pragma unroll
-    for (int l = 0; l < V; ++l) o[l] = 0.0f;
+    for (int l = 0; l < V; ++l) o[l] = T(0);
     for (int c = 0; c < nchunks; ++c) {
-      float a[V];
+      T a[V];
 #pragma unroll
-      for (int l = 0; l < V; ++l) a[l] = 0.0f;
+      for (int l = 0; l < V; ++l) a[l] = T(0);
       if (live) {
         for (int e = c * KB + j; e < (c + 1) * KB; e += 4) {
-          float t[V];
+          T t[V];
           load_s<V>(p + e * ldx, t);
 #pragma unroll
-          for (int l = 0; l < V; ++l) a[l] = __fadd_rn(a[l], t[l]);
+          for (int l = 0; l < V; ++l) a[l] = add_rn(a[l], t[l]);
         }
       }
 #pragma unroll
       for (int l = 0; l < V; ++l) {
-        const float a0 = __shfl_sync(0xffffffffu, a[l], src0);
-        const float a1 = __shfl_sync(0xffffffffu, a[l], src0 + (1 << tq_log2));
-        const float a2 = __shfl_sync(0xffffffffu, a[l], src0 + (2 << tq_log2));
-        const float a3 = __shfl_sync(0xffffffffu, a[l], src0 + (3 << tq_log2));
-        const float s = __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), a2), a3);
-        o[l] = full ? s : __fadd_rn(o[l], s);
+        const T a0 = __shfl_sync(0xffffffffu, a[l], src0);
+        const T a1 = __shfl_sync(0xffffffffu, a[l], src0 + (1 << tq_log2));
+        const T a2 = __shfl_sync(0xffffffffu, a[l], src0 + (2 << tq_log2));
+        const T a3 = __shfl_sync(0xffffffffu, a[l], src0 + (3 << tq_log2));
+        const T s = add_rn(add_rn(add_rn(a0, a1), a2), a3);
+        o[l] = full ? s : add_rn(o[l], s);
       }
     }
     if (r < n_rows && q < nq && j == 0) store_out<V>(out, (size_t)r * ldx + q * V, o);
@@ -768,45 +800,47 @@ __device__ __forceinline__ void table_rows_quad(const float* __restrict__ prod,
 // A tile whose rows do not fit the stage (K past the tile's slots, unsplit
 // layouts only): a thread a (row, lane group) walks its row's chunks in
 // global memory (row_sum: the lane-split body's order, the same sums).
-template <int V, bool UNIT, bool PACKED>
+template <typename T, int V, bool UNIT, bool PACKED>
 __device__ __forceinline__ void table_rows_global(const EllTile& t,
-                                                  const float* __restrict__ xp,
-                                                  float* __restrict__ out,
+                                                  const T* __restrict__ xp,
+                                                  T* __restrict__ out,
                                                   int ldx, int nq) {
   const int kw = PACKED ? t.K / 2 : t.K;
+  const T* vals = static_cast<const T*>(t.vals);
   for (int it = threadIdx.x; it < t.n_rows * nq; it += TABLE_THREADS) {
     const int r = it / nq;
     const int q = it - r * nq;
-    float o[V];
+    T o[V];
 #pragma unroll
-    for (int l = 0; l < V; ++l) o[l] = 0.0f;
+    for (int l = 0; l < V; ++l) o[l] = T(0);
     if (r < t.n_src) {
       row_sum<V, UNIT, PACKED>(t.idx + (size_t)r * kw,
-                               UNIT ? nullptr : t.vals + (size_t)r * t.K, xp, ldx,
+                               UNIT ? nullptr : vals + (size_t)r * t.K, xp, ldx,
                                q * V, t.K, t.KB, (t.flags & TILE_FULL) != 0, o);
     }
     store_out<V>(out, (size_t)r * ldx + q * V, o);
   }
 }
 
-template <int V, bool UNIT, bool PACKED>
+template <typename T, int V, bool UNIT, bool PACKED>
 __device__ __forceinline__ void table_tile(const EllTile& t, const int32_t* si,
-                                           const float* sv, float* prod,
-                                           const float* __restrict__ xp,
-                                           float* __restrict__ out, int ldx,
+                                           const T* sv, T* prod,
+                                           const T* __restrict__ xp,
+                                           T* __restrict__ out, int ldx,
                                            int nq, int tq_log2) {
   if (!(t.flags & TILE_STAGED)) {
-    table_rows_global<V, UNIT, PACKED>(t, xp, out, ldx, nq);
+    table_rows_global<T, V, UNIT, PACKED>(t, xp, out, ldx, nq);
     return;
   }
   const int S = table_stride(t.K);
-  table_products<V, UNIT, PACKED>(si, sv, prod, xp, ldx, nq, t.n_src * t.K, t.K, S);
+  table_products<T, V, UNIT, PACKED>(si, sv, prod, xp, ldx, nq, t.n_src * t.K,
+                                     t.K, S);
   __syncthreads();
   if (t.K <= 8) {
-    table_rows_small<V>(prod, out, ldx, nq, t.n_rows, t.n_src, t.K, S);
+    table_rows_small<T, V>(prod, out, ldx, nq, t.n_rows, t.n_src, t.K, S);
   } else {
-    table_rows_quad<V>(prod, out, ldx, nq, tq_log2, t.n_rows, t.n_src, S, t.KB,
-                       t.K / t.KB, (t.flags & TILE_FULL) != 0);
+    table_rows_quad<T, V>(prod, out, ldx, nq, tq_log2, t.n_rows, t.n_src, S,
+                          t.KB, t.K / t.KB, (t.flags & TILE_FULL) != 0);
   }
 }
 
@@ -815,30 +849,32 @@ __device__ __forceinline__ void table_tile(const EllTile& t, const int32_t* si,
 // span's start rounded down to 16 bytes to its end rounded up (the extra
 // words share a 16-byte granule with the span, so they lie in its
 // allocation, and are not read), completing on one mbarrier. Shared memory:
-// the barrier, idx_cap index words, val_cap value words, the products.
-template <int V, bool UNIT>
+// the barrier, idx_cap index words, val_cap values and prod_cap products
+// (elements of T, multiples of 4, so each array starts on 16 bytes).
+template <typename T, int V, bool UNIT>
 __global__ void __launch_bounds__(TABLE_THREADS)
-ell_table_kernel(const EllTile* __restrict__ tiles, const float* __restrict__ x,
-                 float* __restrict__ out, int ldx, int idx_cap, int val_cap,
+ell_table_kernel(const EllTile* __restrict__ tiles, const T* __restrict__ x,
+                 T* __restrict__ out, int ldx, int idx_cap, int val_cap,
                  int tq_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   int32_t* s_idx = reinterpret_cast<int32_t*>(smem_raw + 16);
-  float* s_val = reinterpret_cast<float*>(s_idx + idx_cap);
-  float* prod = s_val + val_cap;
+  T* s_val = reinterpret_cast<T*>(s_idx + idx_cap);
+  T* prod = s_val + val_cap;
   const EllTile t = tiles[blockIdx.x];
   const bool packed = UNIT && (t.flags & TILE_PACKED);
   const int nq = (ldx + V - 1) / V;
-  const float* xp = x + (size_t)t.x_row0 * ldx;
-  float* op = out + (size_t)t.out_row * ldx;
+  const T* xp = x + (size_t)t.x_row0 * ldx;
+  T* op = out + (size_t)t.out_row * ldx;
   int hi = 0, hv = 0;
   if (t.flags & TILE_STAGED) {
     const uintptr_t ia = reinterpret_cast<uintptr_t>(t.idx);
     const uintptr_t va = reinterpret_cast<uintptr_t>(t.vals);
     hi = (int)(ia & 15) >> 2;
-    hv = (int)(va & 15) >> 2;
+    hv = (int)(va & 15) / (int)sizeof(T);
     const uint32_t ib = ((hi + t.n_src * (packed ? t.K / 2 : t.K)) * 4 + 15) & ~15u;
-    const uint32_t vb = UNIT ? 0u : ((hv + t.n_src * t.K) * 4 + 15) & ~15u;
+    const uint32_t vb =
+        UNIT ? 0u : ((hv + t.n_src * t.K) * (uint32_t)sizeof(T) + 15) & ~15u;
     if (threadIdx.x == 0) {
       acp::mbar_init(bar, 1);
       acp::fence_mbar_init();
@@ -861,27 +897,28 @@ ell_table_kernel(const EllTile* __restrict__ tiles, const float* __restrict__ x,
   }
   if constexpr (UNIT) {  // packed pairs are unit-only
     if (packed) {
-      table_tile<V, true, true>(t, s_idx + hi, s_val + hv, prod, xp, op, ldx, nq,
-                                tq_log2);
+      table_tile<T, V, true, true>(t, s_idx + hi, s_val + hv, prod, xp, op, ldx,
+                                   nq, tq_log2);
       return;
     }
   }
-  table_tile<V, UNIT, false>(t, s_idx + hi, s_val + hv, prod, xp, op, ldx, nq,
-                             tq_log2);
+  table_tile<T, V, UNIT, false>(t, s_idx + hi, s_val + hv, prod, xp, op, ldx, nq,
+                                tq_log2);
 }
 
-template <int V, bool UNIT>
-int launch_table(const EllTile* tiles, int n_tiles, const float* x, float* out,
+template <typename T, int V, bool UNIT>
+int launch_table(const EllTile* tiles, int n_tiles, const void* x, void* out,
                  int ldx, int idx_cap, int val_cap, size_t smem, int tq_log2,
                  cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ell_table_kernel<V, UNIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ell_table_kernel<T, V, UNIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ell_table_kernel<V, UNIT><<<n_tiles, TABLE_THREADS, smem, st>>>(
-      tiles, x, out, ldx, idx_cap, val_cap, tq_log2);
+  ell_table_kernel<T, V, UNIT><<<n_tiles, TABLE_THREADS, smem, st>>>(
+      tiles, static_cast<const T*>(x), static_cast<T*>(out), ldx, idx_cap,
+      val_cap, tq_log2);
   return (int)cudaGetLastError();
 }
 
@@ -1088,24 +1125,39 @@ int fs_ell_smem(const int32_t* idx, const float* vals, const float* x,
   return (int)cudaGetLastError();
 }
 
-// tiles: n_tiles EllTile records (device); x f32 (x_rows, ldx), every
-// part's X panel at its tile's x_row0; out f32 (slots, ldx), each tile's
-// rows at its out_row. idx_cap, val_cap and prod_cap (words, multiples of
-// 4) hold the largest staged tile's spans and products (val_cap 0 when
-// unit = 1). ldx <= NARROW_MAX_LANES.
-int fs_ell_table(const void* tiles, int n_tiles, const float* x, float* out,
-                 int ldx, int unit, int idx_cap, int val_cap, int prod_cap,
-                 void* stream) {
+// tiles: n_tiles EllTile records (device); x (x_rows, ldx), every part's X
+// panel at its tile's x_row0; out (slots, ldx), each tile's rows at its
+// out_row; x, out and the valued tiles' values f32, or f64 when f64 = 1.
+// idx_cap (words), val_cap and prod_cap (elements of the value type; all
+// multiples of 4) hold the largest staged tile's spans and products
+// (val_cap 0 when unit = 1). ldx <= NARROW_MAX_LANES.
+int fs_ell_table(const void* tiles, int n_tiles, const void* x, void* out,
+                 int ldx, int unit, int f64, int idx_cap, int val_cap,
+                 int prod_cap, void* stream) {
   if (n_tiles <= 0 || ldx <= 0) return (int)cudaGetLastError();
   if (ldx > NARROW_MAX_LANES || (idx_cap | val_cap | prod_cap) & 3) {
     return (int)cudaErrorInvalidValue;
   }
-  const LaneSplit s = lane_split(x, out, ldx);
-  const size_t smem = 16 + 4 * ((size_t)idx_cap + val_cap + prod_cap);
+  const size_t esize = f64 ? 8 : 4;
+  const size_t smem = 16 + 4 * (size_t)idx_cap + esize * ((size_t)val_cap + prod_cap);
   const cudaStream_t st = (cudaStream_t)stream;
   const EllTile* t = static_cast<const EllTile*>(tiles);
+  if (f64) {
+    // V = 2 (one 16-byte double2) at even widths on 16-byte buffers
+    const bool vec2 = ldx % 2 == 0 && (uintptr_t)x % 16 == 0 &&
+                      (uintptr_t)out % 16 == 0;
+    const int nvec = vec2 ? ldx / 2 : ldx;
+    int tq_log2 = 0;
+    while ((1 << tq_log2) < nvec) ++tq_log2;
+#define FS_TABLE64(V, U) \
+  launch_table<double, V, U>(t, n_tiles, x, out, ldx, idx_cap, val_cap, smem, tq_log2, st)
+    if (vec2) return unit ? FS_TABLE64(2, true) : FS_TABLE64(2, false);
+    return unit ? FS_TABLE64(1, true) : FS_TABLE64(1, false);
+#undef FS_TABLE64
+  }
+  const LaneSplit s = lane_split(x, out, ldx);
 #define FS_TABLE(V, U) \
-  launch_table<V, U>(t, n_tiles, x, out, ldx, idx_cap, val_cap, smem, s.tpr_log2, st)
+  launch_table<float, V, U>(t, n_tiles, x, out, ldx, idx_cap, val_cap, smem, s.tpr_log2, st)
   if (s.vec4) return unit ? FS_TABLE(4, true) : FS_TABLE(4, false);
   return unit ? FS_TABLE(1, true) : FS_TABLE(1, false);
 #undef FS_TABLE

@@ -21,7 +21,11 @@ chunked order over plain columns, at every width.
 that `ell_table` builds from the parts (`EllPart`, one per bucket chunk or
 sweep sub-part, in the layout's order): each part keeps its body, so each
 row is the per-part kernels' sum, bit for bit. It replaces no Pallas kernel
-of its own: the reference launches one kernel per part.
+of its own: the reference launches one kernel per part. It has an f64 mode
+(a table built with ``dtype=torch.float64``): f64 values, X, products and
+sums in the same order, for float64 products, which the TPU reference
+computes in double-word f32 arithmetic (`ops.kernels.ell_dd`) and this
+card computes natively.
 
 Interface differences from the reference kernels: no ``n_block``. The CUDA
 kernel covers all of X's lanes in one launch, so ``x`` may have any lane
@@ -75,8 +79,12 @@ _SWEEP_MAX_PARTS = 128  # SWEEP_MAX_PARTS in csrc/ell_spmm.cu
 TABLE_MAX_LANES = 8  # NARROW_MAX_LANES in csrc/ell_spmm.cu
 # slots a staged tile of `ell_table` holds at one X lane (its products take
 # table_stride(K)/K times as many words, at most 1.5x: under 30 KB of
-# shared memory a block, so four blocks share an SM; tiles of 1,024, 3,072
-# and 4,096 slots ran the 250,000-square SpMV slower on an H100)
+# shared memory a block at f32, so four blocks share an SM; tiles of 1,024,
+# 3,072 and 4,096 slots ran the 250,000-square SpMV slower on an H100). At
+# f64 a slot's value and product take twice the bytes (under 48 KB a block)
+# and the f64 kernel three blocks an SM, and 2,048 slots is still the
+# fastest: 1,024- and 4,096-slot tiles ran the 100,000-square f64 SpMV 3 %
+# and 13 % slower on an H100
 _TABLE_SLOTS = 2048
 _TABLE_GLOBAL_ROWS = 32  # rows a tile of rows wider than the stage walks
 # EllTile.flags in csrc/ell_spmm.cu
@@ -146,7 +154,7 @@ def _gather_rows(cols, vals, x, KB: int, full: bool):
     added into a zeroed output (stored directly when ``full``)."""
     nb, K = cols.shape
     idx = cols.long()
-    out = torch.zeros((nb, x.shape[1]), dtype=torch.float32, device=x.device)
+    out = torch.zeros((nb, x.shape[1]), dtype=x.dtype, device=x.device)
     for t0 in range(0, K, KB):
         acc = [torch.zeros_like(out) for _ in range(_N_ACC)]
         for u in range(KB):
@@ -348,8 +356,9 @@ class EllTable:
     the CPU. A tile is a run of rows of one part whose slots fit
     ``_TABLE_SLOTS // lanes`` (staged in shared memory), else of
     ``_TABLE_GLOBAL_ROWS`` rows walked in global memory. ``*_cap``: the
-    shared-memory words the largest staged tile needs (spans rounded out
-    to 16 bytes, and its products)."""
+    shared-memory elements the largest staged tile needs (spans rounded
+    out to 16 bytes, and its products): index words, and values and
+    products of ``dtype``, the product's (f32 or f64)."""
 
     parts: tuple
     tiles: np.ndarray
@@ -361,6 +370,7 @@ class EllTable:
     idx_cap: int
     val_cap: int
     prod_cap: int
+    dtype: Any
 
 
 def _table_stride(K: int) -> int:
@@ -373,16 +383,21 @@ def _words4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def ell_table(parts, lanes: int, unit: bool, x_rows: int, device):
+def ell_table(parts, lanes: int, unit: bool, x_rows: int, device,
+              dtype=torch.float32):
     """The tile table of a narrow product over ``parts`` (`EllPart`, in
     output order): output rows are the parts' rows in turn, the slot stream
     the per-part kernels' outputs concatenate to. Each part is cut into
-    tiles of about equal slot counts, in part order. On a CUDA ``device``
-    the records go to the card in one copy."""
+    tiles of about equal slot counts, in part order. ``dtype``: the
+    product's, f32 or f64 (valued parts hold values of it). On a CUDA
+    ``device`` the records go to the card in one copy."""
     if not 0 < lanes <= TABLE_MAX_LANES:
         raise ValueError(f"ell_table: {lanes} lanes, at most "
                          f"{TABLE_MAX_LANES}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ell_table: {dtype} products (f32 or f64 only)")
     cuda = torch.device(device).type == "cuda"
+    esize = 8 if dtype == torch.float64 else 4
     stage = _TABLE_SLOTS // lanes
     recs = []
     idx_cap = val_cap = prod_cap = 0
@@ -395,6 +410,9 @@ def ell_table(parts, lanes: int, unit: bool, x_rows: int, device):
                 not unit and not pt.vals.is_contiguous()):
             raise ValueError("ell_table: parts must be contiguous on the "
                              "table's device")
+        if not unit and pt.vals.dtype != dtype:
+            raise TypeError(f"ell_table: {pt.vals.dtype} values in a "
+                            f"{dtype} table")
         staged = pt.K <= stage
         if staged:
             n_t = -(-pt.n_rows // max(1, stage // pt.K))
@@ -410,13 +428,15 @@ def ell_table(parts, lanes: int, unit: bool, x_rows: int, device):
             n = min(rows, pt.n_rows - r0)
             src = min(max(pt.n_src - r0, 0), n)
             r = pt.row0 + r0
-            recs.append((i0 + r * kw * 4, 0 if unit else v0 + r * pt.K * 4,
+            recs.append((i0 + r * kw * 4,
+                         0 if unit else v0 + r * pt.K * esize,
                          (out_row + r0) | (pt.x_row0 << 32), n | (src << 32),
                          pt.K | (pt.KB << 32), flags))
             if staged:
                 idx_cap = max(idx_cap, _words4(3 + n * kw))
-                if not unit:
-                    val_cap = max(val_cap, _words4(3 + n * pt.K))
+                if not unit:  # a span starts up to 16 bytes early
+                    val_cap = max(val_cap,
+                                  _words4(16 // esize - 1 + n * pt.K))
                 prod_cap = max(prod_cap,
                                _words4(n * _table_stride(pt.K) * lanes))
         out_row += pt.n_rows
@@ -430,14 +450,14 @@ def ell_table(parts, lanes: int, unit: bool, x_rows: int, device):
     return EllTable(parts=tuple(parts), tiles=tiles, dev=dev,
                     n_slots=out_row, x_rows=int(x_rows), lanes=int(lanes),
                     unit=bool(unit), idx_cap=idx_cap, val_cap=val_cap,
-                    prod_cap=prod_cap)
+                    prod_cap=prod_cap, dtype=dtype)
 
 
 def ell_table_spmm_plain(table, x):
     """Part by part in output order: each part's rows by its own body
     (`_gather_rows`, as `ell_bucket_spmm_plain` and `ell_sweep_spmm_plain`
-    compute them), padding rows +0."""
-    out = torch.zeros((table.n_slots, x.shape[1]), dtype=torch.float32,
+    compute them), padding rows +0, in the table's dtype."""
+    out = torch.zeros((table.n_slots, x.shape[1]), dtype=table.dtype,
                       device=x.device)
     row = 0
     for pt in table.parts:
@@ -453,18 +473,19 @@ def ell_table_spmm_plain(table, x):
 
 
 def ell_table_spmm(table, x):
-    """Every part of a narrow product in one launch: f32 ``(n_slots,
-    lanes)``, each part's rows at its place in the slot stream, bit-equal
-    to the per-part kernels' outputs concatenated (padding rows +0, where
-    a part's padding reads a zero row or a zero value).
+    """Every part of a narrow product in one launch: ``(n_slots, lanes)``
+    of the table's dtype, each part's rows at its place in the slot
+    stream, bit-equal to the per-part kernels' outputs concatenated
+    (padding rows +0, where a part's padding reads a zero row or a zero
+    value); at f64, to its plain twin's f64 arithmetic in the same order.
 
-    ``table``: `ell_table`'s; ``x`` f32 ``(table.x_rows, table.lanes)``,
-    every part's X panel at its ``x_row0`` (unit padding columns at a zero
-    row of it). On the card `fs_ell_table`: one block a tile; a staged
-    tile's index and value spans arrive by one bulk copy each, every slot's
-    product is formed in shared memory, then each row's sum in the
-    reference's order."""
-    _check("ell_table.x", x, torch.float32, 2)
+    ``table``: `ell_table`'s; ``x`` ``(table.x_rows, table.lanes)`` of its
+    dtype, every part's X panel at its ``x_row0`` (unit padding columns at
+    a zero row of it). On the card `fs_ell_table`: one block a tile; a
+    staged tile's index and value spans arrive by one bulk copy each,
+    every slot's product is formed in shared memory, then each row's sum
+    in the reference's order."""
+    _check("ell_table.x", x, table.dtype, 2)
     if tuple(x.shape) != (table.x_rows, table.lanes):
         raise ValueError(f"ell_table: x {tuple(x.shape)}, the table needs "
                          f"{(table.x_rows, table.lanes)}")
@@ -473,11 +494,12 @@ def ell_table_spmm(table, x):
         return ell_table_spmm_plain(table, x)
     if table.dev is None or table.dev.device != x.device:
         raise ValueError("ell_table: the table was built for another device")
-    out = torch.empty((table.n_slots, table.lanes), dtype=torch.float32,
+    out = torch.empty((table.n_slots, table.lanes), dtype=table.dtype,
                       device=x.device)
     _launch(
         "ell_table", lib.fs_ell_table, _ptr(table.dev), len(table.tiles),
-        _ptr(x), _ptr(out), table.lanes, int(table.unit), table.idx_cap,
-        table.val_cap, table.prod_cap, counts=launches,
+        _ptr(x), _ptr(out), table.lanes, int(table.unit),
+        int(table.dtype == torch.float64), table.idx_cap, table.val_cap,
+        table.prod_cap, counts=launches,
     )
     return out

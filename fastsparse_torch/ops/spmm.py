@@ -4,9 +4,11 @@
 Ported: the BsrMatrix branch (mono, class panels, tile buckets), the
 ColSegmented branch (one cross-segment plan, else the sum of the segments'
 products, as the reference dispatches), the EllMatrix / SegmentedEll
-branches (the f32 gather engine; for other dtypes, or an unsegmented X
-panel past the engine's residency budget, the reference's per-bucket scan
-as torch ops), the HybridMatrix branch with its dense tiles and its
+branches (the f32 gather engine, and on the card its table kernel's f64
+mode at X widths of at most 8; for other dtypes and widths, f64 on the
+CPU, or an unsegmented X panel past the engine's residency budget, the
+reference's per-bucket scan as torch ops, span ``ell_scan``), the
+HybridMatrix branch with its dense tiles and its
 dense-column block (`dense_cols_spmm`, the `densecols_spmm` kernel),
 `spmm_dd`, the fp64-class product, and the reference's streaming scatter
 engine for COO/CSR (`_stream_scatter`), which `spmm_t` also runs down the
@@ -98,16 +100,33 @@ def _bucket_cols(b, ncol):
 def _ell_scan(A, X):
     """The reference's per-bucket scan (`ops/spmm.py`, EllMatrix branch):
     each bucket's rows summed slot by slot in slot order, the bucket's
-    rows then added into Y at their row ids."""
+    rows then added into Y at their row ids; a SegmentedEll's segments
+    added in segment order. Span ``ell_scan``, counter ``ell_scan``: one
+    per bucket."""
     dt = _ell_dtype(A, X)
+    with tracing.span("ell_scan", dtype=str(dt).removeprefix("torch.")):
+        if isinstance(A, EllMatrix):
+            return _scan_buckets(A, X, dt)
+        Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dt, device=X.device)
+        tracing.count(1 + len(A.segments))
+        for off, seg in zip(A.col_offsets, A.segments):
+            Y = Y + _scan_buckets(seg, X[off : off + seg.shape[1]], dt)
+        return Y
+
+
+def _scan_buckets(A, X, dt):
+    tracing.count(1 + (X.dtype != dt))
     X = X.to(dt)
     Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dt, device=X.device)
     for b in A.buckets:
+        K = b.cols.shape[1]
+        tracing.count(5 + 3 * K + (b.vals.dtype != dt))
+        tracing.count(1, "ell_scan")
         cols = _bucket_cols(b, A.shape[1])
         vals = b.vals.to(dt)
         acc = torch.zeros((cols.shape[0], X.shape[1]), dtype=dt,
                           device=X.device)
-        for k in range(cols.shape[1]):
+        for k in range(K):
             acc = acc + vals[:, k, None] * X[cols[:, k]]
         Y.index_add_(0, b.row_ids.long(), acc)
     return Y
@@ -176,14 +195,9 @@ def spmm(A, X):
             A.shape[1], X.shape[1]
         )
         dt = _ell_dtype(A, X)
-        if gather_engine_supported(dt) and fits:
+        if gather_engine_supported(dt, A, X) and fits:
             return ell_spmm(A, X)
-        if isinstance(A, EllMatrix):
-            return _ell_scan(A, X)
-        Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dt, device=X.device)
-        for off, seg in zip(A.col_offsets, A.segments):
-            Y = Y + spmm(seg, X[off : off + seg.shape[1]])
-        return Y
+        return _ell_scan(A, X)
     rows, cols, vals = _coo_like(A)
     return _stream_scatter(rows, cols, vals, X, A.shape[0])
 

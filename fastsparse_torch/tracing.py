@@ -13,7 +13,10 @@ An operator turns them on around the calls to trace::
 
 A span marks one layer boundary, not one launch: ``product`` (a
 `SparseOperator` call), ``boundary`` (its permutation gathers),
-``hybrid``, ``bsr_ops``, ``ell_ops``, ``assemble``, ``densecols``,
+``hybrid``, ``bsr_ops``, ``ell_ops`` (attr ``dtype``, the product's:
+``float32``, or ``float64`` on the table kernel's f64 mode),
+``ell_scan`` (the reference's per-bucket ELL scan as torch ops, attr
+``dtype``), ``assemble``, ``densecols``,
 ``cg.solve``/``cg.iter``/``cg.sync`` and ``build``/``build.*``. Each
 records its name, ``t0``/``t1`` from `time.perf_counter_ns`, its parent
 span and so its root (the outermost span it ran under: one call of the
@@ -27,7 +30,10 @@ program), and the counts made while it was the innermost open span:
   (``ell_table``), else one for each part (``ell_bucket``,
   ``ell_sweep``, ``ell_bucket_smem``); the plain versions on the CPU
   count alike. A captured product keeps its total, and each replay
-  counts it again (`graphs.ProductGraphs`).
+  counts it again (`graphs.ProductGraphs`);
+* ``ell_scan``: buckets the per-bucket torch-op scan runs (``ell_scan``
+  spans: ELL products the gather engine does not take, f64 past its
+  table path or on the CPU), counted again on a replay as ``ell_launch``.
 
 A span's times are those of the host enqueueing the work, not of the
 device running it: tracing adds no synchronise, no read-back and no device

@@ -546,6 +546,122 @@ def test_ell_table_product_replayed(card, monkeypatch, case, N):
         assert torch.equal(y, outs[0]) and torch.equal(y, per_part)
 
 
+F64_TABLE_CASES = ell_table_cases.CASES + ("empty_rows",)
+
+
+def _f64_table_case(monkeypatch, case, card):
+    """``(m, A)``: a layout of `test_torch_ell_table` with its values in
+    float64 (the 0/1 ones stay unit, under an f64 X), or ``empty_rows``,
+    an unsplit f64 `SegmentedEll` of 3 segments whose every third row
+    holds nothing."""
+    from fastsparse_torch import linops
+
+    if case != "empty_rows":
+        return (ell_table_cases.matrix(case, np.float64),
+                ell_table_cases.layout(monkeypatch, case, card, np.float64))
+    monkeypatch.setattr(linops, "SEG_COLS", 1024)
+    monkeypatch.setattr(linops._balanced_seg_cols, "__defaults__", (1024,))
+    m = ft.bench.matrices.powerlaw(3000, 3000, 60_000, seed=5, alpha=1.0,
+                                   dtype=np.float64)
+    keep = np.arange(m.shape[0]) % 3 != 0
+    m = (sp.diags(keep.astype(np.float64)) @ m).tocsr()
+    m.eliminate_zeros()
+    A = ft.operator(m, format="ell", transpose=False, device=card).fwd
+    assert len(A.segments) == 3 and np.all(np.diff(m.indptr)[~keep] == 0)
+    return m, A
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("case", F64_TABLE_CASES)
+def test_ell_table_f64_matches_plain_and_reference(card, monkeypatch, case,
+                                                   N):
+    """The table kernel's f64 mode on small layouts (valued with f64
+    values, 0/1 under an f64 X, segmented and not, chunked rows, rows past
+    a tile's stage, empty rows): one launch of ``ell_table_kernel<double>``,
+    bit-equal to its plain twin's f64 arithmetic on the same card tensors
+    and from call to call; the product through it and its plan (one
+    ``ell_launch``, no ``ell_scan``) within 1e-13 of the plain float64
+    reference, and bit-equal to the CPU's twin of the same path."""
+    from fastsparse_torch import tracing
+    from fastsparse_torch.ops import ell_ops
+
+    import f64_reference as ref
+
+    m, A = _f64_table_case(monkeypatch, case, card)
+    L = ell_ops._lanes(N)
+    X = torch.from_numpy(np.random.default_rng(N).standard_normal(
+        (A.shape[1], N))).cuda()
+    nw = ell_ops._narrow(A, L, X.device, torch.float64)
+    x = ell_table_cases.table_x(nw, X, L)
+    ek.reset_launches()
+    got = ek.ell_table_spmm(nw.table, x)
+    again = ek.ell_table_spmm(nw.table, x)
+    torch.cuda.synchronize()
+    assert ek.launches["ell_table"] == 2
+    assert got.dtype == torch.float64 and got.shape == (nw.table.n_slots, L)
+    assert torch.equal(got, again), (case, N)
+    assert torch.equal(got, ek.ell_table_spmm_plain(nw.table, x)), (case, N)
+    names = kernel_names(lambda: ek.ell_table_spmm(nw.table, x))
+    assert "ell_table_kernelId" in names and "ell_table_kernelIf" not in names
+    with tracing.recording() as rec:
+        Y = ell_ops.ell_spmm(A, X)
+    torch.cuda.synchronize()
+    assert rec.counts["ell_launch"] == 1 and "ell_scan" not in rec.counts
+    assert Y.dtype == torch.float64 and Y.shape == (m.shape[0], N)
+    assert ref.rel(Y, ref.matmat(m, X)) < 1e-13, (case, N)
+    A_cpu = (ell_table_cases.layout(monkeypatch, case, "cpu", np.float64)
+             if case != "empty_rows" else
+             ft.operator(m, format="ell", transpose=False, device="cpu").fwd)
+    assert torch.equal(Y.cpu(), ell_ops.ell_spmm(A_cpu, X.cpu()))
+
+
+@pytest.mark.parametrize("name,N", [("matvec", 1), ("matmat", 3),
+                                    ("matmat", 8), ("matmat", 16)])
+def test_f64_operator_table_path_replayed(card, monkeypatch, name, N):
+    """A segmented f64 operator's product called three times (eager,
+    captured, replayed), for an f64 and an f32 operand: bit-equal to each
+    other, within 1e-13 of the reference; at N <= 8 one ``ell_launch`` and
+    no ``ell_scan`` a call, an ``ell_table`` and a ``plan_sum`` launch on
+    the eager call; at N = 16 the scan, one ``ell_scan`` a bucket."""
+    import dataclasses
+
+    from fastsparse_torch import tracing
+    from fastsparse_torch.ops.kernels import assemble as ak
+
+    import f64_reference as ref
+
+    m, A = _f64_table_case(monkeypatch, "empty_rows", card)
+    op = ft.operator(m, format="ell", transpose=False, device=card)
+    buckets = sum(len(s.buckets) for s in op.fwd.segments)
+    g = np.random.default_rng(N)
+    shape = (m.shape[1],) if name == "matvec" else (m.shape[1], N)
+    for dt in (torch.float64, torch.float32):
+        x = torch.from_numpy(g.standard_normal(shape)).to("cuda", dt)
+        fresh = dataclasses.replace(op)  # a graph cache of its own
+        ek.reset_launches()
+        ak.reset_launches()
+        outs, recs = [], []
+        for _ in range(3):
+            with tracing.recording() as rec:
+                outs.append(getattr(fresh, name)(x))
+            torch.cuda.synchronize()
+            recs.append(rec)
+        assert recs[1].counts["captures"] == 1
+        assert recs[2].counts["replays"] == 1
+        for y in outs:
+            assert y.dtype == torch.float64 and torch.equal(y, outs[0])
+        assert ref.rel(outs[0], ref.matmat(m, x)) < 1e-13, (name, N, dt)
+        if N <= 8:
+            assert [r.counts.get("ell_launch") for r in recs] == [1] * 3
+            assert not any("ell_scan" in r.counts for r in recs)
+            assert ek.launches["ell_table"] == 2  # eager and captured
+            assert ak.launches["plan_sum"] == 2
+        else:
+            assert [r.counts.get("ell_scan") for r in recs] == [buckets] * 3
+            assert not any("ell_launch" in r.counts for r in recs)
+            assert ek.launches["ell_table"] == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("binary", [False, True])
 def test_scatter_products_on_card_vs_scipy(card, binary, dtype):

@@ -1065,6 +1065,60 @@ def test_fp64_paths_vs_scipy(fp64, config_b):
     assert dk.launches["ell_bucket_dd_valued"] > 0
 
 
+def test_fp64_config1_on_the_table_kernel(fp64):
+    """BASELINE config 1's operator, the benchmark's ``fp64rand100k``
+    layout (5 unsplit f64 segments, 55 buckets, 5,643,400 slots): matvec
+    for an f64 and an f32 x and matmat at N = 8 run one launch of the
+    table kernel's f64 mode and one ``plan_sum``, count one ``ell_launch``
+    and no ``ell_scan``, and agree within 1e-13 with the plain float64
+    reference and with the per-bucket scan they replace (the table path
+    off); two eager calls give the same bits, and so does a replay."""
+    import f64_reference as ref
+    from fastsparse_torch import tracing
+
+    m1, op = fp64.m1, fp64.op1
+    A = op.fwd
+    assert m1.nnz == 4_998_767 and len(A.segments) == 5
+    assert sum(len(s.buckets) for s in A.segments) == 55
+    assert sum(b.cols.numel() for s in A.segments for b in s.buckets) == (
+        5_643_400)
+    g = np.random.default_rng(2**31 + 9)
+    x64 = _cuda(g.standard_normal(m1.shape[1]))
+    cases = [("matvec", x64), ("matvec", x64.float()),
+             ("matmat", _cuda(g.standard_normal((m1.shape[1], 8))))]
+    for name, x in cases:
+        for c in (ek, ak):
+            c.reset_launches()
+        with tracing.recording() as rec:
+            y = getattr(_eager(op), name)(x)
+            y2 = getattr(_eager(op), name)(x)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float64 and torch.equal(y, y2), name
+        assert {k: v for k, v in ek.launches.items() if v} == {
+            "ell_table": 2}
+        assert ak.launches["plan_sum"] == 2
+        assert rec.counts["ell_launch"] == 2 and "ell_scan" not in rec.counts
+        want = ref.matmat(m1, x)
+        assert ref.rel(y, want) < 1e-13, (name, x.dtype)
+        old = ell_ops.TABLE_MAX_LANES
+        ell_ops.TABLE_MAX_LANES = 0  # the scan
+        try:
+            with tracing.recording() as rec:
+                y_scan = getattr(_eager(op), name)(x)
+        finally:
+            ell_ops.TABLE_MAX_LANES = old
+        assert rec.counts["ell_scan"] == 55 and "ell_launch" not in rec.counts
+        assert ref.rel(y, y_scan) < 1e-13
+    names = kernel_names(lambda: _eager(op).matvec(x64))
+    assert "ell_table_kernelId" in names and "plan_sum_kernelId" in names
+    fresh = _eager(op)
+    outs = [fresh.matvec(x64) for _ in range(3)]
+    (gr,) = fresh.graphs.graphs.values()
+    assert gr.counts == {"ell_launch": 1}
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0])
+
+
 def test_scatter_paths_vs_scipy(fp64, config_a):
     """The ``index_add_`` engines: BASELINE config 1 as ``format="csr"``
     (f64, 1e-10), config 2 as a Hilbert-sorted COO in f32 (1e-6) and f64

@@ -32,33 +32,45 @@ torch.set_num_threads(1)
 SEG_CAP = 1024
 
 
-def operator(monkeypatch, case, device="cpu"):
-    """``(m, op)`` of the cases `operator` builds (with their plans)."""
+def matrix(case, dtype=np.float32):
+    """The case's scipy matrix, its values (valued cases) in ``dtype``."""
     if case == "valued":
         m = powerlaw(3000, 3000, 60_000, seed=1)
+    elif case == "segmented":
+        m = powerlaw(4096, 4096, 50 * 4096, seed=0)
+    elif case == "binary":
+        return powerlaw(2000, 60_000, 80_000, seed=2, binary=True)
+    else:
+        # past 65,536 X rows a binary layout keeps plain columns
+        m = powerlaw(3000, 70_000 if case == "binary_wide" else 3000, 90_000,
+                     seed=3, binary=case.startswith("binary"))
+    return m if case.startswith("binary") else m.astype(dtype)
+
+
+def operator(monkeypatch, case, device="cpu", dtype=np.float32):
+    """``(m, op)`` of the cases `operator` builds (with their plans)."""
+    m = matrix(case, dtype)
+    if case == "valued":
         return m, ft.operator(m, format="ell", transpose=False, device=device)
     if case == "segmented":
         monkeypatch.setattr(linops, "SEG_COLS", SEG_CAP)
         monkeypatch.setattr(linops._balanced_seg_cols, "__defaults__",
                             (SEG_CAP,))
-        m = powerlaw(4096, 4096, 50 * 4096, seed=0)
         return m, ft.operator(m, transpose=False, device=device)
-    m = powerlaw(2000, 60_000, 80_000, seed=2, binary=True)
     return m, ft.operator(m, format="ell", transpose=False, device=device)
 
 
-def layout(monkeypatch, case, device="cpu"):
-    """The case's ELL layout on ``device``."""
+def layout(monkeypatch, case, device="cpu", dtype=np.float32):
+    """The case's ELL layout on ``device`` (valued cases' values in
+    ``dtype``)."""
     if case in ("valued", "segmented", "binary"):
-        return operator(monkeypatch, case, device)[1].fwd
+        return operator(monkeypatch, case, device, dtype)[1].fwd
     binary = case.startswith("binary")
     if case == "binary_unsplit":
         # each packed chunk on its own body (merged, every one is a
         # sweep's whole-row sub-part)
         monkeypatch.setattr(ell_ops, "USE_SWEEP", False)
-    # past 65,536 X rows a binary layout keeps plain columns
-    m = powerlaw(3000, 70_000 if case == "binary_wide" else 3000, 90_000,
-                 seed=3, binary=binary)
+    m = matrix(case, dtype)
     coo = (ft.binary_coo_from_scipy if binary
            else ft.coo_from_scipy)(m, device=device)
     return ft.build_ell(coo, split_rows=0, device=device)

@@ -328,3 +328,39 @@ def test_cg_sync_spans_count_read_backs(tol, stops_on_tol):
     solve = rec.spans[0]
     assert solve.name == "cg.solve" and solve.parent is None
     assert all(s.parent is solve and s.root is solve for s in syncs + iters)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_ell_scan_spans_count_their_ops_and_buckets(monkeypatch, segmented):
+    """The reference's per-bucket ELL scan (f64 on the CPU, SpMV and SpMM,
+    f32 and f64 operands): one ``ell_scan`` span a product, its ``ops``
+    the aten ops it dispatches, and one ``ell_scan`` a bucket scanned."""
+    from fastsparse_torch import linops
+    from fastsparse_torch.bench.matrices import powerlaw
+
+    if segmented:
+        monkeypatch.setattr(linops, "SEG_COLS", 512)
+        monkeypatch.setattr(linops._balanced_seg_cols, "__defaults__",
+                            (512,))
+    m = powerlaw(1500, 1500, 30_000, seed=4, alpha=1.0, dtype=np.float64)
+    op = ft.operator(m, format="ell", transpose=False, device="cpu")
+    segs = getattr(op.fwd, "segments", (op.fwd,))
+    assert len(segs) == (3 if segmented else 1)
+    buckets = sum(len(s.buckets) for s in segs)
+    g = torch.Generator().manual_seed(6)
+    operands = [torch.randn((m.shape[1],) + s, generator=g, dtype=dt)
+                for s in ((), (5,)) for dt in (torch.float64, torch.float32)]
+
+    def calls():
+        for x in operands:
+            (op.matvec if x.ndim == 1 else op.matmat)(x)
+
+    rec, d = _dispatched(monkeypatch, calls)
+    scans = [s for s in rec.spans if s.name == "ell_scan"]
+    assert len(scans) == len(operands)
+    for s in rec.spans:
+        assert s.counts.get("ops", 0) == d.by_span[s], (s.name, s.attrs)
+    for s in scans:
+        assert s.attrs == {"dtype": "float64"}
+        assert s.parent.name == "product" and s.counts["ell_scan"] == buckets
+    assert d.by_span[None] == 0 and "ell_launch" not in rec.counts
